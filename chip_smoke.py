@@ -7,15 +7,27 @@ Phases, each reported on its own line:
   1. the card's name and power limit, as nvidia-smi reports them;
   2. build the native engine (g++) and the verify kernel (nvcc, sm_90a) from
      the checkout's sources, both started together;
-  3. hold the verify kernel against its plain PyTorch version on the card
-     (256 MiB block, a base that wraps past 2^64, a lane count that is not a
-     multiple of 32768, corruption at the first, last and random lanes) and
-     time it at the main path's 2 MiB chunk and at 256 MiB;
-  4. the main path: a 4 GiB storage -> GPU write + read through the CLI with
+  3. hold the verify kernel against its plain PyTorch version on the card:
+     a 256 MiB block, a base that wraps past 2^64, a lane count that is not
+     a multiple of 32768, a start 8 bytes past a 16-byte boundary, a word
+     count that is not a multiple of the per-pass width, corruption at the
+     first, last and random lanes, and clean and corrupt launches
+     alternating back to back on one stream and on two streams;
+  4. time it at 2 MiB, the verify run's 4 MiB block, the direct run's
+     8 MiB block and 256 MiB, each with the data in L2 (as the path finds a
+     block right after its copy) and out of it (buffers rotating over
+     128 MiB): device time per launch from one CUDA graph of 200 launches
+     replayed and timed with CUDA events, the wrapper's host time per call
+     (perf_counter over a loop, then one synchronise), the plain version,
+     and torch.count_nonzero over the same bytes as the floor one PyTorch
+     call reaches;
+  5. the main path: a 4 GiB storage -> GPU write + read through the CLI with
      the direct backend (README's documented setting);
-  5. a 1 GiB staged write + read with on-device --verify, clean (the verify
-     kernel's launch counter must cover every chunk read), then with one
-     corrupt byte, which must be reported at its exact file offset.
+  6. a 1 GiB staged write + read with on-device --verify in 4 MiB blocks of
+     2 MiB chunks: clean, where the kernel must be launched exactly once per
+     block read, then with one corrupt byte inside a block's second chunk
+     and then one at the first byte of a block's second chunk, each of
+     which must be reported at its exact file offset.
 
 The second-to-last line is a JSON object describing each kernel of the path;
 the last line is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -45,6 +57,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 ALU_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit peak rate
 VERIFY_OPS_PER_BYTE = 3     # add, xor and compares per 8-byte word, per byte
 CHUNK = 2 << 20             # the staged path's transfer chunk
+BLOCK = 4 << 20             # the staged verify run's block
+TIME_SIZES = (CHUNK, BLOCK, 8 << 20, 256 << 20)  # 8 MiB: the direct block
+COLD_BYTES = 128 << 20      # rotating buffers, 2.5x the 50 MB L2
+GRAPH_LAUNCHES = 200
 
 
 def phase(name: str, msg: str) -> None:
@@ -73,11 +89,20 @@ def build_all(engine, verify_kernel) -> None:
                        f"{kern.result():.1f}s")
 
 
-def pattern_lanes(n_lanes: int, off: int, salt: int) -> torch.Tensor:
-    """The on-disk pattern as int32 lanes on the card, made with numpy."""
+def pattern_lanes(n_lanes: int, off: int, salt: int,
+                  misalign: bool = False) -> torch.Tensor:
+    """The on-disk pattern as int32 lanes on the card, made with numpy;
+    with misalign, the lanes start 8 bytes past a 16-byte boundary."""
     words = (np.arange((n_lanes + 1) // 2, dtype=np.uint64) * np.uint64(8)
              + np.uint64(off & U64) + np.uint64(salt & U64))
-    return torch.from_numpy(words.view(np.int32)[:n_lanes]).cuda()
+    host = torch.from_numpy(words.view(np.int32)[:n_lanes])
+    if not misalign:
+        return host.cuda()
+    room = torch.empty(n_lanes + 4, dtype=torch.int32, device="cuda")
+    lanes = room[2:2 + n_lanes]
+    lanes.copy_(host)
+    assert lanes.data_ptr() % 16 == 8
+    return lanes
 
 
 def check_case(vk, integ, name, lanes, off, salt, corrupt) -> int:
@@ -106,33 +131,102 @@ def check_case(vk, integ, name, lanes, off, salt, corrupt) -> int:
     return err
 
 
+def check_pair(vk, integ, name, lanes, off, salt, rng) -> int:
+    """The case clean, then corrupt at the first, last and random lanes."""
+    n = lanes.numel()
+    spots = [0, n - 1] + [int(i) for i in rng.choice(n, 5, replace=False)]
+    return max(check_case(vk, integ, f"{name} clean", lanes, off, salt, []),
+               check_case(vk, integ, f"{name} corrupt", lanes, off, salt,
+                          spots))
+
+
+def check_alternating(vk, integ, streams, name) -> int:
+    """Clean and corrupt 4 MiB blocks launched back to back with no
+    synchronisation between them, round robin over `streams`: every result
+    must equal the plain version's, which shows that the kernel's ticket
+    resets and that streams do not share a workspace."""
+    off, salt = 9 * BLOCK, 42
+    clean = pattern_lanes(BLOCK // 4, off, salt)
+    bad = clean.clone()
+    bad[[3, 70001, BLOCK // 4 - 1]] ^= 0x11
+    blocks = [clean.view(torch.uint8), bad.view(torch.uint8)]
+    plain = [tuple(int(v) for v in integ.verify_block_u32(b.view(torch.int32),
+                                                          off, salt))
+             for b in blocks]
+    torch.cuda.synchronize()
+    got = []
+    for i in range(32):
+        with torch.cuda.stream(streams[i % len(streams)]):
+            got.append(vk.verify_block_u32(blocks[i % 2], off, salt))
+    torch.cuda.synchronize()
+    got = [(int(n), int(f)) for n, f in got]
+    err = max(abs(g - p) for i, r in enumerate(got)
+              for g, p in zip(r, plain[i % 2]))
+    if err:
+        raise AssertionError(f"verify kernel {name}: {got} != plain "
+                             f"{plain} alternating")
+    phase("kernel", f"{name}: 32 launches alternating clean/corrupt == "
+                    f"plain {plain}")
+    return err
+
+
 def check_kernel(vk, integ) -> int:
     """All cases; returns the largest kernel-vs-plain difference."""
     rng = np.random.default_rng(20261016)
     off, salt = (1 << 33) + 4096, (1 << 40) + 7
-    n = (256 << 20) // 4
-    big = pattern_lanes(n, off, salt)
-    errs = [check_case(vk, integ, "256MiB clean", big, off, salt, [])]
-    spots = [0, n - 1] + [int(i) for i in rng.choice(n, 5, replace=False)]
-    errs.append(check_case(vk, integ, "256MiB corrupt", big, off, salt,
-                           spots))
-    del big
+    errs = [check_pair(vk, integ, "256MiB", pattern_lanes(
+        (256 << 20) // 4, off, salt), off, salt, rng)]
     woff, wsalt = U64 - (4 << 20) + 1, 12345  # base + 8i wraps mid-block
-    wrap = pattern_lanes((8 << 20) // 4, woff, wsalt)
-    errs.append(check_case(vk, integ, "wrap past 2^64 clean", wrap, woff,
-                           wsalt, []))
-    errs.append(check_case(vk, integ, "wrap past 2^64 corrupt", wrap, woff,
-                           wsalt, [0, wrap.numel() - 1, (1 << 20) + 3]))
+    errs.append(check_pair(vk, integ, "wrap past 2^64", pattern_lanes(
+        (8 << 20) // 4, woff, wsalt), woff, wsalt, rng))
     odd_n = 3 * 32768 + 12345  # not a tile multiple, and odd
-    odd = pattern_lanes(odd_n, 512, 9)
-    errs.append(check_case(vk, integ, "partial tile clean", odd, 512, 9, []))
-    errs.append(check_case(vk, integ, "partial tile corrupt", odd, 512, 9,
-                           [0, odd_n - 1, int(rng.integers(odd_n))]))
+    errs.append(check_pair(vk, integ, "partial tile",
+                           pattern_lanes(odd_n, 512, 9), 512, 9, rng))
+    errs.append(check_pair(vk, integ, "start 8 mod 16", pattern_lanes(
+        BLOCK // 4 + 3, off, salt, misalign=True), off, salt, rng))
+    n_words = 256 * vk.PASS_WORDS + 777  # not a per-pass multiple, and odd
+    errs.append(check_pair(vk, integ, "words not a per-pass multiple",
+                           pattern_lanes(2 * n_words, off, salt), off, salt,
+                           rng))
+    errs.append(check_alternating(vk, integ, [torch.cuda.Stream()],
+                                  "one stream"))
+    errs.append(check_alternating(vk, integ, [torch.cuda.Stream(),
+                                              torch.cuda.Stream()],
+                                  "two streams"))
     return max(errs)
 
 
-def time_events(fn, iters: int) -> float:
-    for _ in range(3):
+def graph_ms(call, bufs) -> float:
+    """Device time per call: one CUDA graph of GRAPH_LAUNCHES calls, over
+    `bufs` in turn, replayed and timed with CUDA events. The replay has no
+    host work between launches, so this is the device's own rate."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up, outside the graph
+        for b in bufs[:2]:
+            call(b)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(GRAPH_LAUNCHES):
+            call(bufs[i % len(bufs)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    replays = 5
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * GRAPH_LAUNCHES)
+
+
+def events_ms(fn, iters: int) -> float:
+    """Events around a host loop: for the plain version, whose many small
+    launches are timed as the caller meets them."""
+    for _ in range(2):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -145,6 +239,36 @@ def time_events(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters: int, loops: int = 5) -> float:
+    """Host time per call: perf_counter over a loop, one final synchronise;
+    the median of `loops` such loops (the host is shared and noisy)."""
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(loops):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        per.append((time.perf_counter() - t0) * 1e3 / iters)
+    return sorted(per)[loops // 2]
+
+
+def profiler_ms(call, bufs, name: str) -> float | None:
+    """Kernel-only device time: the mean CUDA duration of the kernels named
+    `name` that torch.profiler records over GRAPH_LAUNCHES host-launched
+    calls; None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(GRAPH_LAUNCHES):
+            call(bufs[i % len(bufs)])
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and name in e.name]
+    return sum(us) / len(us) / 1e3 if us else None
+
+
 def bound_ms(nbytes: int) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = VERIFY_OPS_PER_BYTE * nbytes / ALU_OPS_PER_S
@@ -152,35 +276,64 @@ def bound_ms(nbytes: int) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_kernel(vk, integ, nbytes: int, iters: int, plain_iters: int):
+def time_kernel(vk, integ, nbytes: int) -> dict:
+    """Phase 4 at one size; returns the numbers of the kernel line."""
     off, salt = 1 << 20, 42
-    lanes = pattern_lanes(nbytes // 4, off, salt)
+    n_lanes = nbytes // 4
+    one = integ.fill_block_u32(n_lanes // 2, off, salt, "cuda")
+    cold = [one] + [one.clone() for _ in range(max(2, COLD_BYTES // nbytes)
+                                               - 1)]
     lib = vk.load_lib()
-    out = torch.zeros(3, dtype=torch.int64, device=lanes.device)
-    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ws = torch.zeros(lib.ebt_verify_workspace_bytes(sms) // 8,
+                     dtype=torch.int64, device="cuda")  # zeroed once
+    out = torch.empty(3, dtype=torch.int64, device="cuda")
     base = (off + salt) & U64
 
-    def kernel():  # the bare launch; comparison launches are not counted
-        lib.ebt_verify_u32(lanes.data_ptr(), lanes.numel(), base,
-                           out.data_ptr(), stream)
+    def kernel(lanes):  # the bare launch; timing launches are not counted
+        rc = lib.ebt_verify_u32(lanes.data_ptr(), n_lanes, base,
+                                out.data_ptr(), ws.data_ptr(), sms,
+                                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"verify kernel launch failed ({rc})")
 
-    raw = lanes.view(torch.uint8)
+    def nonzero(lanes):
+        torch.count_nonzero(lanes.view(torch.int64))
 
-    def wrapper():
-        vk.verify_block_u32(raw, off, salt)
+    def plain():  # both entry points' plain versions, as the kernel fuses
+        integ.verify_block_lanes_plain(one, off, salt)
+        integ.verify_block_u32(one, off, salt)
 
-    def plain():
-        integ.verify_block_lanes_plain(lanes, off, salt)
-        integ.verify_block_u32(lanes, off, salt)
+    raw = one.view(torch.uint8)
+    # the host first: a profiler session leaves the launch path slower
+    r = {"bytes": nbytes,
+         "host": host_ms(lambda: vk.verify_block_u32(raw, off, salt), 2000),
+         "warm": graph_ms(kernel, [one]), "cold": graph_ms(kernel, cold),
+         "nz_warm": graph_ms(nonzero, [one]),
+         "nz_cold": graph_ms(nonzero, cold),
+         "plain": events_ms(plain, 5 if nbytes > (64 << 20) else 50),
+         "prof_warm": profiler_ms(kernel, [one], "verify_u32_kernel"),
+         "prof_cold": profiler_ms(kernel, cold, "verify_u32_kernel")}
+    if int(out[1]) or int(out[2]) != n_lanes // 2:
+        raise AssertionError(f"timed kernel saw bad words: {out.tolist()}")
+    r["bound"], r["by"] = bound_ms(nbytes)
 
-    k = time_events(kernel, iters)
-    w = time_events(wrapper, iters)
-    p = time_events(plain, plain_iters)
-    b, by = bound_ms(nbytes)
-    phase("kernel-time", f"{nbytes >> 20} MiB: kernel {k:.6f} ms, wrapper "
-                         f"{w:.6f} ms, plain {p:.6f} ms, bound {b:.6f} ms "
-                         f"({by}), {nbytes / k / 1e6:.1f} GB/s")
-    return k, w, p, b, by
+    def card(ms):
+        if ms is None:
+            return "not measured"
+        return f"{ms:.6f} ms ({100 * r['bound'] / ms:.1f}% of bound)"
+
+    phase("kernel-time", f"{nbytes >> 20} MiB: device L2-warm "
+                         f"{card(r['warm'])}, L2-cold {card(r['cold'])}; "
+                         f"kernel-only (torch.profiler) L2-warm "
+                         f"{card(r['prof_warm'])}, L2-cold "
+                         f"{card(r['prof_cold'])}; bound {r['bound']:.6f} ms ({r['by']}), wrapper "
+                         f"host {r['host']:.6f} ms/call, plain "
+                         f"{r['plain']:.6f} ms")
+    phase("count-nonzero", f"{nbytes >> 20} MiB: torch.count_nonzero on the "
+                           f"int64 view, device L2-warm {r['nz_warm']:.6f} "
+                           f"ms, L2-cold {r['nz_cold']:.6f} ms")
+    return r
 
 
 @contextlib.contextmanager
@@ -236,32 +389,45 @@ def main_path(cli, d: str) -> None:
                        f"{time.perf_counter() - t0:.1f}s")
 
 
+def flip_byte(path: str, off: int) -> None:
+    with open(path, "r+b") as f:
+        f.seek(off)
+        b = f.read(1)
+        f.seek(off)
+        f.write(bytes([b[0] ^ 0x5A]))
+
+
 def verify_run(cli, vk, d: str) -> int:
-    """Phase 5: staged --verify with the chunk pinned to 2 MiB, clean then
-    with one corrupt byte. Returns the kernel launches of the clean run."""
-    path = os.path.join(d, "f1g")
-    size, block = 1 << 30, 4 << 20
+    """Phase 6: staged --verify with the chunk pinned to 2 MiB, clean, then
+    with a corrupt byte inside a block's second chunk, then (that one
+    repaired) one at the first byte of a block's second chunk. Returns the
+    kernel launches of the clean run."""
+    path, csvp = os.path.join(d, "f1g"), os.path.join(d, "v.csv")
+    size = 1 << 30
     args = ["-t", "2", "-s", "1G", "-b", "4M", "--verify", "42", "--gpuids",
             "0", "--nolive", path]
-    before = sum(vk.LAUNCHES.values())
-    rc, _ = run_cli(cli, ["-w", "-r", *args])
-    launched = sum(vk.LAUNCHES.values()) - before
-    if rc != 0 or launched < size // CHUNK:
+    vk.reset_launches()
+    rc, _ = run_cli(cli, ["-w", "-r", "--csvfile", csvp, *args])
+    launched = sum(vk.LAUNCHES.values())
+    if rc != 0 or launched != size // BLOCK:
         raise AssertionError(f"verify run: rc {rc}, {launched} kernel "
-                             f"launches for {size // CHUNK} chunks read")
+                             f"launches for {size // BLOCK} blocks read")
+    rows = read_csv(csvp)
     phase("verify", f"clean 1 GiB staged --verify: rc 0, {launched} kernel "
-                    f"launches for {size // CHUNK} chunks read")
-    corrupt = 5 * block + CHUNK + 12345  # inside block 5's second chunk
-    with open(path, "r+b") as f:
-        f.seek(corrupt)
-        b = f.read(1)
-        f.seek(corrupt)
-        f.write(bytes([b[0] ^ 0x5A]))
-    rc, err = run_cli(cli, ["-r", *args])
-    want = f"on-device data verification failed at file offset {corrupt}"
-    if rc != 1 or want not in err:
-        raise AssertionError(f"corrupt run: rc {rc}, expected '{want}'")
-    phase("verify", f"corrupt byte found: rc 1, '{want}'")
+                    f"launches for {size // BLOCK} blocks read; WRITE "
+                    f"{rows['WRITE']['MiB/s last']} MiB/s, READ "
+                    f"{rows['READ']['MiB/s last']} MiB/s")
+    inside = 5 * BLOCK + CHUNK + 12345      # inside block 5's second chunk
+    chunk_start = 7 * BLOCK + CHUNK         # block 7's second chunk, byte 0
+    for corrupt, repair in ((inside, None), (chunk_start, inside)):
+        if repair is not None:
+            flip_byte(path, repair)
+        flip_byte(path, corrupt)
+        rc, err = run_cli(cli, ["-r", *args])
+        want = f"on-device data verification failed at file offset {corrupt}"
+        if rc != 1 or want not in err:
+            raise AssertionError(f"corrupt run: rc {rc}, expected '{want}'")
+        phase("verify", f"corrupt byte found: rc 1, '{want}'")
     return launched
 
 
@@ -278,8 +444,8 @@ def main() -> int:
     build_all(engine, vk)
 
     max_err = check_kernel(vk, integ)
-    k2, _, p2, b2, by2 = time_kernel(vk, integ, CHUNK, 2000, 50)
-    time_kernel(vk, integ, 256 << 20, 50, 5)
+    times = {n: time_kernel(vk, integ, n) for n in TIME_SIZES}
+    at_block = times[BLOCK]
 
     with scratch_dir(2 * (4 << 30)) as d:
         vk.reset_launches()  # count only the main path's launches
@@ -297,10 +463,10 @@ def main() -> int:
         "replaces": "elbencho_tpu/ops/pallas_verify.py:63",
         "launches": main_launches,
         "max_abs_err": max_err,
-        "ms": k2,
-        "plain_ms": p2,
-        "bound_ms": b2,
-        "bound_by": by2,
+        "ms": at_block["warm"],
+        "plain_ms": at_block["plain"],
+        "bound_ms": at_block["bound"],
+        "bound_by": at_block["by"],
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

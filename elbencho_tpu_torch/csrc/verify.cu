@@ -1,10 +1,10 @@
 // On-device --verify pattern check for Hopper (sm_90a).
 //
-// Replaces the original package's Pallas TPU kernel _verify_call /
-// _verify_kernel (elbencho_tpu/ops/pallas_verify.py, entry point
-// verify_block_pallas) and, through the same launch, the jitted
-// verify_block_u32 device program (elbencho_tpu/ops/integrity.py): one pass
-// over a staged block yields the count of bad u32 lanes (the Pallas
+// Replaces the original package's Pallas TPU kernel _verify_kernel
+// (elbencho_tpu/ops/pallas_verify.py, driven by _verify_call and the entry
+// point verify_block_pallas) and, through the same launch, its jitted
+// device program integrity.verify_block_u32 (elbencho_tpu/ops/integrity.py):
+// one pass over a staged block yields the count of bad u32 lanes (the Pallas
 // kernel's result), the count of bad u64 words and the index of the first
 // bad word (verify_block_u32's result).
 //
@@ -13,15 +13,33 @@
 // is the word's low half, lane 2i+1 its high half; an odd trailing lane is
 // compared as a low half only, as the Pallas kernel's lane semantics give.
 //
-// Bound: device memory bandwidth. The kernel reads N*4 bytes once and does
-// about 3 integer operations per byte (an add, an xor and two compares per
-// 8-byte word, plus the loop), far below what the SMs can issue per byte
-// of HBM bandwidth. The design follows from that: the expected pattern is
-// computed in registers and never materialised (as the Pallas kernel kept
-// it out of HBM), each thread loads whole u64 words in a grid-stride loop,
-// and the counts are reduced by warp shuffles and shared memory to one
-// atomic per block. CUDA C++ rather than Triton because the u64 carry
-// arithmetic and atomicMin on a u64 are direct here.
+// Bound: bytes. The kernel reads the block once and does a few integer
+// operations per byte, far below what the SMs execute per byte of HBM
+// bandwidth. At the staged path's 4 MiB block the bound is about 1.25 us,
+// less than a launch's fixed cost, so the design keeps bytes in flight and
+// keeps every fixed cost per launch small:
+// - Each thread has kUnroll independent 16-byte loads (ld.global.nc.v2.u64)
+//   in flight before it uses the first. The expected word base + 8*w is
+//   computed in registers; nothing expected is ever stored. A start that
+//   is 8 mod 16 and an odd word count take a scalar head and tail word.
+// - The grid is sized to the work: one CTA per 16 KiB (kThreads x kUnroll
+//   vectors), capped at one wave of kCtasPerSm CTAs per SM that stride over
+//   the rest. A 4 MiB block is 256 CTAs with one pass each; 256 MiB is one
+//   wave that loops.
+// - The cross-CTA reduction needs no contended atomics and no initialised
+//   output: each CTA stores {lanes, words, first} to its own slot of a
+//   workspace the caller owns per stream, fences, and takes a ticket with
+//   one atomicAdd. The last CTA folds the slots, writes the whole int64[3]
+//   result and sets the ticket back to 0 for the next launch on the stream.
+// - The SM count is passed in by the caller, who queries it once per
+//   device: the C entry point makes no device query per call.
+// The staged --verify path launches this once per block, not per chunk, and
+// reads the result once per block (cuda/backend.py).
+//
+// Not used: TMA bulk copies into a shared-memory ring. The vector loads
+// (kUnroll x 16 B x 1024 threads in flight per SM) reach about 90% of the
+// bytes bound at 256 MiB on an H100 SXM (chip_smoke.py, PERF.md), which
+// leaves a ring little to gain and adds its barriers to every launch.
 //
 // The C entry point launches on the caller's stream, allocates nothing and
 // does not synchronise; it returns cudaGetLastError() so the wrapper can
@@ -32,84 +50,158 @@
 
 namespace {
 
+typedef unsigned long long u64;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;      // 16-byte loads in flight per thread
+constexpr int kCtasPerSm = 4;   // the grid's cap: one wave
+constexpr u64 kPassVecs = (u64)kThreads * kUnroll;  // 16 KiB per CTA pass
 constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-verify_u32_kernel(const uint32_t* __restrict__ data, uint64_t n_lanes,
-                  uint64_t base, unsigned long long* __restrict__ out) {
-    const uint64_t n_words = n_lanes / 2;
-    const unsigned long long* __restrict__ words =
-        reinterpret_cast<const unsigned long long*>(data);
+struct Acc {
+    u64 lanes;  // bad u32 lanes
+    u64 words;  // bad u64 words
+    u64 first;  // first bad word, n_words when none
+};
 
-    unsigned long long bad_lanes = 0;
-    unsigned long long bad_words = 0;
-    unsigned long long first_bad = n_words;
-
-    const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
-    for (uint64_t w = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x;
-         w < n_words; w += stride) {
-        const unsigned long long x = __ldg(words + w) ^ (base + 8ull * w);
-        bad_lanes += ((uint32_t)x != 0u) + ((uint32_t)(x >> 32) != 0u);
-        if (x != 0ull) {
-            ++bad_words;
-            first_bad = min(first_bad, (unsigned long long)w);
-        }
+__device__ __forceinline__ void check_word(u64 got, u64 w, u64 base,
+                                           Acc& a) {
+    const u64 x = got ^ (base + 8ull * w);
+    a.lanes += ((uint32_t)x != 0u) + ((uint32_t)(x >> 32) != 0u);
+    if (x != 0ull) {
+        ++a.words;
+        a.first = min(a.first, w);
     }
-    if ((n_lanes & 1ull) && blockIdx.x == 0 && threadIdx.x == 0) {
-        const uint32_t expect = (uint32_t)(base + 8ull * n_words);
-        bad_lanes += __ldg(data + n_lanes - 1) != expect;
-    }
+}
 
+// The CTA's total, valid in thread 0.
+__device__ __forceinline__ Acc cta_reduce(Acc a) {
+    __shared__ u64 s_lanes[kWarps];
+    __shared__ u64 s_words[kWarps];
+    __shared__ u64 s_first[kWarps];
     for (int off = 16; off > 0; off >>= 1) {
-        bad_lanes += __shfl_down_sync(kFull, bad_lanes, off);
-        bad_words += __shfl_down_sync(kFull, bad_words, off);
-        first_bad = min(first_bad, __shfl_down_sync(kFull, first_bad, off));
+        a.lanes += __shfl_down_sync(kFull, a.lanes, off);
+        a.words += __shfl_down_sync(kFull, a.words, off);
+        a.first = min(a.first, __shfl_down_sync(kFull, a.first, off));
     }
-
-    __shared__ unsigned long long s_lanes[kWarps];
-    __shared__ unsigned long long s_words[kWarps];
-    __shared__ unsigned long long s_first[kWarps];
     const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    if (lane == 0) {
-        s_lanes[warp] = bad_lanes;
-        s_words[warp] = bad_words;
-        s_first[warp] = first_bad;
+    if (threadIdx.x % 32 == 0) {
+        s_lanes[warp] = a.lanes;
+        s_words[warp] = a.words;
+        s_first[warp] = a.first;
     }
     __syncthreads();
     if (threadIdx.x == 0) {
         for (int i = 1; i < kWarps; ++i) {
-            bad_lanes += s_lanes[i];
-            bad_words += s_words[i];
-            first_bad = min(first_bad, s_first[i]);
+            a.lanes += s_lanes[i];
+            a.words += s_words[i];
+            a.first = min(a.first, s_first[i]);
         }
-        if (bad_lanes) atomicAdd(&out[0], bad_lanes);
-        if (bad_words) atomicAdd(&out[1], bad_words);
-        if (first_bad < n_words) atomicMin(&out[2], first_bad);
+    }
+    return a;
+}
+
+// ws: 3 * n_slots u64 partials (lanes, words, first; one slot per CTA)
+// followed by the u32 ticket, which is 0 between launches.
+__global__ void __launch_bounds__(kThreads)
+verify_u32_kernel(const uint32_t* __restrict__ data, u64 n_lanes, u64 base,
+                  long long* __restrict__ out, u64* __restrict__ ws,
+                  unsigned n_slots) {
+    const u64 n_words = n_lanes / 2;
+    const u64* __restrict__ words = reinterpret_cast<const u64*>(data);
+    // one scalar word first when the data starts 8 bytes past a 16-byte
+    // boundary; then whole 16-byte vectors; then at most one scalar word
+    const u64 head = (n_words && ((uintptr_t)data & 8u)) ? 1 : 0;
+    const u64 n_vecs = (n_words - head) / 2;
+    const u64 tail = head + 2 * n_vecs;
+    const ulonglong2* __restrict__ vecs =
+        reinterpret_cast<const ulonglong2*>(words + head);
+
+    Acc a{0, 0, n_words};
+    const u64 stride = (u64)gridDim.x * kPassVecs;
+    for (u64 p = (u64)blockIdx.x * kPassVecs + threadIdx.x; p < n_vecs;
+         p += stride) {
+        ulonglong2 v[kUnroll];
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+            const u64 i = p + (u64)k * kThreads;
+            v[k] = i < n_vecs ? __ldg(vecs + i) : make_ulonglong2(0, 0);
+        }
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+            const u64 i = p + (u64)k * kThreads;
+            if (i < n_vecs) {
+                const u64 w = head + 2 * i;
+                check_word(v[k].x, w, base, a);
+                check_word(v[k].y, w + 1, base, a);
+            }
+        }
+    }
+    if (blockIdx.x == 0) {
+        if (threadIdx.x == 0 && head) check_word(__ldg(words), 0, base, a);
+        if (threadIdx.x == 1 && tail < n_words) {
+            check_word(__ldg(words + tail), tail, base, a);
+        }
+        if (threadIdx.x == 2 && (n_lanes & 1ull)) {
+            const uint32_t expect = (uint32_t)(base + 8ull * n_words);
+            a.lanes += __ldg(data + n_lanes - 1) != expect;
+        }
+    }
+
+    a = cta_reduce(a);
+    unsigned* ticket = reinterpret_cast<unsigned*>(ws + 3ull * n_slots);
+    __shared__ bool s_last;
+    if (threadIdx.x == 0) {
+        ws[blockIdx.x] = a.lanes;
+        ws[n_slots + blockIdx.x] = a.words;
+        ws[2ull * n_slots + blockIdx.x] = a.first;
+        __threadfence();  // the slot is visible before the ticket is taken
+        s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (!s_last) return;
+
+    // the last CTA: every other CTA's slot is written; read them from L2
+    Acc t{0, 0, n_words};
+    for (unsigned i = threadIdx.x; i < gridDim.x; i += kThreads) {
+        t.lanes += __ldcg(ws + i);
+        t.words += __ldcg(ws + n_slots + i);
+        t.first = min(t.first, __ldcg(ws + 2ull * n_slots + i));
+    }
+    t = cta_reduce(t);
+    if (threadIdx.x == 0) {
+        out[0] = (long long)t.lanes;
+        out[1] = (long long)t.words;
+        out[2] = (long long)t.first;
+        *ticket = 0u;  // launches on one stream run in order
     }
 }
 
 }  // namespace
 
+// Bytes of the workspace a stream needs on a device with `sms` SMs: the
+// caller allocates it once per (device, stream) and zeroes it once.
+extern "C" uint64_t ebt_verify_workspace_bytes(int sms) {
+    return (uint64_t)(sms < 1 ? 1 : sms) * kCtasPerSm * 3 * 8 + 8;
+}
+
 // data: device pointer to n_lanes u32 lanes, 8-byte aligned.
-// out: device int64[3] = {bad lanes, bad words, first bad word}; the caller
-//      sets it to {0, 0, n_lanes / 2} before the launch.
-// stream: the cudaStream_t to launch on.
+// out: device int64[3] <- {bad lanes, bad words, first bad word (n_lanes / 2
+//      when clean)}; written whole by the launch, needs no prior fill.
+// workspace: ebt_verify_workspace_bytes(sms) bytes, zeroed once, used by
+//      one stream only.
+// sms: the device's SM count. stream: the cudaStream_t to launch on.
 extern "C" int ebt_verify_u32(const void* data, uint64_t n_lanes,
-                              uint64_t base, void* out, void* stream) {
-    const uint64_t n_words = n_lanes / 2;
-    const uint64_t wanted = (n_words + kThreads - 1) / kThreads;
-    int sms = 132;
-    int dev = 0;
-    if (cudaGetDevice(&dev) == cudaSuccess) {
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    const uint64_t cap = (uint64_t)sms * 8;  // 8 resident blocks per SM
+                              uint64_t base, void* out, void* workspace,
+                              int sms, void* stream) {
+    if (sms < 1) return (int)cudaErrorInvalidValue;
+    const unsigned n_slots = (unsigned)sms * kCtasPerSm;
+    const u64 work = (n_lanes / 4 + kPassVecs - 1) / kPassVecs;
     const unsigned grid =
-        (unsigned)(wanted < 1 ? 1 : (wanted < cap ? wanted : cap));
+        (unsigned)(work < 1 ? 1 : (work < n_slots ? work : n_slots));
     verify_u32_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)data, n_lanes, base, (unsigned long long*)out);
+        (const uint32_t*)data, n_lanes, base, (long long*)out, (u64*)workspace,
+        n_slots);
     return (int)cudaGetLastError();
 }

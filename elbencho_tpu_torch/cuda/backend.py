@@ -29,13 +29,15 @@ On the CPU device, which the caller must ask for (EBT_TORCH_DEVICE=cpu or
 device="cpu"), a chunk is snapshotted with clone(): a tensor made with
 from_numpy aliases the engine buffer, which the engine reuses.
 
-With --verify, each staged read chunk is checked on the device by the
-verify kernel (ops/verify_kernel.py, csrc/verify.cu); every chunk's check is
-queued before the first result is read.
+With --verify, each staged read block is copied chunk by chunk into one
+device buffer and checked by one launch of the verify kernel
+(ops/verify_kernel.py, csrc/verify.cu), whose result is read once per
+block.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import sys
@@ -239,24 +241,28 @@ class TorchStagingPath:
                 s = self._streams[device] = torch.cuda.Stream(device)
             return s
 
-    def _copy_to_device(self, view: np.ndarray, device: torch.device):
-        """Enqueue one host -> device copy of `view`; returns (tensor,
-        event). On the CPU the source is snapshotted and there is no
-        event."""
+    def _copy_to_device(self, view: np.ndarray, device: torch.device,
+                        dst: torch.Tensor | None = None):
+        """Enqueue one host -> device copy of `view`, into `dst` when it is
+        given; returns (tensor, event). On the CPU the source is
+        snapshotted and there is no event."""
         src = torch.from_numpy(view)
         if device.type == "cpu":
-            return src.clone(), None
+            return (src.clone() if dst is None else dst.copy_(src)), None
         stream = self._stream(device)
         with torch.cuda.stream(stream):
-            dst = torch.empty(src.numel(), dtype=torch.uint8, device=device)
+            if dst is None:
+                dst = torch.empty(src.numel(), dtype=torch.uint8,
+                                  device=device)
             dst.copy_(src, non_blocking=True)
             event = torch.cuda.Event()
             event.record(stream)
         return dst, event
 
-    def _put(self, view: np.ndarray, device: torch.device) -> _Chunk:
+    def _put(self, view: np.ndarray, device: torch.device,
+             dst: torch.Tensor | None = None) -> _Chunk:
         t0 = time.perf_counter()  # enqueue timestamp (latency clock)
-        arr, event = self._copy_to_device(view, device)
+        arr, event = self._copy_to_device(view, device, dst)
         return _Chunk(arr, event, self.devices.index(device), t0)
 
     def _write_source(self, rank: int, device, length: int) -> torch.Tensor:
@@ -281,12 +287,12 @@ class TorchStagingPath:
 
     # ------------------------------------------------------ on-device verify
 
-    def _raise_verify(self, arr: torch.Tensor, chunk_off: int,
-                      word: int) -> None:
-        """Pinpoint the corrupt byte within the first bad u64 word (device
-        slice fetch) and raise with the exact file offset, like the host
-        check (engine.cpp checkVerifyPattern)."""
-        expect = (chunk_off + 8 * word + self.verify_salt) & ((1 << 64) - 1)
+    def _raise_verify(self, arr: torch.Tensor, off: int, word: int) -> None:
+        """Pinpoint the corrupt byte within the first bad u64 word of `arr`
+        (staged at file offset `off`; device slice fetch) and raise with
+        the exact file offset, like the host check (engine.cpp
+        checkVerifyPattern)."""
+        expect = (off + 8 * word + self.verify_salt) & ((1 << 64) - 1)
         got = bytes(arr[8 * word:8 * word + 8].cpu().numpy())
         bad_byte = 0
         for b in range(len(got)):
@@ -295,52 +301,50 @@ class TorchStagingPath:
                 break
         raise VerifyFailure(
             "on-device data verification failed at file offset "
-            f"{chunk_off + 8 * word + bad_byte}")
+            f"{off + 8 * word + bad_byte}")
 
-    def _staged_verify(self, rank: int, file_off: int, views,
+    def _on_copy_stream(self, device: torch.device):
+        if device.type == "cpu":
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream(device))
+
+    def _staged_verify(self, rank: int, file_off: int, view: np.ndarray,
                        device: torch.device) -> None:
-        """Stage a block's chunks and verify each one's device copy. Runs
+        """Stage a block chunk by chunk into one device buffer and verify
+        it with one kernel launch, whose result is read once. Runs
         synchronously on the engine's callback thread: --verify is a
-        correctness mode, not a throughput mode. Every chunk's check is
-        queued on the copy stream before the first result is read."""
+        correctness mode, not a throughput mode. The kernel and the read
+        are queued on the copy stream behind the block's chunk copies."""
+        n = view.shape[0]
+        n8 = (n // 8) * 8
         chunks: list[_Chunk] = []
-        checks: list = []
         try:
-            off = file_off
-            for v in views:
-                c = self._put(v, device)
-                chunks.append(c)
-                n8 = (v.shape[0] // 8) * 8
-                res = None
-                if n8:
-                    if device.type == "cuda":
-                        with torch.cuda.stream(self._stream(device)):
-                            res = verify_block_u32(c.arr[:n8], off,
-                                                   self.verify_salt)
-                    else:
-                        res = verify_block_u32(c.arr[:n8], off,
-                                               self.verify_salt)
-                checks.append((res, c, v, off, n8))
-                off += v.shape[0]
+            with self._on_copy_stream(device):
+                block = torch.empty(n, dtype=torch.uint8, device=device)
+            c = self.chunk_bytes
+            for s in range(0, n, c):
+                chunks.append(self._put(view[s:s + c], device,
+                                        block[s:s + c]))
+            num_bad = first_bad = 0
+            if n8:
+                with self._on_copy_stream(device):  # read after the kernel
+                    num_bad, first_bad = verify_block_u32(
+                        block[:n8], file_off, self.verify_salt).tolist()
             with self._lock:
                 self._last_h2d[rank] = chunks
-                self._bytes_to_hbm += sum(v.shape[0] for v in views)
-            for res, c, v, chunk_off, n8 in checks:
-                if res is not None:
-                    num_bad, first_bad = res
-                    if int(num_bad):
-                        self._raise_verify(c.arr, chunk_off, int(first_bad))
-                # sub-word tail (<8 bytes, only ever on the block's last
-                # chunk): checked from the host view — too small for a launch
-                for b in range(n8, v.shape[0]):
-                    expect = (chunk_off + n8 + self.verify_salt) & \
-                        ((1 << 64) - 1)
-                    if v[b] != ((expect >> (8 * (b - n8))) & 0xFF):
-                        raise VerifyFailure(
-                            "on-device data verification failed at file "
-                            f"offset {chunk_off + b}")
-            # chunks without a fetched result (sub-8-byte chunks) may still
-            # be copying — wait before the engine may reuse the buffer
+                self._bytes_to_hbm += n
+            if num_bad:
+                self._raise_verify(block, file_off, first_bad)
+            # sub-word tail (<8 bytes, only at the end of a file): checked
+            # from the host view — too small for a launch
+            expect = (file_off + n8 + self.verify_salt) & ((1 << 64) - 1)
+            for b in range(n8, n):
+                if view[b] != ((expect >> (8 * (b - n8))) & 0xFF):
+                    raise VerifyFailure(
+                        "on-device data verification failed at file "
+                        f"offset {file_off + b}")
+            # a block without a launch (under 8 bytes) may still be
+            # copying — wait before the engine may reuse the buffer
             for c in chunks:
                 c.wait()
                 self._sample_chunk(c)
@@ -447,8 +451,7 @@ class TorchStagingPath:
                 if self.device_verify and direction == 0:
                     # only storage reads are verified on device; the write
                     # round-trip stages a pattern the host just generated
-                    self._staged_verify(rank, file_off,
-                                        self._chunk_views(view), device)
+                    self._staged_verify(rank, file_off, view, device)
                 else:
                     self._to_device(rank, buf_ptr, view, device)
             else:  # device -> host (write path source)

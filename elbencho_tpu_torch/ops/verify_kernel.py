@@ -8,10 +8,16 @@ device program with one kernel and two entry points:
 
   verify_block_lanes(block, file_off, salt) -> int
       count of bad u32 lanes, the counterpart of verify_block_pallas;
-  verify_block_u32(block_bytes, file_off, salt) -> (num_bad, first_bad)
-      bad u64 words and the first bad word as device tensors, the
-      counterpart of integrity.verify_block_u32; the staged path queues
-      every chunk's check before it reads the first result.
+  verify_block_u32(block_bytes, file_off, salt) -> int64[2]
+      {bad u64 words, first bad word} as a tensor on the block's device
+      (it unpacks to the two 0-d results of integrity.verify_block_u32,
+      its counterpart); the staged path verifies a whole block with one
+      call and reads the result once.
+
+A launch costs one torch.empty for its int64[3] result and one C call: the
+kernel writes the whole result, and its cross-CTA workspace (one per device
+and stream, zeroed once when it is made) needs no fill either. The SM count
+is queried once per device.
 
 For a CPU tensor each wrapper computes the plain version (ops/integrity.py).
 For a CUDA tensor it builds and launches the kernel or raises: there is no
@@ -38,12 +44,16 @@ BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libebt_torch_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# u64 words one CTA of verify.cu covers per pass (kThreads x kUnroll x 2)
+PASS_WORDS = 2048
 
 # kernel launches per wrapper (the main path's proof that it ran the kernel)
 LAUNCHES = {"verify_block_lanes": 0, "verify_block_u32": 0}
 _count_lock = threading.Lock()
 _lib_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# (device index, stream handle) -> (workspace, SM count)
+_workspaces: dict[tuple[int, int], tuple[torch.Tensor, int]] = {}
 
 
 def reset_launches() -> None:
@@ -80,34 +90,66 @@ def build_lib() -> float:
 
 def load_lib() -> ctypes.CDLL:
     global _lib
+    if _lib is not None:
+        return _lib
     with _lib_lock:
         if _lib is None:
             build_lib()
             lib = ctypes.CDLL(LIB_PATH)
-            lib.ebt_verify_u32.argtypes = [ctypes.c_void_p, ctypes.c_uint64,
-                                           ctypes.c_uint64, ctypes.c_void_p,
-                                           ctypes.c_void_p]
+            lib.ebt_verify_u32.argtypes = [
+                ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p]
             lib.ebt_verify_u32.restype = ctypes.c_int
+            lib.ebt_verify_workspace_bytes.argtypes = [ctypes.c_int]
+            lib.ebt_verify_workspace_bytes.restype = ctypes.c_uint64
             _lib = lib
         return _lib
 
 
-def _launch(lanes: torch.Tensor, n_lanes: int, base: int,
+def workspace(device: int, stream: int) -> tuple[torch.Tensor, int]:
+    """The kernel's cross-CTA workspace for launches on `stream` (a
+    cudaStream_t handle) of CUDA device `device`, and the device's SM
+    count. Made once per (device, stream), zeroed on that stream when it is
+    made; the kernel leaves its ticket at 0 after every launch, and
+    launches on one stream run in order, so they share it. Two streams
+    never do."""
+    key = (device, stream)
+    ws = _workspaces.get(key)
+    if ws is None:
+        lib = load_lib()
+        with _lib_lock:
+            ws = _workspaces.get(key)
+            if ws is None:
+                sms = torch.cuda.get_device_properties(
+                    device).multi_processor_count
+                n = lib.ebt_verify_workspace_bytes(sms) // 8
+                ws = _workspaces[key] = (
+                    torch.zeros(n, dtype=torch.int64, device=device), sms)
+    return ws
+
+
+def _launch(data: torch.Tensor, n_lanes: int, base: int,
             counter: str) -> torch.Tensor:
-    """Launch the kernel over n_lanes int32 lanes on the tensor's current
-    stream; returns the int64[3] result {bad lanes, bad words, first bad
-    word} without waiting for it."""
-    if lanes.data_ptr() % 8:
+    """Launch the kernel over the first n_lanes u32 lanes of `data` on its
+    device's current stream; returns the int64[3] result {bad lanes, bad
+    words, first bad word} without waiting for it."""
+    ptr = data.data_ptr()
+    if ptr % 8:
         raise ValueError("verify kernel: data must be 8-byte aligned")
     lib = load_lib()
-    with torch.cuda.device(lanes.device):
-        out = torch.full((3,), n_lanes // 2, dtype=torch.int64,
-                         device=lanes.device)
-        out[:2].zero_()
-        stream = torch.cuda.current_stream(lanes.device).cuda_stream
-        rc = lib.ebt_verify_u32(lanes.data_ptr(), n_lanes,
-                                base & integrity.U64_MASK, out.data_ptr(),
-                                stream)
+    idx = data.get_device()
+    # the raw cudaStream_t, without building a torch.cuda.Stream per call
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    ws, sms = workspace(idx, stream)
+    out = torch.empty(3, dtype=torch.int64, device=data.device)
+    args = (ptr, n_lanes, base & integrity.U64_MASK, out.data_ptr(),
+            ws.data_ptr(), sms, stream)
+    if torch._C._cuda_getDevice() == idx:
+        rc = lib.ebt_verify_u32(*args)
+    else:
+        with torch.cuda.device(idx):
+            rc = lib.ebt_verify_u32(*args)
     if rc:
         raise RuntimeError(f"verify kernel launch failed (CUDA error {rc})")
     with _count_lock:
@@ -126,7 +168,7 @@ def verify_block_lanes(block: torch.Tensor, file_off: int, salt: int) -> int:
     """Count the u32 lanes of `block` (int32 raw bits) that differ from the
     offset+salt pattern; the counterpart of verify_block_pallas."""
     _check_1d_contiguous(block, torch.int32, "verify_block_lanes")
-    if block.device.type == "cpu":
+    if block.is_cpu:
         return integrity.verify_block_lanes_plain(block, file_off, salt)
     out = _launch(block, block.numel(), file_off + salt,
                   "verify_block_lanes")
@@ -134,18 +176,19 @@ def verify_block_lanes(block: torch.Tensor, file_off: int, salt: int) -> int:
 
 
 def verify_block_u32(block_bytes: torch.Tensor, file_off: int, salt: int):
-    """Verify whole u64 words of a staged chunk (uint8, length a multiple
-    of 8). Returns (num_bad_words, first_bad_word) as 0-d int64 tensors on
-    the block's device; first_bad_word == num_words when clean."""
+    """Verify whole u64 words of a staged block (uint8, length a multiple
+    of 8). Returns int64[2] {num_bad_words, first_bad_word} on the block's
+    device, without waiting for it; first_bad_word == num_words when
+    clean."""
     _check_1d_contiguous(block_bytes, torch.uint8, "verify_block_u32")
     if block_bytes.numel() % 8:
         raise ValueError("verify_block_u32: length must be a multiple of 8")
-    lanes = block_bytes.view(torch.int32)
-    if block_bytes.device.type == "cpu":
-        return integrity.verify_block_u32(
-            lanes, integrity.split_u64(file_off), integrity.split_u64(salt))
-    out = _launch(lanes, lanes.numel(), file_off + salt, "verify_block_u32")
-    return out[1], out[2]
+    if block_bytes.is_cpu:
+        return torch.stack(integrity.verify_block_u32(
+            block_bytes.view(torch.int32), integrity.split_u64(file_off),
+            integrity.split_u64(salt)))
+    return _launch(block_bytes, block_bytes.numel() // 4, file_off + salt,
+                   "verify_block_u32")[1:]
 
 
 def from_jax_verify_scalars(scalars) -> tuple[int, int]:

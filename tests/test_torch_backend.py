@@ -65,7 +65,7 @@ def test_direct_inline_partial_failure_registers_chunks(bench_dir,
     waited = []
     calls = {"n": 0}
 
-    def put(view, device):
+    def put(view, device, dst=None):
         calls["n"] += 1
         if calls["n"] > 1:
             raise RuntimeError("boom on chunk 2")
@@ -84,7 +84,7 @@ def test_direct_inline_error_surfaces(bench_dir, monkeypatch):
     barrier afterwards is clean."""
     sp = TorchStagingPath(_cfg(bench_dir / "x"))
 
-    def put(view, device):
+    def put(view, device, dst=None):
         raise RuntimeError("boom")
 
     monkeypatch.setattr(sp, "_copy_to_device", put)
@@ -101,7 +101,7 @@ def test_direct_barrier_waits_all_before_raising(bench_dir, monkeypatch):
     waited = []
     calls = {"n": 0}
 
-    def put(view, device):
+    def put(view, device, dst=None):
         calls["n"] += 1
         return (torch.from_numpy(view.copy()),
                 _FakeEvent(waited, fail=calls["n"] == 2))
@@ -121,7 +121,7 @@ def test_staged_waits_per_block(bench_dir, monkeypatch):
     monkeypatch.setenv("EBT_TPU_CHUNK_BYTES", str(16 << 10))
     sp = TorchStagingPath(_cfg(bench_dir / "x", backend="staged"))
     waited = []
-    monkeypatch.setattr(sp, "_copy_to_device", lambda v, d: (
+    monkeypatch.setattr(sp, "_copy_to_device", lambda v, d, dst=None: (
         torch.from_numpy(v.copy()), _FakeEvent(waited)))
     buf = np.zeros(64 << 10, dtype=np.uint8)
     assert sp.copy(0, 0, 0, buf.ctypes.data, buf.nbytes, 0) == 0
@@ -173,25 +173,66 @@ def test_write_source_bytes_match_jax(bench_dir, rank):
 
 def test_staged_verify_pinpoints_offset_and_uses_verify_wrapper(
         bench_dir, monkeypatch):
-    """--verify: every chunk goes through the verify wrapper, and a corrupt
-    byte is reported at its exact file offset."""
+    """--verify: a 4-chunk block goes through the verify wrapper once, at
+    the block's file offset, and a corrupt byte is reported at its exact
+    file offset."""
     monkeypatch.setenv("EBT_TPU_CHUNK_BYTES", str(16 << 10))
     sp = TorchStagingPath(_cfg(bench_dir / "x", backend="staged",
                                extra=("--verify", "42")))
     calls = []
     real = verify_kernel.verify_block_u32
     monkeypatch.setattr("elbencho_tpu_torch.cuda.backend.verify_block_u32",
-                        lambda b, off, salt: calls.append(off) or
-                        real(b, off, salt))
+                        lambda b, off, salt: calls.append((off, b.numel()))
+                        or real(b, off, salt))
     file_off = 1 << 20
     buf = _pattern_bytes(64 << 10, file_off, 42)
     assert sp.copy(0, 0, 0, buf.ctypes.data, buf.nbytes, file_off) == 0
-    assert calls == [file_off + i * (16 << 10) for i in range(4)]
+    assert calls == [(file_off, 64 << 10)]
     buf[(40 << 10) + 5] ^= 0x77
     assert sp.copy(0, 0, 0, buf.ctypes.data, buf.nbytes, file_off) == 2
     assert sp.verify_errors[0] == (
         "on-device data verification failed at file offset "
         f"{file_off + (40 << 10) + 5}")
+
+
+@pytest.mark.parametrize("bad", [
+    [(48 << 10) + 1, (16 << 10) + 9000],   # chunks 4 and 2: the later
+    [(32 << 10), (32 << 10) - 1],          # chunk first; a chunk boundary
+    [7, (64 << 10) - 1],                   # first and last byte of the block
+])
+def test_staged_verify_reports_first_bad_byte_in_file_order(
+        bench_dir, monkeypatch, bad):
+    """Several corrupt bytes in one block, in different chunks: the
+    reported offset is the first in file order, as the per-chunk checks of
+    the original report it."""
+    monkeypatch.setenv("EBT_TPU_CHUNK_BYTES", str(16 << 10))
+    sp = TorchStagingPath(_cfg(bench_dir / "x", backend="staged",
+                               extra=("--verify", "5")))
+    file_off = 3 << 20
+    buf = _pattern_bytes(64 << 10, file_off, 5)
+    for b in bad:
+        buf[b] ^= 0x40
+    assert sp.copy(1, 0, 0, buf.ctypes.data, buf.nbytes, file_off) == 2
+    assert sp.verify_errors[1].endswith(f"file offset {file_off + min(bad)}")
+
+
+def test_staged_verify_block_round_trips_through_its_chunk_views(bench_dir,
+                                                                 monkeypatch):
+    """The staged chunks of a verified block are views of one block buffer;
+    the write round trip still serves the staged bytes exactly, and every
+    chunk gets a latency sample."""
+    monkeypatch.setenv("EBT_TPU_CHUNK_BYTES", str(16 << 10))
+    sp = TorchStagingPath(_cfg(bench_dir / "x", backend="staged",
+                               extra=("--verify", "3")))
+    buf = _pattern_bytes(64 << 10, 0, 3)
+    assert sp.copy(2, 0, 0, buf.ctypes.data, buf.nbytes, 0) == 0
+    arrs = sp.last_staged_arrays(2)
+    assert [a.numel() for a in arrs] == [16 << 10] * 4
+    assert len({a.untyped_storage().data_ptr() for a in arrs}) == 1
+    assert sum(h.count for h in sp.device_latency_histograms().values()) == 4
+    out = np.zeros_like(buf)
+    assert sp.copy(2, 0, 1, out.ctypes.data, out.nbytes, 0) == 0
+    assert np.array_equal(out, buf)
 
 
 def test_staged_verify_sub_word_tail_checked_on_host(bench_dir):

@@ -56,6 +56,9 @@ def test_verify_clean_matches_jax(bench_dir, tmp_path, capfd, backend):
 @pytest.mark.parametrize("size,block,corrupt_off", [
     ("1M", "128k", 300001),          # unaligned: byte refinement step
     ("8M", "4M", (3 << 20) + 13),    # second 2MiB chunk of a 4MiB block
+    ("8M", "4M", (4 << 20) + (2 << 20)),  # first byte of a block's 2nd chunk
+    ("8M", "4M", (4 << 20) - 1),     # last byte of a block
+    ("8M", "4M", 4 << 20),           # byte 0 of a block
 ])
 def test_corruption_same_offset_as_jax(bench_dir, capfd, backend, size,
                                        block, corrupt_off):
@@ -71,6 +74,32 @@ def test_corruption_same_offset_as_jax(bench_dir, capfd, backend, size,
     for main in (jax_main, torch_main):
         capfd.readouterr()
         rc = main(["-r", "-t", "1", "-s", size, "-b", block, "--verify", "9",
+                   "--gpuids", "0", "--tpubackend", backend, "--nolive", p])
+        out = capfd.readouterr()
+        assert rc == 1, main
+        assert want in out.out + out.err, main
+
+
+@pytest.mark.parametrize("backend", ["staged", "direct"])
+def test_two_corrupt_chunks_of_one_block_report_first_as_jax(
+        bench_dir, capfd, backend):
+    """Two corrupt bytes in different chunks of one 4 MiB block, the one in
+    the later chunk at the lower position within its chunk: both packages
+    report the first in file order."""
+    p = str(bench_dir / "c2")
+    assert torch_main(["-w", "-t", "1", "-s", "8M", "-b", "4M", "--verify",
+                       "9", "--nolive", p]) == 0
+    first, second = (4 << 20) + (1 << 20) + 7, (4 << 20) + (2 << 20) + 3
+    with open(p, "r+b") as f:
+        for off in (second, first):
+            f.seek(off)
+            b = f.read(1)
+            f.seek(off)
+            f.write(bytes([b[0] ^ 0x3C]))
+    want = f"on-device data verification failed at file offset {first}"
+    for main in (jax_main, torch_main):
+        capfd.readouterr()
+        rc = main(["-r", "-t", "1", "-s", "8M", "-b", "4M", "--verify", "9",
                    "--gpuids", "0", "--tpubackend", backend, "--nolive", p])
         out = capfd.readouterr()
         assert rc == 1, main

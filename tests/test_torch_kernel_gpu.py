@@ -11,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from elbencho_tpu_torch.config import config_from_args
+from elbencho_tpu_torch.cuda.backend import TorchStagingPath
 from elbencho_tpu_torch.ops import integrity, verify_kernel
 
 U64 = (1 << 64) - 1
 CASES = [(0, 1), ((1 << 33) + 4096, (1 << 40) + 7), (U64 - 4095, 1 << 62)]
+PASS = verify_kernel.PASS_WORDS
 
 
 @pytest.fixture()
@@ -29,24 +32,105 @@ def _lanes(n_lanes: int, off: int, salt: int) -> torch.Tensor:
     return torch.from_numpy(words.view(np.int32)[:n_lanes].copy())
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("off,salt", CASES)
-@pytest.mark.parametrize("n_lanes", [1, 12345, 1 << 20])
-def test_kernel_matches_plain(cuda, off, salt, n_lanes):
-    rng = np.random.default_rng(n_lanes)
-    cpu = _lanes(n_lanes, off, salt)
-    bad = rng.choice(n_lanes, min(5, n_lanes), replace=False)
+def _corrupt(cpu: torch.Tensor, seed: int, k: int = 5) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    n = cpu.numel()
+    bad = rng.choice(n, min(k, n), replace=False)
     cpu[torch.from_numpy(bad)] ^= 0x5A
-    gpu = cpu.cuda()
+    if n > 2:
+        cpu[n - 1] ^= 0x100  # the last lane: a tail word or an odd lane
+    return cpu
+
+
+def _check(gpu: torch.Tensor, cpu: torch.Tensor, off: int, salt: int):
+    """Both entry points on `gpu` (lanes at any 8-byte-aligned address)
+    against the plain versions on the same lanes on the CPU."""
     assert verify_kernel.verify_block_lanes(gpu, off, salt) == \
         integrity.verify_block_lanes_plain(cpu, off, salt)
-    n8 = (n_lanes // 2) * 2
+    n8 = (gpu.numel() // 2) * 2
     if n8:
         n, f = verify_kernel.verify_block_u32(gpu[:n8].view(torch.uint8),
                                               off, salt)
         pn, pf = integrity.verify_block_u32(cpu[:n8], off, salt)
         torch.cuda.synchronize()
         assert (int(n), int(f)) == (int(pn), int(pf))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("off,salt", CASES)
+@pytest.mark.parametrize("n_lanes", [1, 12345, 1 << 20])
+def test_kernel_matches_plain(cuda, off, salt, n_lanes):
+    cpu = _corrupt(_lanes(n_lanes, off, salt), n_lanes)
+    _check(cpu.cuda(), cpu, off, salt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_words", [
+    1, 2, 3, PASS - 1, PASS, PASS + 1, 3 * PASS + 1, 256 * PASS - 1,
+    256 * PASS + 1, 1000 * PASS + 3])
+@pytest.mark.parametrize("misalign", [False, True])
+@pytest.mark.parametrize("odd_lane", [False, True])
+@pytest.mark.parametrize("corrupt", [False, True])
+def test_kernel_edges_match_plain(cuda, n_words, misalign, odd_lane,
+                                  corrupt):
+    """Word counts just above and below multiples of the per-pass width
+    and of a whole wave, a start 8 bytes past a 16-byte boundary (the
+    scalar head word), and an odd lane count."""
+    off, salt = (1 << 33) + 4096, 77
+    n_lanes = 2 * n_words + odd_lane
+    cpu = _lanes(n_lanes, off, salt)
+    if corrupt:
+        cpu = _corrupt(cpu, n_words)
+    room = torch.empty(n_lanes + 4, dtype=torch.int32, device="cuda")
+    gpu = room[2:2 + n_lanes] if misalign else room[:n_lanes]
+    gpu.copy_(cpu)
+    assert gpu.data_ptr() % 16 == (8 if misalign else 0)
+    _check(gpu, cpu, off, salt)
+
+
+@pytest.mark.gpu
+def test_kernel_edges_at_a_whole_wave(cuda):
+    """Word counts around the grid's cap (SMs x CTAs per SM x per-pass
+    width), where the CTAs stride a second time."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wave = sms * 4 * PASS
+    for n_words in (wave - 1, wave, wave + 1, 2 * wave + 3):
+        cpu = _corrupt(_lanes(2 * n_words, 8, 9), n_words)
+        _check(cpu.cuda(), cpu, 8, 9)
+
+
+def _alternating(streams):
+    """Clean and corrupt 4 MiB blocks launched back to back, round robin
+    over `streams`, with no synchronisation between launches."""
+    off, salt = 4 << 20, 42
+    clean = _lanes(1 << 20, off, salt)
+    bad = clean.clone()
+    bad[[3, 70000, (1 << 20) - 1]] ^= 0x11
+    blocks = [clean.cuda().view(torch.uint8), bad.cuda().view(torch.uint8)]
+    torch.cuda.synchronize()
+    results = []
+    for i in range(16):
+        with torch.cuda.stream(streams[i % len(streams)]):
+            results.append(verify_kernel.verify_block_u32(blocks[i % 2], off,
+                                                          salt))
+    torch.cuda.synchronize()
+    want = [(0, 1 << 19), (3, 1)]
+    assert [(int(n), int(f)) for n, f in results] == \
+        [want[i % 2] for i in range(16)]
+
+
+@pytest.mark.gpu
+def test_alternating_launches_on_one_stream_reset_the_ticket(cuda):
+    _alternating([torch.cuda.Stream()])
+
+
+@pytest.mark.gpu
+def test_alternating_launches_on_two_streams_use_two_workspaces(cuda):
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    _alternating([s1, s2])
+    w1 = verify_kernel.workspace(0, s1.cuda_stream)
+    w2 = verify_kernel.workspace(0, s2.cuda_stream)
+    assert w1[0].data_ptr() != w2[0].data_ptr()
 
 
 @pytest.mark.gpu
@@ -57,3 +141,28 @@ def test_kernel_counts_launches_and_refuses_misalignment(cuda):
     assert verify_kernel.LAUNCHES["verify_block_lanes"] == before + 1
     with pytest.raises(ValueError, match="aligned"):
         verify_kernel.verify_block_lanes(gpu[1:], 4, 1)
+
+
+@pytest.mark.gpu
+def test_staged_verify_on_the_card(cuda, tmp_path, monkeypatch):
+    """A staged --verify block of 4 chunks on cuda:0: one launch, and a
+    planted byte in the block's second chunk reported at its offset."""
+    monkeypatch.setenv("EBT_TPU_CHUNK_BYTES", str(1 << 20))
+    p = tmp_path / "f"
+    p.write_bytes(b"\0" * (4 << 20))
+    sp = TorchStagingPath(config_from_args(
+        ["-r", "-t", "1", "-b", "4M", "--gpuids", "0", "--tpubackend",
+         "staged", "--verify", "42", "--nolive", str(p)]))
+    assert sp.devices == [torch.device("cuda", 0)]
+    file_off = 12 << 20
+    words = (np.arange(1 << 19, dtype=np.uint64) * np.uint64(8)
+             + np.uint64(file_off + 42))
+    buf = words.view(np.uint8).copy()
+    before = verify_kernel.LAUNCHES["verify_block_u32"]
+    assert sp.copy(0, 0, 0, buf.ctypes.data, buf.nbytes, file_off) == 0
+    assert verify_kernel.LAUNCHES["verify_block_u32"] == before + 1
+    assert len(sp.last_staged_arrays(0)) == 4
+    planted = (1 << 20) + 4
+    buf[planted] ^= 0x81
+    assert sp.copy(0, 0, 0, buf.ctypes.data, buf.nbytes, file_off) == 2
+    assert sp.verify_errors[0].endswith(f"file offset {file_off + planted}")
