@@ -5,8 +5,9 @@
 
 Phases, each reported on its own line:
   1. the card's name and power limit, as nvidia-smi reports them;
-  2. build the native engine (g++) and the verify kernel (nvcc, sm_90a) from
-     the checkout's sources, both started together;
+  2. build the native engine with its CUDA transfer engine (g++) and the
+     kernel library (nvcc, sm_90a, one nvcc per csrc/*.cu) from the
+     checkout's sources, all started together;
   3. hold the verify kernel against its plain PyTorch version on the card:
      a 256 MiB block, a base that wraps past 2^64, a lane count that is not
      a multiple of 32768, a start 8 bytes past a 16-byte boundary, a word
@@ -21,13 +22,28 @@ Phases, each reported on its own line:
      (perf_counter over a loop, then one synchronise), the plain version,
      and torch.count_nonzero over the same bytes as the floor one PyTorch
      call reaches;
-  5. the main path: a 4 GiB storage -> GPU write + read through the CLI with
-     the direct backend (README's documented setting);
-  6. a 1 GiB staged write + read with on-device --verify in 4 MiB blocks of
+  5. hold the fill kernel (B3) against its plain version on the card (a
+     large offset and salt, a wrap past 2^64, odd word counts, a start 8
+     mod 16, 256 MiB) and time it at 4, 8 and 256 MiB the same way, beside
+     one torch.arange writing the same words;
+  6. the direct path: a 4 GiB storage -> GPU write + read through the CLI
+     with the direct backend;
+  7. a 1 GiB staged write + read with on-device --verify in 4 MiB blocks of
      2 MiB chunks: clean, where the kernel must be launched exactly once per
      block read, then with one corrupt byte inside a block's second chunk
      and then one at the first byte of a block's second chunk, each of
-     which must be reported at its exact file offset.
+     which must be reported at its exact file offset;
+  8. the native main path (--tpubackend pjrt, the C++ CUDA engine) at the
+     README's storage -> device setting, 4 GiB written and read through the
+     worker-group API (the counters the CLI does not print: the confirmed
+     tier must be the one the init probe found, the write must run through
+     the deferred D2H engine);
+  9. a 1 GiB native --verify write + read through the CLI: the engine must
+     launch the fill kernel once per block written and the verify kernel
+     once per block read, the file must hold the pattern, and a planted
+     corrupt byte must be reported at its exact offset;
+ 10. direct and native reads of the 4 GiB file in turns, three pairs,
+     printed as measurements (nothing asserted or claimed).
 
 The second-to-last line is a JSON object describing each kernel of the path;
 the last line is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -59,6 +75,9 @@ VERIFY_OPS_PER_BYTE = 3     # add, xor and compares per 8-byte word, per byte
 CHUNK = 2 << 20             # the staged path's transfer chunk
 BLOCK = 4 << 20             # the staged verify run's block
 TIME_SIZES = (CHUNK, BLOCK, 8 << 20, 256 << 20)  # 8 MiB: the direct block
+FILL_SIZES = (BLOCK, 8 << 20, 256 << 20)
+MAIN_ARGS = ["-t", "4", "-s", "4G", "-b", "8M", "--iodepth", "4", "--gpuids",
+             "0", "--lat", "--nolive"]
 COLD_BYTES = 128 << 20      # rotating buffers, 2.5x the 50 MB L2
 GRAPH_LAUNCHES = 200
 
@@ -74,7 +93,9 @@ def gpu_name_and_power() -> str:
     return out.strip().splitlines()[0]
 
 
-def build_all(engine, verify_kernel) -> None:
+def build_all(engine, kernel_build, wrappers) -> None:
+    """The engine (g++) and the kernel library (one nvcc per source) in
+    parallel, then the wrappers' bindings."""
     def timed(fn):
         t0 = time.perf_counter()
         fn()
@@ -82,11 +103,13 @@ def build_all(engine, verify_kernel) -> None:
 
     with ThreadPoolExecutor(2) as pool:
         core = pool.submit(timed, engine.load_lib)
-        kern = pool.submit(timed, verify_kernel.load_lib)
+        kern = pool.submit(timed, kernel_build.build_lib)
         phase("build", f"engine build/torch_core/libebtcore.so "
-                       f"{core.result():.1f}s, kernel "
+                       f"{core.result():.1f}s, kernels "
                        f"build/torch_kernels/libebt_torch_kernels.so "
                        f"{kern.result():.1f}s")
+    for w in wrappers:
+        w.load_lib()
 
 
 def pattern_lanes(n_lanes: int, off: int, salt: int,
@@ -336,6 +359,76 @@ def time_kernel(vk, integ, nbytes: int) -> dict:
     return r
 
 
+def check_fill(fk, integ) -> int:
+    """The fill kernel against the plain words on the card, each case in a
+    buffer with a guard word on both sides; returns the largest absolute
+    difference over the u32 lanes (0 when they agree)."""
+    errs = []
+    for name, n, skip, base in (
+            ("offset 2^33+4096, salt 2^40+7", 1 << 16, 0,
+             (1 << 33) + 4096 + (1 << 40) + 7),
+            ("wrap past 2^64", 4097, 0, U64 - 8 * 2048 + 1),
+            ("odd word count 1", 1, 0, 8),
+            ("odd word count 3", 3, 0, 16),
+            ("odd word count 12345", 12345, 0, 64 + 9),
+            ("start 8 mod 16", 1 << 16, 1, 4096 + 42),
+            ("start 8 mod 16, odd count", 4097, 1, 8192 + 5),
+            ("256MiB", (256 << 20) // 8, 0, (1 << 20) + 42)):
+        buf = torch.full((n + skip + 2,), -1, dtype=torch.int64,
+                         device="cuda")
+        out = buf[skip:skip + n]
+        assert out.data_ptr() % 16 == 8 * skip
+        fk.fill_u64_(out, base)
+        want = integ.expected_words(n, base & U64, "cuda")
+        torch.cuda.synchronize()
+        diff = (out.view(torch.int32).to(torch.int64) & 0xFFFFFFFF) - \
+            (want.view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
+        err = int(diff.abs().max())
+        guards = int((buf[:skip] != -1).sum() + (buf[skip + n:] != -1).sum())
+        if err or guards:
+            raise AssertionError(f"fill kernel {name}: max |kernel - plain| "
+                                 f"{err}, {guards} guard words overwritten")
+        phase("fill", f"{name}: {n} words kernel == plain")
+        errs.append(err)
+    return max(errs)
+
+
+def time_fill(fk, integ, nbytes: int) -> dict:
+    """The fill kernel's device time per launch (CUDA graph replay timed
+    with events) at one size, the plain version's, and one torch.arange
+    writing the same words (a library call computing the same function
+    where the base does not wrap)."""
+    n = nbytes // 8
+    base = (1 << 20) + 42
+    one = torch.empty(n, dtype=torch.int64, device="cuda")
+    cold = [one] + [torch.empty_like(one) for _ in range(
+        max(2, COLD_BYTES // nbytes) - 1)]
+    lib = fk.load_lib()
+
+    def kernel(buf):  # the bare launch; timing launches are not counted
+        rc = lib.ebt_fill_u64(buf.data_ptr(), n, base,
+                              torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"fill kernel launch failed ({rc})")
+
+    def arange(buf):
+        torch.arange(base, base + 8 * n, 8, dtype=torch.int64, out=buf)
+
+    r = {"bytes": nbytes, "warm": graph_ms(kernel, [one]),
+         "cold": graph_ms(kernel, cold), "lib": graph_ms(arange, [one]),
+         "plain": events_ms(lambda: integ.fill_block_u32(n, base, 0, "cuda"),
+                            5 if nbytes > (64 << 20) else 50)}
+    if not torch.equal(one, integ.expected_words(n, base, "cuda")):
+        raise AssertionError("timed fill kernel wrote wrong words")
+    r["bound"] = nbytes / HBM_BYTES_PER_S * 1e3  # writes only: bytes-bound
+    phase("fill-time", f"{nbytes >> 20} MiB: device {r['warm']:.6f} ms "
+                       f"({100 * r['bound'] / r['warm']:.1f}% of bound), "
+                       f"rotating over 128 MiB {r['cold']:.6f} ms; bound "
+                       f"{r['bound']:.6f} ms (bytes), plain "
+                       f"{r['plain']:.6f} ms, torch.arange {r['lib']:.6f} ms")
+    return r
+
+
 @contextlib.contextmanager
 def scratch_dir(need_bytes: int):
     """A private directory on /dev/shm when it has room, else in the
@@ -367,7 +460,7 @@ def run_cli(cli, args: list[str]) -> tuple[int, str]:
 
 
 def main_path(cli, d: str) -> None:
-    """Phase 4: the README's storage -> GPU setting at 4 GiB."""
+    """Phase 6: the README's storage -> GPU setting at 4 GiB, direct."""
     path, csvp = os.path.join(d, "f4g"), os.path.join(d, "p4.csv")
     t0 = time.perf_counter()
     rc, _ = run_cli(cli, ["-w", "-r", "-t", "4", "-s", "4G", "-b", "8M",
@@ -398,7 +491,7 @@ def flip_byte(path: str, off: int) -> None:
 
 
 def verify_run(cli, vk, d: str) -> int:
-    """Phase 6: staged --verify with the chunk pinned to 2 MiB, clean, then
+    """Phase 7: staged --verify with the chunk pinned to 2 MiB, clean, then
     with a corrupt byte inside a block's second chunk, then (that one
     repaired) one at the first byte of a block's second chunk. Returns the
     kernel launches of the clean run."""
@@ -431,43 +524,181 @@ def verify_run(cli, vk, d: str) -> int:
     return launched
 
 
+def cli_read_gibs(cli, path: str, backend: str, d: str) -> float:
+    """One read of `path` at the main setting through the CLI; GiB/s."""
+    csvp = os.path.join(d, f"pair-{backend}.csv")
+    if os.path.exists(csvp):
+        os.remove(csvp)
+    rc, _ = run_cli(cli, ["-r", *MAIN_ARGS, "--tpubackend", backend,
+                          "--csvfile", csvp, path])
+    if rc != 0:
+        raise AssertionError(f"{backend} read: rc {rc}")
+    return int(read_csv(csvp)["READ"]["MiB/s last"]) / 1024
+
+
+def native_main_path(d: str) -> str:
+    """Phase 8: the native engine's 4 GiB write + read at the main setting,
+    through the worker group a program drives (the CLI's own layer), so
+    the engine's tier, cache and d2h counters can be read. Returns the
+    file's path."""
+    from elbencho_tpu_torch.common import BenchPhase
+    from elbencho_tpu_torch.config import config_from_args
+    from elbencho_tpu_torch.workers.local import LocalWorkerGroup
+
+    path = os.path.join(d, "f4g")
+    cfg = config_from_args(["-w", "-r", *MAIN_ARGS, "--tpubackend", "pjrt",
+                            path])
+    group = LocalWorkerGroup(cfg)
+    t0 = time.perf_counter()
+    group.prepare()
+    try:
+        probe = "zero_copy" if group.plugin_caps()["dma_map"] else "staged"
+        for op, ph in (("WRITE", BenchPhase.CREATEFILES),
+                       ("READ", BenchPhase.READFILES)):
+            group.start_phase(ph, "smoke")
+            while not group.wait_done(1000):
+                pass
+            res = group.phase_results()
+            errs = [r.error for r in res if r.error]
+            moved = sum(r.ops.bytes for r in res)
+            if errs or moved != 4 << 30:
+                raise AssertionError(f"native {op}: {errs}, moved {moved}")
+            secs = max(max(r.elapsed_us_list) for r in res) / 1e6
+            h = group.device_latency()["0"]
+            clock = group.device_latency_clock()["0"]
+            phase("native", f"{op} {moved / secs / (1 << 30):.3f} GiB/s, "
+                            f"GPU 0 xfer p50 {h.percentile_us(50.0)} us p99 "
+                            f"{h.percentile_us(99.0)} us (clock {clock})")
+        tier, d2h = group.data_path_tier(), group.d2h_tier()
+        stats, cache = group.d2h_stats(), group.reg_cache_stats()
+        if tier != probe:
+            raise AssertionError(f"confirmed tier {tier} != probed {probe} "
+                                 f"(registration cache {cache})")
+        if d2h != "deferred" or stats["deferred_count"] <= 0:
+            raise AssertionError(f"d2h ran {d2h}: {stats}")
+        phase("native", f"tier {tier} (probe {probe}); registration cache "
+                        f"{cache}; d2h {d2h}, {stats['deferred_count']} "
+                        f"blocks deferred; 4 GiB native write+read took "
+                        f"{time.perf_counter() - t0:.1f}s")
+    finally:
+        group.teardown()
+    return path
+
+
+def native_verify_run(cli, native, d: str) -> dict:
+    """Phase 9: 1 GiB native --verify write + read; returns the engine's
+    kernel launches of the clean run."""
+    path, csvp = os.path.join(d, "n1g"), os.path.join(d, "nv.csv")
+    size, salt = 1 << 30, 42
+    args = ["-t", "2", "-s", "1G", "-b", "4M", "--verify", str(salt),
+            "--gpuids", "0", "--tpubackend", "pjrt", "--nolive", path]
+    native.reset_kernel_launches()
+    rc, _ = run_cli(cli, ["-w", "-r", "--csvfile", csvp, *args])
+    launches = native.kernel_launches()
+    blocks = size // BLOCK
+    if rc != 0 or launches != {"verify_u32": blocks, "fill_u64": blocks}:
+        raise AssertionError(f"native verify run: rc {rc}, launches "
+                             f"{launches} for {blocks} blocks each way")
+    rng = np.random.default_rng(7)
+    with open(path, "rb") as f:
+        for off in [0, size - 8] + [8 * int(w) for w in
+                                    rng.integers(0, size // 8, 64)]:
+            f.seek(off)
+            got = int.from_bytes(f.read(8), "little")
+            if got != (off + salt) & U64:
+                raise AssertionError(f"native write at {off}: word {got:#x}")
+    rows = read_csv(csvp)
+    phase("native-verify", f"clean 1 GiB: rc 0, engine launches {launches} "
+                           f"for {blocks} blocks each way, 66 spot-checked "
+                           f"words hold the pattern; WRITE "
+                           f"{rows['WRITE']['MiB/s last']} MiB/s, READ "
+                           f"{rows['READ']['MiB/s last']} MiB/s")
+    corrupt = 9 * BLOCK + CHUNK + 4321
+    flip_byte(path, corrupt)
+    rc, err = run_cli(cli, ["-r", *args])
+    want = f"on-device data verification failed at file offset {corrupt}"
+    if rc != 1 or want not in err:
+        raise AssertionError(f"native corrupt run: rc {rc}, expected "
+                             f"'{want}'")
+    phase("native-verify", f"corrupt byte found: rc 1, '{want}'")
+    os.remove(path)
+    return launches
+
+
+def read_pairs(cli, path: str, d: str) -> None:
+    """Phase 10: direct and native reads of the same file in turns."""
+    for i in range(3):
+        direct = cli_read_gibs(cli, path, "direct", d)
+        nat = cli_read_gibs(cli, path, "pjrt", d)
+        phase("pairs", f"pair {i}: READ direct {direct:.3f} GiB/s, native "
+                       f"{nat:.3f} GiB/s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from elbencho_tpu_torch import cli, engine
+    from elbencho_tpu_torch.cuda import native
+    from elbencho_tpu_torch.ops import fill_kernel as fk
     from elbencho_tpu_torch.ops import integrity as integ
+    from elbencho_tpu_torch.ops import kernel_build
     from elbencho_tpu_torch.ops import verify_kernel as vk
 
     card = gpu_name_and_power()
     print(card, flush=True)
-    build_all(engine, vk)
+    build_all(engine, kernel_build, (vk, fk))
 
     max_err = check_kernel(vk, integ)
     times = {n: time_kernel(vk, integ, n) for n in TIME_SIZES}
     at_block = times[BLOCK]
+    fill_err = check_fill(fk, integ)
+    fill_times = {n: time_fill(fk, integ, n) for n in FILL_SIZES}
+    fill_at_block = fill_times[BLOCK]
 
     with scratch_dir(2 * (4 << 30)) as d:
         vk.reset_launches()  # count only the main path's launches
         main_path(cli, d)
         os.environ["EBT_TPU_CHUNK_BYTES"] = str(CHUNK)
         try:
-            main_launches = verify_run(cli, vk, d)
+            staged_launches = verify_run(cli, vk, d)
         finally:
             del os.environ["EBT_TPU_CHUNK_BYTES"]
+        fk.reset_launches()
+        path = native_main_path(d)
+        launches = native_verify_run(cli, native, d)
+        if fk.LAUNCHES["fill_block_u32"]:
+            raise AssertionError("the fill wrapper launched on the native "
+                                 "path; the engine launches from C++")
+        read_pairs(cli, path, d)
+    phase("launches", f"staged --verify run: {staged_launches} verify "
+                      f"launches (Python wrapper); native --verify run: "
+                      f"{launches} (C++ engine)")
 
     print(json.dumps({"kernels": [{
         "name": "verify_u32",
         "route": "cuda",
         "source": "elbencho_tpu_torch/csrc/verify.cu",
         "replaces": "elbencho_tpu/ops/pallas_verify.py:63",
-        "launches": main_launches,
+        "launches": launches["verify_u32"],
         "max_abs_err": max_err,
         "ms": at_block["warm"],
         "plain_ms": at_block["plain"],
         "bound_ms": at_block["bound"],
         "bound_by": at_block["by"],
         "library_ms": None,
+    }, {
+        "name": "fill_u64",
+        "route": "cuda",
+        "source": "elbencho_tpu_torch/csrc/fill.cu",
+        "replaces": "elbencho_tpu/ops/integrity.py:59",
+        "launches": launches["fill_u64"],
+        "max_abs_err": fill_err,
+        "ms": fill_at_block["warm"],
+        "plain_ms": fill_at_block["plain"],
+        "bound_ms": fill_at_block["bound"],
+        "bound_by": "bytes",
+        "library_ms": fill_at_block["lib"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -464,6 +464,13 @@ class Config:
         the remaining work replanned onto survivors."""
         return self.max_errors > 0 or self.max_errors_pct > 0
 
+    def effective_reg_window(self) -> int:
+        """The --regwindow byte budget the pjrt backend will actually use:
+        the explicit value, or the default (a small multiple of the
+        in-flight window, floored so small configs never thrash)."""
+        return self.reg_window or max(
+            4 * max(1, self.iodepth) * self.block_size, 64 << 20)
+
     def _check_fault_args(self) -> None:
         """Fault-tolerance validation (--retry/--retrybackoff/--maxerrors,
         docs/FAULT_TOLERANCE.md). Every malformed spec is refused with
@@ -600,7 +607,9 @@ class Config:
             return DevBackend.NONE
         if self.tpu_backend_name == "hostsim":
             return DevBackend.HOSTSIM
-        return DevBackend.CALLBACK  # staged/direct (PyTorch, cuda/backend.py)
+        # staged/direct (PyTorch, cuda/backend.py) and pjrt (native C++
+        # CUDA engine, csrc/cuda_path.cpp)
+        return DevBackend.CALLBACK
 
     def selected_phases(self) -> list[BenchPhase]:
         """Ordered phase sequence (reference: Coordinator::runBenchmarks order,
@@ -627,8 +636,15 @@ class Config:
     def _refuse_unported(self) -> None:
         """Refuse every flag whose subsystem the port has not carried over
         from the original package yet (ROADMAP.md lists them in order)."""
+        pjrt = self.tpu_backend_name == "pjrt"
         unported = (
-            ("--tpubackend pjrt", self.tpu_backend_name == "pjrt"),
+            # the native engine's device-side fault policy (lane ejection,
+            # recovery resubmits) and its transfer-manager tier
+            ("--retry with --tpubackend pjrt", pjrt and bool(self.retry_max)),
+            ("--maxerrors with --tpubackend pjrt",
+             pjrt and (self.max_errors_spec or "0").strip() != "0"),
+            ("EBT_PJRT_XFER_MGR",
+             pjrt and os.environ.get("EBT_PJRT_XFER_MGR") is not None),
             ("--service", self.run_as_service),
             ("--hosts", bool(self.hosts)),
             ("--metricsport", bool(self.metrics_port)),
@@ -640,10 +656,11 @@ class Config:
             ("--ingestshards", bool(self.ingest_shards)),
             ("--stripe", bool(self.stripe_policy)),
             ("--tpustripe", self.tpu_stripe),
-            ("--regwindow", bool(self.reg_window)),
-            ("--d2hdepth", bool(self.d2h_depth)),
             ("--chaos", bool(self.chaos_spec)),
-            ("--gpuids with more than one device", len(self.tpu_ids) > 1),
+            # the staged/direct backends drive one device; the native
+            # engine has per-device lanes
+            ("--gpuids with more than one device",
+             len(self.tpu_ids) > 1 and not pjrt),
         )
         for flag, given in unported:
             if given:
@@ -744,6 +761,28 @@ class Config:
                 f"(expected {', '.join(TPU_BACKEND_NAMES)})")
         if self.tpu_ids and not self.tpu_backend_name:
             self.tpu_backend_name = "staged"  # gpuids implies the staged path
+        if self.reg_window and self.tpu_backend_name != "pjrt":
+            # the registration window governs the native path's pin cache;
+            # on any other backend it would be silently ignored
+            raise ProgException(
+                "--regwindow requires the native pjrt backend "
+                "(--tpubackend pjrt)")
+        if self.d2h_depth < 0:
+            raise ProgException("--d2hdepth must be >= 0 (0 = auto)")
+        if self.d2h_depth and self.tpu_backend_name != "pjrt":
+            # the deferred fetch engine lives in the native path; any other
+            # backend would silently ignore the depth
+            raise ProgException(
+                "--d2hdepth requires the native pjrt backend "
+                "(--tpubackend pjrt)")
+        if self.reg_window and self.reg_window < 2 * self.block_size:
+            # the window cache keeps the current and next span pinned: a
+            # smaller budget would run the whole phase on the staged path
+            raise ProgException(
+                f"--regwindow ({self.reg_window}) must be at least 2x the "
+                f"block size ({self.block_size}): the window cache keeps "
+                "the current and next span pinned; a smaller budget would "
+                "run the whole phase on the staged path")
         if self.path_type == BenchPathType.DIR and not self.file_size and \
                 self.run_create_files:
             raise ProgException("-s/--size is required to write files in dir mode")
@@ -1320,8 +1359,10 @@ def build_parser() -> argparse.ArgumentParser:
     tpu.add_argument("--gpuids", "--tpuids", type=str, default="",
                      dest="tpu_ids", metavar="IDS",
                      help="CUDA device index for the storage→GPU memory "
-                          "data path (one device; the port runs on the "
-                          "CPU only when EBT_TORCH_DEVICE=cpu).")
+                          "data path (one device, or several with "
+                          "--tpubackend pjrt, assigned round-robin to "
+                          "threads; the port runs on the CPU only when "
+                          "EBT_TORCH_DEVICE=cpu).")
     tpu.add_argument("--tpubackend", type=str, default="",
                      dest="tpu_backend_name", metavar="KIND",
                      help="Device path backend: hostsim (host-memory "
@@ -1329,7 +1370,10 @@ def build_parser() -> argparse.ArgumentParser:
                           "waited for per block), direct (copies on a side "
                           "stream, waited for at the engine's buffer-reuse "
                           "barrier; overlap depth follows --iodepth, so use "
-                          "--iodepth > 1). pjrt is not yet ported. "
+                          "--iodepth > 1), pjrt (native C++ transfer engine "
+                          "over the CUDA driver API — no Python on the hot "
+                          "path; driver library libcuda.so.1, or the one "
+                          "EBT_CUDA_DRIVER names). "
                           "(Default: staged when --gpuids is given)")
     tpu.add_argument("--gpuperservice", "--tpuperservice", action="store_true",
                      dest="assign_tpu_per_service",
@@ -1343,7 +1387,8 @@ def build_parser() -> argparse.ArgumentParser:
                      dest="reg_window", metavar="SIZE",
                      help="Pinned-registration window budget for the native "
                           "pjrt backend: at most SIZE bytes of host memory "
-                          "are DmaMap-pinned at once (an LRU cache of "
+                          "are pinned (cuMemHostRegister) at once (an LRU "
+                          "cache of "
                           "registration windows replaces whole-file "
                           "pinning, so the zero-copy tier engages even for "
                           "files far larger than pinnable memory). "

@@ -1,0 +1,175 @@
+/* C exports of the native CUDA transfer engine (cuda_path.h), the port's
+ * counterpart of the ebt_pjrt_* family in core/src/capi.cpp that its Python
+ * layer (cuda/native.py) uses. Built into the port's libebtcore.so beside
+ * the engine, so the engine's singletons (reactor hub, UringReg authority)
+ * are shared. The Python layer creates the path, then hands
+ * ebt_cuda_copy_fn() and the handle to ebt_engine_set_dev_callback: after
+ * that no Python runs per block. */
+#include <cstring>
+#include <string>
+#include <vector>
+
+#include "cuda_path.h"
+#include "ebt/engine.h"
+
+using ebt::CudaPath;
+
+namespace {
+
+CudaPath* P(void* p) { return static_cast<CudaPath*>(p); }
+
+void copyOut(const std::string& s, char* buf, int len) {
+  if (!buf || len <= 0) return;
+  std::strncpy(buf, s.c_str(), len - 1);
+  buf[len - 1] = '\0';
+}
+
+}  // namespace
+
+extern "C" {
+
+// device_ids (length n_device_ids, may be 0) selects CUDA device ordinals
+// (--gpuids). Returns nullptr on failure with the reason in errbuf.
+void* ebt_cuda_create(const char* driver_path, uint64_t chunk_bytes,
+                      uint64_t block_size, const int* device_ids,
+                      int n_device_ids, char* errbuf, int errlen) {
+  std::vector<int> ids(device_ids, device_ids + n_device_ids);
+  auto* p = new CudaPath(driver_path, chunk_bytes, block_size, ids);
+  if (!p->ok()) {
+    copyOut(p->error(), errbuf, errlen);
+    delete p;
+    return nullptr;
+  }
+  return p;
+}
+
+void ebt_cuda_destroy(void* p) { delete P(p); }
+
+// The DevCopyFn to pass to ebt_engine_set_dev_callback (ctx = the handle).
+ebt::DevCopyFn ebt_cuda_copy_fn() { return &CudaPath::copyTrampoline; }
+
+int ebt_cuda_num_devices(void* p) { return P(p)->numDevices(); }
+
+void ebt_cuda_drain(void* p) { P(p)->drainAll(); }
+
+void ebt_cuda_stats(void* p, uint64_t* to_hbm, uint64_t* from_hbm) {
+  P(p)->stats(to_hbm, from_hbm);
+}
+
+void ebt_cuda_last_error(void* p, char* buf, int len) {
+  copyOut(P(p)->firstTransferError(), buf, len);
+}
+
+// ---- registered-buffer tier (cuMemHostRegister). The engine drives the
+// lifecycle itself through DevCopyFn directions 4/5/6 when dev_register is
+// set; these are for the Python layer's tier gate, diagnostics and tests.
+
+int ebt_cuda_dma_supported(void* p) { return P(p)->dmaSupported() ? 1 : 0; }
+
+int ebt_cuda_zero_copy_engaged(void* p) {
+  return P(p)->zeroCopyEngaged() ? 1 : 0;
+}
+
+// 0 = registered; nonzero = staged fallback (cause via ebt_cuda_reg_error)
+int ebt_cuda_register(void* p, void* buf, uint64_t len) {
+  return P(p)->registerBuffer(buf, len);
+}
+
+int ebt_cuda_deregister(void* p, void* buf) {
+  return P(p)->deregisterBuffer(buf);
+}
+
+int ebt_cuda_register_window(void* p, void* buf, uint64_t len) {
+  return P(p)->registerWindow(buf, len);
+}
+
+void ebt_cuda_set_reg_window(void* p, uint64_t bytes) {
+  P(p)->setRegWindow(bytes);
+}
+
+// out[6] = {hits, misses, evictions, pinned_bytes, pinned_peak_bytes,
+// staged_fallbacks}
+void ebt_cuda_reg_cache_stats(void* p, uint64_t* out) {
+  CudaPath::RegCacheStats s = P(p)->regCacheStats();
+  out[0] = s.hits;
+  out[1] = s.misses;
+  out[2] = s.evictions;
+  out[3] = s.pinned_bytes;
+  out[4] = s.pinned_peak_bytes;
+  out[5] = s.staged_fallbacks;
+}
+
+// the first registration failure: a clean staged fallback, never a
+// transfer error (kept apart from ebt_cuda_last_error)
+void ebt_cuda_reg_error(void* p, char* buf, int len) {
+  copyOut(P(p)->regError(), buf, len);
+}
+
+uint64_t ebt_cuda_zero_copy_count(void* p) { return P(p)->zeroCopyCount(); }
+
+// ---- lanes and latency
+
+int ebt_cuda_num_lanes(void* p) { return P(p)->numDevices(); }
+
+// out[5] = {submits, awaits, lock_wait_ns, bytes_to_hbm, bytes_from_hbm};
+// 0 ok, -1 for an out-of-range lane
+int ebt_cuda_lane_stats(void* p, int lane, uint64_t* out) {
+  CudaPath::LaneStats s;
+  if (!P(p)->laneStats(lane, &s)) return -1;
+  out[0] = s.submits;
+  out[1] = s.awaits;
+  out[2] = s.lock_wait_ns;
+  out[3] = s.bytes_to_hbm;
+  out[4] = s.bytes_from_hbm;
+  return 0;
+}
+
+int ebt_cuda_single_lane(void* p) { return P(p)->singleLane() ? 1 : 0; }
+
+// buckets holds ebt_histo_num_buckets() entries, meta {count, sum, min,
+// max}; 0 ok, -1 for an out-of-range device index
+int ebt_cuda_dev_histo(void* p, int device, uint64_t* buckets,
+                       uint64_t* meta) {
+  ebt::LatencyHistogram histo;
+  if (!P(p)->deviceLatency(device, &histo)) return -1;
+  histo.exportState(buckets, &meta[0], &meta[1], &meta[2], &meta[3]);
+  return 0;
+}
+
+void ebt_cuda_reset_dev_histos(void* p) { P(p)->resetDeviceLatency(); }
+
+// 1 = host-function completion stamps ("onready"), 0 = await upper bounds
+int ebt_cuda_onready_clock(void* p) { return P(p)->onReadyClock() ? 1 : 0; }
+
+// ---- write leg and kernels
+
+void ebt_cuda_set_d2h_depth(void* p, int depth) { P(p)->setD2HDepth(depth); }
+
+// out[3] = {deferred blocks, barrier wait ns, overlapped bytes}
+void ebt_cuda_d2h_stats(void* p, uint64_t* out) { P(p)->d2hStats(out); }
+
+// kernel_lib: the library exporting the kernels' C entries (built from
+// csrc/*.cu, or the mock). 0 ok, else 1 with the cause in errbuf.
+int ebt_cuda_enable_verify(void* p, uint64_t salt, const char* kernel_lib,
+                           char* errbuf, int errlen) {
+  std::string err = P(p)->enableVerify(salt, kernel_lib);
+  copyOut(err, errbuf, errlen);
+  return err.empty() ? 0 : 1;
+}
+
+int ebt_cuda_enable_write_gen(void* p, uint64_t salt, const char* kernel_lib,
+                              char* errbuf, int errlen) {
+  std::string err = P(p)->enableWriteGen(salt, kernel_lib);
+  copyOut(err, errbuf, errlen);
+  return err.empty() ? 0 : 1;
+}
+
+// out[2] = {verify kernel launches, fill kernel launches} of every path in
+// the process since the last reset
+void ebt_cuda_kernel_launches(uint64_t* out) {
+  CudaPath::kernelLaunches(out);
+}
+
+void ebt_cuda_reset_kernel_launches() { CudaPath::resetKernelLaunches(); }
+
+}  // extern "C"

@@ -1,0 +1,1338 @@
+/* Native CUDA transfer engine. See cuda_path.h for the design and the parts
+ * of the original package's PjrtPath (core/src/pjrt_path.cpp) it ports. */
+#include "cuda_path.h"
+
+#include <algorithm>
+#include <cstdlib>
+#include <cstring>
+
+#include "ebt/engine.h"   // fillVerifyPattern / checkVerifyPattern
+#include "ebt/rand.h"     // rank-seeded random write sources
+#include "ebt/reactor.h"  // host-function landing bridge
+#include "ebt/uring.h"    // unified fixed-buffer registration authority
+
+namespace ebt {
+
+namespace {
+
+std::atomic<uint64_t> g_path_gen{0};
+// the context this thread last made current, and for which path instance
+thread_local cu::CUcontext t_ctx = nullptr;
+thread_local uint64_t t_gen = 0;
+
+bool envSet(const char* name) { return getenv(name) != nullptr; }
+
+uint64_t usSince(std::chrono::steady_clock::time_point t0) {
+  return (uint64_t)std::chrono::duration_cast<std::chrono::microseconds>(
+             std::chrono::steady_clock::now() - t0)
+      .count();
+}
+
+}  // namespace
+
+void CudaPath::latchXferError(const std::string& msg) {
+  MutexLock lk(err_mutex_);
+  if (xfer_error_.empty()) xfer_error_ = msg;
+}
+
+void CudaPath::latchRegError(const std::string& msg) {
+  MutexLock lk(reg_mutex_);
+  if (reg_error_.empty()) reg_error_ = msg;
+}
+
+bool CudaPath::check(const char* what, cu::CUresult rc) {
+  if (rc == cu::CUDA_SUCCESS) return true;
+  latchXferError(cu::errorText(api_, what, rc));
+  return false;
+}
+
+bool CudaPath::makeCurrent(int lane_idx, bool force) {
+  if (lanes_.empty()) return false;
+  Lane& lane = laneFor(lane_idx);
+  if (!force && t_ctx == lane.ctx && t_gen == gen_) return true;
+  if (!check("cuCtxSetCurrent", api_.cuCtxSetCurrent(lane.ctx))) return false;
+  t_ctx = lane.ctx;
+  t_gen = gen_;
+  return true;
+}
+
+CudaPath::CudaPath(const std::string& driver_path, uint64_t chunk_bytes,
+                   uint64_t block_size, const std::vector<int>& device_ids)
+    : chunk_bytes_(chunk_bytes ? chunk_bytes : (2u << 20)),
+      block_size_(block_size),
+      gen_(++g_path_gen) {
+  // the verify pattern is u64-word based; a chunk boundary inside a word
+  // would phase-shift every later chunk's expected pattern
+  chunk_bytes_ &= ~7ull;
+  if (!chunk_bytes_) chunk_bytes_ = 2u << 20;
+  std::string err;
+  if (!cu::loadApi(driver_path, &api_, &err)) {
+    init_error_ = err;
+    return;
+  }
+  cu::CUresult rc = api_.cuInit(0);
+  if (rc) {
+    init_error_ = cu::errorText(api_, "cuInit", rc);
+    return;
+  }
+  int count = 0;
+  rc = api_.cuDeviceGetCount(&count);
+  if (rc) {
+    init_error_ = cu::errorText(api_, "cuDeviceGetCount", rc);
+    return;
+  }
+  if (count <= 0) {
+    init_error_ = "CUDA driver has no devices";
+    return;
+  }
+  std::vector<int> ids = device_ids;
+  if (ids.empty())
+    for (int i = 0; i < count; i++) ids.push_back(i);
+  for (int id : ids) {
+    if (id < 0 || id >= count) {
+      init_error_ = "device id " + std::to_string(id) + " out of range (" +
+                    std::to_string(count) + " addressable devices)";
+      return;
+    }
+  }
+
+  // one lane per selected device: its primary context (the one PyTorch's
+  // runtime uses), an H2D and a D2H stream, its capabilities, its landing
+  // buffer
+  landing_cap_ = std::max(std::max<uint64_t>(block_size_, 8), chunk_bytes_);
+  for (int id : ids) {
+    lanes_.push_back(std::make_unique<Lane>());
+    Lane& l = *lanes_.back();
+    const int li = (int)lanes_.size() - 1;
+    if ((rc = api_.cuDeviceGet(&l.dev, id))) {
+      init_error_ = cu::errorText(api_, "cuDeviceGet", rc);
+      return;
+    }
+    if ((rc = api_.cuDevicePrimaryCtxRetain(&l.ctx, l.dev))) {
+      init_error_ = cu::errorText(api_, "cuDevicePrimaryCtxRetain", rc);
+      return;
+    }
+    l.ctx_retained = true;
+    if (!makeCurrent(li, true)) {
+      init_error_ = firstTransferError();
+      return;
+    }
+    int reg = 0, ro_reg = 0;
+    const struct {
+      const char* what;
+      cu::CUresult rc;
+    } steps[] = {
+        {"cuStreamCreate",
+         api_.cuStreamCreate(&l.h2d, cu::CU_STREAM_NON_BLOCKING)},
+        {"cuStreamCreate",
+         api_.cuStreamCreate(&l.d2h, cu::CU_STREAM_NON_BLOCKING)},
+        {"cuDeviceGetAttribute",
+         api_.cuDeviceGetAttribute(
+             &l.sms, cu::CU_DEVICE_ATTRIBUTE_MULTIPROCESSOR_COUNT, l.dev)},
+        {"cuDeviceGetAttribute",
+         api_.cuDeviceGetAttribute(
+             &reg, cu::CU_DEVICE_ATTRIBUTE_HOST_REGISTER_SUPPORTED, l.dev)},
+        {"cuDeviceGetAttribute",
+         api_.cuDeviceGetAttribute(
+             &ro_reg,
+             cu::CU_DEVICE_ATTRIBUTE_READ_ONLY_HOST_REGISTER_SUPPORTED,
+             l.dev)},
+        {"cuMemAlloc (landing buffer)",
+         api_.cuMemAlloc(&l.landing, landing_cap_)},
+    };
+    for (const auto& s : steps) {
+      if (s.rc) {
+        init_error_ = cu::errorText(api_, s.what, s.rc);
+        return;
+      }
+    }
+    l.host_register = reg != 0;
+    l.read_only_register = ro_reg != 0;
+  }
+
+  // EBT_PJRT_SINGLE_LANE=1 forces one queue shard (the original's A/B
+  // control for the lane split); value-parsed, so "=0" keeps the default
+  const char* sl_env = getenv("EBT_PJRT_SINGLE_LANE");
+  single_lane_ = sl_env && *sl_env && std::strcmp(sl_env, "0") != 0;
+  const int nshards = single_lane_ ? 1 : kQueueShards;
+  for (int s = 0; s < nshards; s++)
+    shards_.push_back(std::make_unique<QueueShard>());
+
+  no_ready_diag_ = envSet("EBT_PJRT_NO_READY");
+  no_latency_diag_ = envSet("EBT_PJRT_NO_LATENCY");
+  onready_ok_ = !no_ready_diag_ && !no_latency_diag_;
+
+  // registered-memory tier: every selected device must support
+  // cuMemHostRegister and the kill switch must be off; then one
+  // register/unregister round trip proves it, as the original probes DmaMap
+  // (slot presence is not capability)
+  dma_ok_ = !envSet("EBT_PJRT_NO_DMAMAP");
+  for (auto& l : lanes_) {
+    if (dma_ok_ && !l->host_register) {
+      dma_ok_ = false;
+      latchRegError(
+          "device does not support cuMemHostRegister "
+          "(CU_DEVICE_ATTRIBUTE_HOST_REGISTER_SUPPORTED is 0)");
+    }
+  }
+  if (dma_ok_) {
+    void* probe_page = nullptr;
+    if (posix_memalign(&probe_page, 4096, 4096) == 0) {
+      if (registerBuffer(probe_page, 4096) != 0)
+        dma_ok_ = false;  // cause stays in reg_error_
+      else
+        deregisterBuffer(probe_page);
+      free(probe_page);
+    }
+  }
+
+  // warm-up transfer per lane at construction (preparation), so the
+  // measured phase starts hot; a driver that cannot move it fails init
+  std::vector<char> probe(std::min<uint64_t>(chunk_bytes_, 1u << 20), 0);
+  for (size_t d = 0; d < lanes_.size(); d++) {
+    makeCurrent((int)d, false);
+    if (submitH2D((int)d, probe.data(), probe.size()) == 0)
+      settle(probe.data(), (int)d, false);
+  }
+  for (auto& lane : lanes_) {
+    lane->bytes_to_hbm.store(0);
+    lane->bytes_from_hbm.store(0);
+    lane->submits.store(0);
+    lane->awaits.store(0);
+    lane->lock_wait_ns.store(0);
+    MutexLock lk(lane->histo_m);
+    lane->histo.reset();
+  }
+  MutexLock lk(err_mutex_);
+  if (!xfer_error_.empty())
+    init_error_ = "warmup transfer failed: " + xfer_error_;
+}
+
+CudaPath::~CudaPath() {
+  if (lanes_.empty()) return;
+  drainAll();
+  std::vector<uintptr_t> leftover;
+  {
+    MutexLock lk(reg_mutex_);
+    for (auto& kv : registered_) leftover.push_back(kv.first);
+  }
+  for (uintptr_t p : leftover) deregisterBuffer((void*)p);
+  for (size_t d = 0; d < lanes_.size(); d++) {
+    Lane& l = *lanes_[d];
+    if (!l.ctx_retained) continue;
+    makeCurrent((int)d, true);
+    if (l.h2d) api_.cuStreamSynchronize(l.h2d);
+    if (l.d2h) api_.cuStreamSynchronize(l.d2h);
+  }
+  {
+    MutexLock lk(rank_mutex_);
+    for (auto& kv : rank_bufs_) {
+      RankBufs& rb = *kv.second;
+      makeCurrent(rb.lane, true);
+      for (cu::CUdeviceptr p : {rb.verify, rb.staged, rb.gen, rb.result})
+        if (p) api_.cuMemFree(p);
+      if (rb.host) api_.cuMemFreeHost(rb.host);
+    }
+    rank_bufs_.clear();
+  }
+  {
+    MutexLock lk(src_mutex_);
+    for (auto& kv : dev_src_) {
+      makeCurrent(kv.second.first, true);
+      api_.cuMemFree(kv.second.second);
+    }
+    dev_src_.clear();
+  }
+  for (size_t d = 0; d < lanes_.size(); d++) {
+    Lane& l = *lanes_[d];
+    if (!l.ctx_retained) continue;
+    makeCurrent((int)d, true);
+    for (cu::CUdeviceptr p : {l.landing, l.verify_ws})
+      if (p) api_.cuMemFree(p);
+    if (l.h2d) api_.cuStreamDestroy(l.h2d);
+    if (l.d2h) api_.cuStreamDestroy(l.d2h);
+    api_.cuDevicePrimaryCtxRelease(l.dev);
+  }
+  // the context this thread had current may be gone now: forget it. The
+  // driver library stays loaded: the runtime that shares it may still call
+  // into it.
+  t_ctx = nullptr;
+  t_gen = 0;
+}
+
+// ---------------------------------------------------------------- completion
+
+void CudaPath::hostFnTrampoline(void* arg) {
+  // runs on the driver's callback thread with the stream blocked: one leaf
+  // lock per histogram and tracker, no driver API call
+  Tracker* t = static_cast<Tracker*>(arg);
+  if (t->device >= 0) t->path->addDevLatency(t->device, usSince(t->t0));
+  // capture the landing fd BEFORE flipping done: the waiter may delete the
+  // tracker the moment done is visible
+  const int reactor_fd = t->reactor_fd;
+  {
+    MutexLock lk(t->m);
+    t->done = true;
+    t->cv.notify_all();
+  }
+  reactorhub::signalFd(reactor_fd);
+}
+
+void CudaPath::addDevLatency(int device_idx, uint64_t us) {
+  if (device_idx < 0 || (size_t)device_idx >= lanes_.size()) return;
+  Lane& lane = *lanes_[device_idx];
+  MutexLock lk(lane.histo_m);
+  lane.histo.add(us);
+}
+
+void CudaPath::attachCompletion(Pending& p, int lane, cu::CUstream stream,
+                                int device_idx, Clock::time_point t0) {
+  p.stream = stream;
+  p.lane = lane;
+  // EBT_PJRT_NO_READY / EBT_PJRT_NO_LATENCY take no samples, as in the
+  // original
+  if (device_idx >= 0 && !no_latency_diag_ && !no_ready_diag_) {
+    p.device = laneIndex(device_idx);
+    p.t0 = t0;
+  }
+  if (onready_ok_.load(std::memory_order_relaxed)) {
+    auto* t = new Tracker();
+    t->path = this;
+    t->device = p.device;
+    t->t0 = p.t0;
+    t->reactor_fd = reactorhub::currentFd();
+    cu::CUresult rc = api_.cuLaunchHostFunc(stream, &hostFnTrampoline, t);
+    if (rc == cu::CUDA_SUCCESS) {
+      p.tracker = t;
+      return;
+    }
+    delete t;
+    if (rc != cu::CUDA_ERROR_NOT_SUPPORTED) {
+      // completion can never be confirmed: the transfer counts as failed
+      latchXferError(cu::errorText(api_, "completion (cuLaunchHostFunc)", rc));
+      p.ready_failed = true;
+      return;
+    }
+    // a driver without host functions: downgrade the advertised clock, as
+    // the original does on a refused OnReady, and await events from here on
+    onready_ok_.store(false, std::memory_order_relaxed);
+  }
+  cu::CUevent ev = nullptr;
+  cu::CUresult rc = api_.cuEventCreate(&ev, cu::CU_EVENT_DISABLE_TIMING);
+  if (rc == cu::CUDA_SUCCESS) {
+    rc = api_.cuEventRecord(ev, stream);
+    if (rc == cu::CUDA_SUCCESS) {
+      p.event = ev;
+      return;
+    }
+    api_.cuEventDestroy(ev);
+    latchXferError(cu::errorText(api_, "completion (cuEventRecord)", rc));
+  } else {
+    latchXferError(cu::errorText(api_, "completion (cuEventCreate)", rc));
+  }
+  p.ready_failed = true;
+}
+
+int CudaPath::awaitRelease(Pending& p) {
+  int rc = 0;
+  if (p.tracker) {
+    Tracker* t = p.tracker;
+    cu::CUresult q = cu::CUDA_SUCCESS;
+    {
+      CondLock lk(t->m);
+      while (!t->done) {
+        // a sticky device error keeps the host function from ever running:
+        // poll the stream while waiting, and give up on an error
+        if (t->cv.wait_for(lk.native(), std::chrono::milliseconds(50)) !=
+                std::cv_status::timeout ||
+            t->done)
+          continue;
+        makeCurrent(p.lane, false);
+        q = api_.cuStreamQuery(p.stream);
+        if (q != cu::CUDA_SUCCESS && q != cu::CUDA_ERROR_NOT_READY) break;
+        q = cu::CUDA_SUCCESS;
+      }
+    }
+    if (q != cu::CUDA_SUCCESS) {
+      // the tracker stays with the stream, which may still run it
+      latchXferError(cu::errorText(api_, "transfer completion", q));
+      rc = 1;
+    } else {
+      delete t;
+    }
+    p.tracker = nullptr;
+  }
+  if (p.event) {
+    makeCurrent(p.lane, false);
+    cu::CUresult e = api_.cuEventSynchronize(p.event);
+    if (e) {
+      latchXferError(cu::errorText(api_, "transfer completion", e));
+      rc = 1;
+    } else if (p.device >= 0) {
+      addDevLatency(p.device, usSince(p.t0));  // await clock: an upper bound
+    }
+    api_.cuEventDestroy(p.event);
+    p.event = nullptr;
+  }
+  if (p.ready_failed) {
+    // the copy was enqueued but its completion is unconfirmable: quiesce
+    // the stream so the engine never reuses memory it may still touch
+    makeCurrent(p.lane, false);
+    api_.cuStreamSynchronize(p.stream);
+    p.ready_failed = false;
+    rc = 1;
+  }
+  if (rc && p.bytes) {
+    // undo the count made at enqueue
+    Lane& lane = laneFor(p.lane);
+    (p.d2h ? lane.bytes_from_hbm : lane.bytes_to_hbm)
+        .fetch_sub(p.bytes, std::memory_order_relaxed);
+  }
+  return rc;
+}
+
+int CudaPath::syncStream(int lane, cu::CUstream stream) {
+  Pending p;
+  attachCompletion(p, lane, stream, -1, {});
+  return awaitRelease(p);
+}
+
+void CudaPath::enqueue(void* buf, std::vector<Pending>& ps) {
+  if (ps.empty()) return;
+  Lane& lane = laneFor(ps.front().lane);
+  QueueShard& shard = shardFor(buf);
+  TimedMutexLock lk(shard.m, lane.lock_wait_ns);
+  auto& q = shard.pending[(uint64_t)(uintptr_t)buf];
+  for (Pending& p : ps) {
+    (p.d2h ? lane.bytes_from_hbm : lane.bytes_to_hbm)
+        .fetch_add(p.bytes, std::memory_order_relaxed);
+    q.push_back(p);
+  }
+}
+
+void CudaPath::waitShardDrained(QueueShard& shard, uint64_t key) const {
+  QueueShard& s = shard;
+  CondLock lk(s.m);
+  while (s.draining.find(key) != s.draining.end()) s.cv.wait(lk.native());
+}
+
+// Directions 2 (pre-reuse) and 7 (pre-write): settle every pending transfer
+// of `buf`. The queue leaves `pending` before its awaits; the draining
+// ledger keeps its span visible to window eviction until they complete.
+int CudaPath::settle(void* buf, int device_idx, bool d2h_barrier) {
+  std::vector<Pending> waiting;
+  uint64_t span = 0;
+  const uint64_t key = (uint64_t)(uintptr_t)buf;
+  Lane& lane = laneFor(device_idx);
+  QueueShard& shard = shardFor(buf);
+  {
+    TimedMutexLock lk(shard.m, lane.lock_wait_ns);
+    auto it = shard.pending.find(key);
+    if (it != shard.pending.end()) {
+      waiting = std::move(it->second);
+      shard.pending.erase(it);
+      for (const Pending& p : waiting) span += p.bytes;
+      shard.draining[key] += span ? span : 1;
+    }
+  }
+  if (waiting.empty()) {
+    // an empty queue is not quiescence while another settle of this
+    // buffer still holds its draining span
+    waitShardDrained(shard, key);
+    return 0;
+  }
+  lane.awaits.fetch_add(1, std::memory_order_relaxed);
+  if (d2h_barrier) {
+    // overlap evidence before any await: fetches that already completed
+    // cost the write loop nothing
+    for (Pending& p : waiting) {
+      if (!p.tracker || !p.d2h) continue;
+      MutexLock lk(p.tracker->m);
+      if (p.tracker->done)
+        d2h_overlap_bytes_.fetch_add(p.bytes, std::memory_order_relaxed);
+    }
+  }
+  auto t0 = Clock::now();
+  int rc = 0;
+  // await ALL before reporting: a failed copy must not leave its siblings
+  // still touching the buffer the engine is about to reuse
+  for (Pending& p : waiting)
+    if (awaitRelease(p)) rc = 1;
+  if (d2h_barrier)
+    d2h_await_wait_ns_.fetch_add(
+        (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(
+            Clock::now() - t0)
+            .count(),
+        std::memory_order_relaxed);
+  {
+    TimedMutexLock lk(shard.m, lane.lock_wait_ns);
+    auto it = shard.draining.find(key);
+    if (it != shard.draining.end()) {
+      it->second -= std::min(it->second, span ? span : 1);
+      if (!it->second) shard.draining.erase(it);
+    }
+    shard.cv.notify_all();
+  }
+  waitShardDrained(shard, key);
+  return rc;
+}
+
+// ---------------------------------------------------------------- buffers
+
+CudaPath::RankBufs& CudaPath::rankBufs(int worker_rank, int lane) {
+  MutexLock lk(rank_mutex_);
+  auto& slot = rank_bufs_[{worker_rank, lane}];
+  if (!slot) {
+    slot = std::make_unique<RankBufs>();
+    slot->lane = lane;
+  }
+  return *slot;
+}
+
+bool CudaPath::ensureBuffer(int lane, cu::CUdeviceptr* p, uint64_t* cap,
+                            uint64_t len) {
+  if (*p && *cap >= len) return true;
+  // first use by this rank (or a longer block than ever before): the only
+  // allocation on a worker thread. A buffer being replaced may still be read
+  // by the lane's streams, so they drain before it is freed.
+  uint64_t want = std::max(std::max(len, block_size_), (uint64_t)8);
+  if (*p) {
+    Lane& l = laneFor(lane);
+    if (syncStream(lane, l.h2d) || syncStream(lane, l.d2h)) return false;
+    api_.cuMemFree(*p);
+    *p = 0;
+    *cap = 0;
+  }
+  if (!check("cuMemAlloc", api_.cuMemAlloc(p, want))) return false;
+  *cap = want;
+  return true;
+}
+
+// ---------------------------------------------------------------- read leg
+
+int CudaPath::submitH2D(int device_idx, const char* buf, uint64_t len) {
+  // One range lookup per block: every chunk shares the answer. The
+  // registration check and an in-flight hold are taken together under
+  // reg_mutex_, so a window eviction cannot unregister the range between the
+  // check and the copies; the hold sits in the shard's draining ledger until
+  // the enqueued pendings take over. Under EBT_PJRT_NO_READY the tier is
+  // excluded, as in the original.
+  const int li = laneIndex(device_idx);
+  Lane& lane = *lanes_[li];
+  QueueShard& shard = shardFor(buf);
+  const uint64_t key = (uint64_t)(uintptr_t)buf;
+  bool zc;
+  {
+    TimedMutexLock rlk(reg_mutex_, lane.lock_wait_ns);
+    zc = dma_ok_ && !no_ready_diag_ && bufferRegisteredLocked(buf, len);
+    if (zc) {
+      MutexLock slk(shard.m);
+      shard.draining[key] += len ? len : 1;
+    }
+  }
+  std::vector<Pending> submitted;
+  int rc = 0;
+  for (uint64_t off = 0; off < len;) {
+    const uint64_t n = std::min(chunk_bytes_, len - off);
+    // the block's chunks land at their offsets in the lane's landing buffer
+    const uint64_t dst = off + n <= landing_cap_ ? off : 0;
+    auto t0 = Clock::now();
+    if (!check("cuMemcpyHtoDAsync", api_.cuMemcpyHtoDAsync(
+                                        lane.landing + dst, buf + off, n,
+                                        lane.h2d))) {
+      rc = 1;
+      break;
+    }
+    if (zc) zero_copy_count_.fetch_add(1, std::memory_order_relaxed);
+    Pending p;
+    p.bytes = n;
+    attachCompletion(p, li, lane.h2d, li, t0);
+    submitted.push_back(p);
+    off += n;
+  }
+  // chunks copied before a failure may still be reading the buffer: they
+  // are enqueued either way so the barrier waits them out
+  enqueue((void*)buf, submitted);
+  if (zc) {
+    TimedMutexLock lk(shard.m, lane.lock_wait_ns);
+    auto it = shard.draining.find(key);
+    if (it != shard.draining.end()) {
+      it->second -= std::min(it->second, len ? len : 1);
+      if (!it->second) shard.draining.erase(it);
+    }
+    shard.cv.notify_all();
+  }
+  return rc;
+}
+
+// --verify: the block's chunks land in one device block buffer, the verify
+// kernel checks the whole block with one launch on the lane's H2D stream
+// (behind the copies), and its int64[3] result comes back once into pinned
+// memory. A mismatch is refined to the exact byte from the device copy of
+// the first bad word, as the original's verifyStagedChunk does.
+int CudaPath::submitH2DVerified(int worker_rank, int device_idx,
+                                const char* buf, uint64_t len,
+                                uint64_t file_off) {
+  const int li = laneIndex(device_idx);
+  Lane& lane = *lanes_[li];
+  const uint64_t n8 = len / 8 * 8;
+  if (n8) {
+    RankBufs& rb = rankBufs(worker_rank, li);
+    if (!ensureBuffer(li, &rb.verify, &rb.verify_cap, n8)) return 1;
+    if (!rb.result && !check("cuMemAlloc", api_.cuMemAlloc(&rb.result, 24)))
+      return 1;
+    if (!rb.host && !check("cuMemHostAlloc",
+                           api_.cuMemHostAlloc((void**)&rb.host, 32, 0)))
+      return 1;
+    std::vector<Pending> waits;
+    int rc = 0;
+    for (uint64_t off = 0; off < n8;) {
+      const uint64_t n = std::min(chunk_bytes_, n8 - off);
+      auto t0 = Clock::now();
+      if (!check("verify cuMemcpyHtoDAsync",
+                 api_.cuMemcpyHtoDAsync(rb.verify + off, buf + off, n,
+                                        lane.h2d))) {
+        rc = 1;
+        break;
+      }
+      Pending p;
+      attachCompletion(p, li, lane.h2d, li, t0);
+      waits.push_back(p);
+      off += n;
+    }
+    if (rc == 0) {
+      int krc = verify_fn_((const void*)(uintptr_t)rb.verify, n8 / 4,
+                           file_off + verify_salt_,
+                           (void*)(uintptr_t)rb.result,
+                           (void*)(uintptr_t)lane.verify_ws, lane.sms,
+                           lane.h2d);
+      if (krc) {
+        latchXferError("verify kernel launch failed: CUDA error " +
+                       std::to_string(krc));
+        rc = 1;
+      } else {
+        verify_launches_.fetch_add(1, std::memory_order_relaxed);
+        if (!check("verify result cuMemcpyDtoHAsync",
+                   api_.cuMemcpyDtoHAsync(rb.host, rb.result, 24, lane.h2d)))
+          rc = 1;
+      }
+    }
+    for (Pending& p : waits)  // await ALL even after a failure
+      if (awaitRelease(p)) rc = 1;
+    if (syncStream(li, lane.h2d)) rc = 1;
+    if (rc) return 1;
+    if (rb.host[1] != 0) {
+      const uint64_t first = (uint64_t)rb.host[2];
+      const uint64_t word_off = file_off + 8 * first;
+      uint64_t bad_byte = 0;
+      if (check("verify word cuMemcpyDtoHAsync",
+                api_.cuMemcpyDtoHAsync(&rb.host[3], rb.verify + 8 * first, 8,
+                                       lane.h2d)) &&
+          syncStream(li, lane.h2d) == 0) {
+        const uint64_t got = (uint64_t)rb.host[3];
+        const uint64_t expect = word_off + verify_salt_;
+        for (int b = 0; b < 8; b++) {
+          if (((got >> (8 * b)) & 0xFF) != ((expect >> (8 * b)) & 0xFF)) {
+            bad_byte = b;
+            break;
+          }
+        }
+      }
+      latchXferError("on-device data verification failed at file offset " +
+                     std::to_string(word_off + bad_byte));
+      return 2;
+    }
+  }
+  if (len > n8) {
+    // the sub-word tail is too small for the kernel: checked on the host
+    uint64_t bad = checkVerifyPattern(buf + n8, len - n8, file_off + n8,
+                                      verify_salt_);
+    if (bad != UINT64_MAX) {
+      latchXferError("data verification failed at file offset " +
+                     std::to_string(bad));
+      return 2;
+    }
+  }
+  lane.bytes_to_hbm.fetch_add(len, std::memory_order_relaxed);
+  return 0;
+}
+
+// ---------------------------------------------------------------- write leg
+
+int CudaPath::roundTripH2D(int worker_rank, int device_idx, const char* buf,
+                           uint64_t len) {
+  // synchronous: verify is a correctness mode; the next direction-1 fetch
+  // of this rank serves these bytes back
+  const int li = laneIndex(device_idx);
+  Lane& lane = *lanes_[li];
+  RankBufs& rb = rankBufs(worker_rank, li);
+  rb.staged_len = 0;
+  if (!ensureBuffer(li, &rb.staged, &rb.staged_cap, len)) return 1;
+  std::vector<Pending> waits;
+  int rc = 0;
+  for (uint64_t off = 0; off < len;) {
+    const uint64_t n = std::min(chunk_bytes_, len - off);
+    auto t0 = Clock::now();
+    if (!check("round-trip cuMemcpyHtoDAsync",
+               api_.cuMemcpyHtoDAsync(rb.staged + off, buf + off, n,
+                                      lane.h2d))) {
+      rc = 1;
+      break;
+    }
+    Pending p;
+    attachCompletion(p, li, lane.h2d, li, t0);
+    waits.push_back(p);
+    off += n;
+  }
+  for (Pending& p : waits)
+    if (awaitRelease(p)) rc = 1;
+  if (rc) return 1;
+  rb.staged_len = len;
+  lane.bytes_to_hbm.fetch_add(len, std::memory_order_relaxed);
+  return 0;
+}
+
+cu::CUdeviceptr CudaPath::deviceSource(int worker_rank, int device_idx,
+                                       uint64_t len, int variant) {
+  auto key = std::make_tuple(worker_rank, len, variant);
+  {
+    MutexLock lk(src_mutex_);
+    auto it = dev_src_.find(key);
+    if (it != dev_src_.end()) return it->second.second;
+  }
+  // A device-resident source of exactly `len` bytes, made on first use per
+  // (rank, length, variant) with the original's rank-seeded random content,
+  // so both packages write identical bytes (all-zero sources would hand
+  // compressing storage trivially compressible writes).
+  std::vector<char> host(len);
+  {
+    RandAlgoXoshiro rng(0x9E3779B97F4A7C15ULL ^ (uint64_t)(worker_rank + 1) ^
+                        ((uint64_t)(variant + 1) << 32));
+    rng.fillBuf(host.data(), host.size());
+  }
+  const int li = laneIndex(device_idx);
+  Lane& lane = *lanes_[li];
+  cu::CUdeviceptr p = 0;
+  if (!check("write-source cuMemAlloc", api_.cuMemAlloc(&p, len))) return 0;
+  if (!check("write-source cuMemcpyHtoDAsync",
+             api_.cuMemcpyHtoDAsync(p, host.data(), len, lane.h2d)) ||
+      syncStream(li, lane.h2d)) {
+    syncStream(li, lane.h2d);
+    api_.cuMemFree(p);
+    return 0;
+  }
+  MutexLock lk(src_mutex_);
+  auto [it, inserted] = dev_src_.emplace(key, std::make_pair(li, p));
+  if (!inserted) api_.cuMemFree(p);  // lost a race; keep the winner
+  return it->second.second;
+}
+
+int CudaPath::fetchDeviceSource(int worker_rank, int device_idx, char* buf,
+                                uint64_t len, bool deferred) {
+  // chunk-sized fetches from ROTATING sources, so the written stream does
+  // not repeat one chunk's bytes; a tail chunk has its own (rank, n) class
+  const uint64_t chunk = std::min(chunk_bytes_, len);
+  const int li = laneIndex(device_idx);
+  Lane& lane = *lanes_[li];
+  std::vector<Pending> fetches;
+  int rc = 0;
+  int i = 0;
+  for (uint64_t off = 0; off < len; i++) {
+    const uint64_t n = std::min(chunk, len - off);
+    cu::CUdeviceptr src = deviceSource(worker_rank, device_idx, n,
+                                       i % kSrcVariants);
+    if (!src) {
+      rc = 1;
+      break;
+    }
+    auto t0 = Clock::now();
+    if (!check("cuMemcpyDtoHAsync",
+               api_.cuMemcpyDtoHAsync(buf + off, src, n, lane.d2h))) {
+      rc = 1;
+      break;
+    }
+    Pending p;
+    p.d2h = true;
+    p.bytes = deferred ? n : 0;  // counted at enqueue
+    attachCompletion(p, li, lane.d2h, li, t0);
+    fetches.push_back(p);
+    off += n;
+  }
+  if (deferred) {
+    // fetches submitted before a failure are still writing into buf: they
+    // are enqueued either way so the barriers wait them out
+    enqueue(buf, fetches);
+    if (rc == 0) d2h_deferred_count_.fetch_add(1, std::memory_order_relaxed);
+    return rc;
+  }
+  for (Pending& p : fetches)  // await ALL even after a failure
+    if (awaitRelease(p)) rc = 1;
+  if (rc) return 1;
+  lane.bytes_from_hbm.fetch_add(len, std::memory_order_relaxed);
+  return 0;
+}
+
+// Verified writes: the fill kernel (B3) writes the block's pattern into the
+// rank's device buffer and it is fetched to the host buffer, both on the
+// lane's D2H stream (so the next block's fill waits for this fetch). The
+// base is a kernel argument; the sub-word tail is generated on the host.
+int CudaPath::generateD2H(int worker_rank, int device_idx, char* buf,
+                          uint64_t len, uint64_t file_off, bool deferred) {
+  const int li = laneIndex(device_idx);
+  Lane& lane = *lanes_[li];
+  const uint64_t n8 = len / 8 * 8;
+  std::vector<Pending> ps;
+  int rc = 0;
+  if (n8) {
+    RankBufs& rb = rankBufs(worker_rank, li);
+    if (!ensureBuffer(li, &rb.gen, &rb.gen_cap, n8)) return 1;
+    auto t0 = Clock::now();
+    int krc = fill_fn_((void*)(uintptr_t)rb.gen, n8 / 8,
+                       file_off + verify_salt_, lane.d2h);
+    if (krc) {
+      latchXferError("fill kernel launch failed: CUDA error " +
+                     std::to_string(krc));
+      return 1;
+    }
+    fill_launches_.fetch_add(1, std::memory_order_relaxed);
+    if (!check("write-gen cuMemcpyDtoHAsync",
+               api_.cuMemcpyDtoHAsync(buf, rb.gen, n8, lane.d2h))) {
+      rc = 1;
+      syncStream(li, lane.d2h);
+    } else {
+      Pending p;
+      p.d2h = true;
+      p.bytes = deferred ? len : 0;  // counted at enqueue
+      attachCompletion(p, li, lane.d2h, li, t0);
+      ps.push_back(p);
+    }
+  }
+  if (rc == 0 && len > n8)
+    fillVerifyPattern(buf + n8, len - n8, file_off + n8, verify_salt_);
+  if (deferred) {
+    enqueue(buf, ps);
+    if (rc == 0) d2h_deferred_count_.fetch_add(1, std::memory_order_relaxed);
+    return rc;
+  }
+  for (Pending& p : ps)
+    if (awaitRelease(p)) rc = 1;
+  if (rc) return 1;
+  lane.bytes_from_hbm.fetch_add(len, std::memory_order_relaxed);
+  return 0;
+}
+
+int CudaPath::serveD2H(int worker_rank, int device_idx, char* buf,
+                       uint64_t len, uint64_t file_off) {
+  const bool deferred = d2h_depth_.load(std::memory_order_relaxed) > 1;
+  if (write_gen_on_)
+    return generateD2H(worker_rank, device_idx, buf, len, file_off, deferred);
+  // round-trip mode: serve back the block this rank just staged; never
+  // deferred (verify writes are a correctness mode)
+  const int li = laneIndex(device_idx);
+  Lane& lane = *lanes_[li];
+  RankBufs& rb = rankBufs(worker_rank, li);
+  if (len && rb.staged_len == len) {
+    std::vector<Pending> fetches;
+    int rc = 0;
+    for (uint64_t off = 0; off < len;) {
+      const uint64_t n = std::min(chunk_bytes_, len - off);
+      auto t0 = Clock::now();
+      if (!check("round-trip cuMemcpyDtoHAsync",
+                 api_.cuMemcpyDtoHAsync(buf + off, rb.staged + off, n,
+                                        lane.d2h))) {
+        rc = 1;
+        break;
+      }
+      Pending p;
+      p.d2h = true;
+      attachCompletion(p, li, lane.d2h, li, t0);
+      fetches.push_back(p);
+      off += n;
+    }
+    for (Pending& p : fetches)
+      if (awaitRelease(p)) rc = 1;
+    if (rc) return 1;
+    lane.bytes_from_hbm.fetch_add(len, std::memory_order_relaxed);
+    return 0;
+  }
+  return fetchDeviceSource(worker_rank, device_idx, buf, len, deferred);
+}
+
+// ---------------------------------------------------------------- kernels
+
+std::string CudaPath::enableVerify(uint64_t salt,
+                                   const std::string& kernel_lib) {
+  if (!ok()) return init_error_;
+  if (sealed_.load(std::memory_order_acquire))
+    return "verify must be enabled before the first data transfer";
+  void* fn = nullptr;
+  void* ws_fn = nullptr;
+  std::string err;
+  if (!cu::loadKernel(kernel_lib, "ebt_verify_u32", &fn, &err) ||
+      !cu::loadKernel(kernel_lib, "ebt_verify_workspace_bytes", &ws_fn, &err))
+    return err;
+  auto ws_bytes = (cu::VerifyWorkspaceBytesFn)ws_fn;
+  // one workspace per lane (the kernel runs on the lane's H2D stream, whose
+  // launches run in order), made and zeroed once
+  for (size_t d = 0; d < lanes_.size(); d++) {
+    Lane& l = *lanes_[d];
+    if (l.verify_ws) continue;
+    makeCurrent((int)d, true);
+    const uint64_t bytes = ws_bytes(l.sms);
+    cu::CUresult rc = api_.cuMemAlloc(&l.verify_ws, bytes);
+    if (rc) return cu::errorText(api_, "verify workspace cuMemAlloc", rc);
+    rc = api_.cuMemsetD8Async(l.verify_ws, 0, bytes, l.h2d);
+    if (rc == cu::CUDA_SUCCESS) rc = api_.cuStreamSynchronize(l.h2d);
+    if (rc) return cu::errorText(api_, "verify workspace cuMemsetD8Async", rc);
+  }
+  verify_fn_ = (cu::VerifyU32Fn)fn;
+  verify_salt_ = salt;
+  verify_on_ = true;
+  return "";
+}
+
+std::string CudaPath::enableWriteGen(uint64_t salt,
+                                     const std::string& kernel_lib) {
+  if (!ok()) return init_error_;
+  if (sealed_.load(std::memory_order_acquire))
+    return "write generation must be enabled before the first data transfer";
+  void* fn = nullptr;
+  std::string err;
+  if (!cu::loadKernel(kernel_lib, "ebt_fill_u64", &fn, &err)) return err;
+  fill_fn_ = (cu::FillU64Fn)fn;
+  verify_salt_ = salt;
+  write_gen_on_ = true;
+  return "";
+}
+
+void CudaPath::kernelLaunches(uint64_t out[2]) {
+  out[0] = verify_launches_.load(std::memory_order_relaxed);
+  out[1] = fill_launches_.load(std::memory_order_relaxed);
+}
+
+void CudaPath::resetKernelLaunches() {
+  verify_launches_.store(0, std::memory_order_relaxed);
+  fill_launches_.store(0, std::memory_order_relaxed);
+}
+
+// ---------------------------------------------------------------- dispatch
+
+int CudaPath::copy(int worker_rank, int device_idx, int direction, void* buf,
+                   uint64_t len, uint64_t file_offset) {
+  if (!ok()) return 1;
+  // the kernel entries are set without a lock, which is safe only because
+  // every enable precedes the first data transfer: data directions seal
+  if (direction == 0 || direction == 1 || direction == 3)
+    sealed_.store(true, std::memory_order_release);
+  const int li = laneIndex(device_idx);
+  if (!makeCurrent(li, false)) return 1;
+  if (direction == 0 || direction == 1 || direction == 3)
+    lanes_[li]->submits.fetch_add(1, std::memory_order_relaxed);
+  switch (direction) {
+    case 0:
+      if (verify_on_)
+        return submitH2DVerified(worker_rank, li, (const char*)buf, len,
+                                 file_offset);
+      return submitH2D(li, (const char*)buf, len);
+    case 1:
+      return serveD2H(worker_rank, li, (char*)buf, len, file_offset);
+    case 2:
+      return settle(buf, li, /*d2h_barrier=*/false);
+    case 3:
+      return roundTripH2D(worker_rank, li, (const char*)buf, len);
+    case 4:
+      // a failed registration is a clean per-buffer fall to the staged
+      // tier (cause in regError()), never a worker error
+      registerBuffer(buf, len);
+      return 0;
+    case 5:
+      // len > 0: unpin every cached window inside [buf, buf+len) (engine
+      // cleanup before munmap); len == 0: the exact-base lifetime pin
+      if (len)
+        deregisterRange(buf, len);
+      else
+        deregisterBuffer(buf);
+      return 0;
+    case 6:
+      registerWindow(buf, len);
+      return 0;
+    case 7:
+      return settle(buf, li, /*d2h_barrier=*/true);
+    default:
+      latchXferError("device-copy direction " + std::to_string(direction) +
+                     " (stripe/checkpoint/ingest/reshard/rotation) is not "
+                     "ported to the CUDA engine");
+      return 1;
+  }
+}
+
+int CudaPath::copyTrampoline(void* ctx, int worker_rank, int device_idx,
+                             int direction, void* buf, uint64_t len,
+                             uint64_t file_offset) {
+  return static_cast<CudaPath*>(ctx)->copy(worker_rank, device_idx, direction,
+                                           buf, len, file_offset);
+}
+
+// ---------------------------------------------------------------- counters
+
+void CudaPath::stats(uint64_t* bytes_to_hbm, uint64_t* bytes_from_hbm) const {
+  uint64_t to = 0, from = 0;
+  for (const auto& lane : lanes_) {
+    to += lane->bytes_to_hbm.load(std::memory_order_relaxed);
+    from += lane->bytes_from_hbm.load(std::memory_order_relaxed);
+  }
+  if (bytes_to_hbm) *bytes_to_hbm = to;
+  if (bytes_from_hbm) *bytes_from_hbm = from;
+}
+
+std::string CudaPath::firstTransferError() const {
+  MutexLock lk(err_mutex_);
+  return xfer_error_;
+}
+
+void CudaPath::resetDeviceLatency() {
+  for (auto& lane : lanes_) {
+    MutexLock lk(lane->histo_m);
+    lane->histo.reset();
+  }
+}
+
+bool CudaPath::deviceLatency(int device_idx, LatencyHistogram* out) const {
+  if (device_idx < 0 || (size_t)device_idx >= lanes_.size()) return false;
+  Lane& lane = *lanes_[device_idx];
+  MutexLock lk(lane.histo_m);
+  *out = lane.histo;
+  return true;
+}
+
+bool CudaPath::laneStats(int lane_idx, LaneStats* out) const {
+  if (lane_idx < 0 || (size_t)lane_idx >= lanes_.size()) return false;
+  const Lane& lane = *lanes_[lane_idx];
+  out->submits = lane.submits.load(std::memory_order_relaxed);
+  out->awaits = lane.awaits.load(std::memory_order_relaxed);
+  out->lock_wait_ns = lane.lock_wait_ns.load(std::memory_order_relaxed);
+  out->bytes_to_hbm = lane.bytes_to_hbm.load(std::memory_order_relaxed);
+  out->bytes_from_hbm = lane.bytes_from_hbm.load(std::memory_order_relaxed);
+  return true;
+}
+
+void CudaPath::d2hStats(uint64_t out[3]) const {
+  out[0] = d2h_deferred_count_.load(std::memory_order_relaxed);
+  out[1] = d2h_await_wait_ns_.load(std::memory_order_relaxed);
+  out[2] = d2h_overlap_bytes_.load(std::memory_order_relaxed);
+}
+
+void CudaPath::drainAll() {
+  // per shard: move the queues out under the shard lock, await outside it,
+  // then release the draining spans (the barriers' discipline)
+  for (auto& shard : shards_) {
+    std::unordered_map<uint64_t, std::vector<Pending>> all;
+    std::unordered_map<uint64_t, uint64_t> spans;
+    {
+      MutexLock lk(shard->m);
+      all.swap(shard->pending);
+      for (auto& kv : all) {
+        uint64_t span = 0;
+        for (const Pending& p : kv.second) span += p.bytes;
+        spans[kv.first] = span ? span : 1;
+        shard->draining[kv.first] += spans[kv.first];
+      }
+    }
+    for (auto& kv : all)
+      for (Pending& p : kv.second) awaitRelease(p);
+    MutexLock lk(shard->m);
+    for (auto& kv : spans) {
+      auto it = shard->draining.find(kv.first);
+      if (it == shard->draining.end()) continue;
+      it->second -= std::min(it->second, kv.second);
+      if (!it->second) shard->draining.erase(it);
+    }
+    shard->cv.notify_all();
+  }
+}
+
+// ---------------------------------------------------------------- registration
+
+int CudaPath::hostRegister(void* buf, uint64_t len, bool window,
+                           bool reserved) {
+  if (t_gen != gen_) makeCurrent(0, true);  // a thread the path never saw
+  // windows are the engine's read-only file mappings: the driver maps them
+  // read-only for the device, where it can (it refuses a plain registration
+  // of a read-only mapping)
+  unsigned flags = cu::CU_MEMHOSTREGISTER_PORTABLE;
+  if (window && laneFor(0).read_only_register)
+    flags |= cu::CU_MEMHOSTREGISTER_READ_ONLY;
+  cu::CUresult rc = api_.cuMemHostRegister(buf, len, flags);
+  if (rc) {
+    // a clean per-range fall to the staged tier, never a worker error
+    std::string msg = cu::errorText(api_, "cuMemHostRegister", rc);
+    MutexLock lk(reg_mutex_);
+    in_transit_.erase((uintptr_t)buf);
+    if (reserved) {  // return the caller's budget reservation
+      window_bytes_ -= len;
+      pinned_bytes_ -= len;
+    }
+    // staged_fallbacks is window-cache evidence; lifetime-pin failures only
+    // latch the cause
+    if (window) reg_staged_fallbacks_++;
+    if (reg_error_.empty()) reg_error_ = msg;
+    return 1;
+  }
+  // the fresh pin also claims an io_uring fixed-buffer slot (one pin serving
+  // both DMA sides); best-effort, as in the original
+  int uring_idx = UringReg::instance().claim(buf, len, /*dma_shared=*/true);
+  MutexLock lk(reg_mutex_);
+  in_transit_.erase((uintptr_t)buf);
+  RegEntry& e = registered_[(uintptr_t)buf];
+  e.len = len;
+  e.lru_seq = ++lru_clock_;
+  e.window = window;
+  e.uring_idx = uring_idx;
+  if (!reserved) {
+    if (window) window_bytes_ += len;
+    pinned_bytes_ += len;
+  }
+  if (pinned_bytes_ > pinned_peak_bytes_) pinned_peak_bytes_ = pinned_bytes_;
+  return 0;
+}
+
+void CudaPath::hostUnregister(void* buf) {
+  if (t_gen != gen_) makeCurrent(0, true);
+  cu::CUresult rc = api_.cuMemHostUnregister(buf);
+  if (rc) latchRegError(cu::errorText(api_, "cuMemHostUnregister", rc));
+}
+
+int CudaPath::registerBuffer(void* buf, uint64_t len) {
+  if (lanes_.empty() || !buf || !len) return 1;
+  if (!dma_ok_) {
+    latchRegError("registered-memory tier unavailable");
+    return 1;
+  }
+  {
+    // re-registering a live range is idempotent; growing one is not
+    // supported (the pinned range is the original length)
+    MutexLock lk(reg_mutex_);
+    auto it = registered_.find((uintptr_t)buf);
+    if (it != registered_.end()) {
+      if (it->second.len >= len) return 0;
+      if (reg_error_.empty())
+        reg_error_ = "re-registration of live range with larger length (" +
+                     std::to_string(len) + " > " +
+                     std::to_string(it->second.len) +
+                     " registered bytes); deregister first";
+      return 1;
+    }
+    // another thread's registration of this range is still in the driver
+    if (rangeInTransitLocked((uintptr_t)buf, len)) return 1;
+    in_transit_[(uintptr_t)buf] = len;
+  }
+  return hostRegister(buf, len, /*window=*/false, /*reserved=*/false);
+}
+
+int CudaPath::deregisterBuffer(void* buf) {
+  int uring_idx = -1;
+  {
+    MutexLock lk(reg_mutex_);
+    auto it = registered_.find((uintptr_t)buf);
+    if (it == registered_.end()) return 0;  // never registered (fallback)
+    if (it->second.window) window_bytes_ -= it->second.len;
+    pinned_bytes_ -= it->second.len;
+    in_transit_[it->first] = it->second.len;
+    uring_idx = it->second.uring_idx;
+    registered_.erase(it);
+  }
+  UringReg::instance().release(uring_idx);
+  hostUnregister(buf);
+  MutexLock lk(reg_mutex_);
+  in_transit_.erase((uintptr_t)buf);
+  return 0;
+}
+
+void CudaPath::setRegWindow(uint64_t bytes) {
+  MutexLock lk(reg_mutex_);
+  reg_window_bytes_ = bytes;
+}
+
+void CudaPath::inflightSpans(
+    std::vector<std::pair<uint64_t, uint64_t>>* out) const {
+  // a pending queue for buffer B spans [B, B + sum(chunk bytes)); one walk
+  // of the shards, locked one at a time (safe under reg_mutex_)
+  out->clear();
+  for (const auto& shard : shards_) {
+    MutexLock lk(shard->m);
+    for (const auto& kv : shard->pending) {
+      uint64_t qbytes = 0;
+      for (const Pending& p : kv.second) qbytes += p.bytes;
+      out->emplace_back(kv.first, qbytes ? qbytes : 1);
+    }
+    for (const auto& kv : shard->draining)
+      out->emplace_back(kv.first, kv.second ? kv.second : 1);
+  }
+}
+
+bool CudaPath::rangeInTransitLocked(uintptr_t base, uint64_t len) const {
+  for (const auto& kv : in_transit_)
+    if (kv.first < base + len && base < kv.first + kv.second) return true;
+  return false;
+}
+
+int CudaPath::registerWindow(void* buf, uint64_t len) {
+  if (lanes_.empty() || !buf || !len) return 1;
+  if (!dma_ok_) {
+    latchRegError("registered-memory tier unavailable");
+    return 1;
+  }
+  uintptr_t p = (uintptr_t)buf;
+  std::vector<std::pair<uintptr_t, int>> victims;  // (base, uring slot)
+  bool fits = true;
+  {
+    MutexLock lk(reg_mutex_);
+    // covered by a live range (window or lifetime pin): cache hit
+    auto it = registered_.upper_bound(p);
+    if (it != registered_.begin()) {
+      --it;
+      if (p >= it->first && p + len <= it->first + it->second.len) {
+        reg_hits_++;
+        it->second.lru_seq = ++lru_clock_;
+        return 0;
+      }
+    }
+    reg_misses_++;
+    // a range overlapping a live entry without being covered by it must
+    // never be registered (the driver refuses it as already registered)
+    for (const auto& kv : registered_) {
+      if (kv.first < p + len && p < kv.first + kv.second.len) {
+        reg_staged_fallbacks_++;
+        if (reg_error_.empty())
+          reg_error_ = "window request of " + std::to_string(len) +
+                       " bytes overlaps a live registration of " +
+                       std::to_string(kv.second.len) +
+                       " bytes without being covered by it; "
+                       "deregister first";
+        return 1;
+      }
+    }
+    if (rangeInTransitLocked(p, len)) {
+      reg_staged_fallbacks_++;  // transient: one staged block
+      return 1;
+    }
+    if (reg_window_bytes_ && len > reg_window_bytes_) {
+      reg_staged_fallbacks_++;  // budget pressure is operation, not a fault
+      return 1;
+    }
+    // evict least-recently-registered windows with nothing in flight until
+    // the new one fits (an unregister mid-DMA would pull memory the copy
+    // engine is reading); victims collected before a bail-out are still
+    // unregistered below
+    std::vector<std::pair<uint64_t, uint64_t>> inflight;
+    bool have_inflight = false;
+    auto span_busy = [&](uintptr_t base, uint64_t blen) {
+      for (const auto& [b, n] : inflight)
+        if (b < base + blen && base < b + n) return true;
+      return false;
+    };
+    while (reg_window_bytes_ && window_bytes_ + len > reg_window_bytes_) {
+      if (!have_inflight) {
+        inflightSpans(&inflight);
+        have_inflight = true;
+      }
+      auto best = registered_.end();
+      for (auto vi = registered_.begin(); vi != registered_.end(); ++vi) {
+        if (!vi->second.window) continue;
+        if (best != registered_.end() &&
+            vi->second.lru_seq >= best->second.lru_seq)
+          continue;
+        if (span_busy(vi->first, vi->second.len)) continue;
+        if (UringReg::instance().rangeBusy((void*)vi->first, vi->second.len))
+          continue;
+        best = vi;
+      }
+      if (best == registered_.end()) {
+        reg_staged_fallbacks_++;
+        fits = false;
+        break;
+      }
+      window_bytes_ -= best->second.len;
+      pinned_bytes_ -= best->second.len;
+      reg_evictions_++;
+      victims.emplace_back(best->first, best->second.uring_idx);
+      in_transit_[best->first] = best->second.len;
+      registered_.erase(best);
+    }
+    if (fits) {
+      // reserve the budget before dropping the lock for the driver call
+      window_bytes_ += len;
+      pinned_bytes_ += len;
+      in_transit_[p] = len;
+    }
+  }
+  for (auto& [v, uidx] : victims) {
+    hostUnregister((void*)v);
+    UringReg::instance().release(uidx);
+    MutexLock lk(reg_mutex_);
+    in_transit_.erase(v);
+  }
+  if (!fits) return 1;
+  return hostRegister(buf, len, /*window=*/true, /*reserved=*/true);
+}
+
+void CudaPath::deregisterRange(void* buf, uint64_t len) {
+  uintptr_t base = (uintptr_t)buf;
+  std::vector<std::pair<uintptr_t, int>> victims;
+  {
+    MutexLock lk(reg_mutex_);
+    for (auto it = registered_.begin(); it != registered_.end();) {
+      if (it->first < base + len && base < it->first + it->second.len) {
+        if (it->second.window) window_bytes_ -= it->second.len;
+        pinned_bytes_ -= it->second.len;
+        victims.emplace_back(it->first, it->second.uring_idx);
+        in_transit_[it->first] = it->second.len;
+        it = registered_.erase(it);
+      } else {
+        ++it;
+      }
+    }
+  }
+  for (auto& [v, uidx] : victims) {
+    hostUnregister((void*)v);
+    UringReg::instance().release(uidx);
+    MutexLock lk(reg_mutex_);
+    in_transit_.erase(v);
+  }
+}
+
+CudaPath::RegCacheStats CudaPath::regCacheStats() const {
+  MutexLock lk(reg_mutex_);
+  RegCacheStats s;
+  s.hits = reg_hits_;
+  s.misses = reg_misses_;
+  s.evictions = reg_evictions_;
+  s.pinned_bytes = pinned_bytes_;
+  s.pinned_peak_bytes = pinned_peak_bytes_;
+  s.staged_fallbacks = reg_staged_fallbacks_;
+  return s;
+}
+
+std::string CudaPath::regError() const {
+  MutexLock lk(reg_mutex_);
+  return reg_error_;
+}
+
+bool CudaPath::bufferRegisteredLocked(const void* p, uint64_t len) const {
+  if (registered_.empty()) return false;
+  uintptr_t pos = (uintptr_t)p;
+  const uintptr_t end = (uintptr_t)p + len;
+  auto it = registered_.upper_bound(pos);
+  if (it == registered_.begin()) return false;
+  --it;
+  // coverage may come from several contiguous entries (a block crossing a
+  // span-grid boundary is backed by two adjacent windows)
+  while (it != registered_.end() && it->first <= pos) {
+    if (it->first + it->second.len >= end) return true;
+    pos = it->first + it->second.len;
+    ++it;
+  }
+  return false;
+}
+
+}  // namespace ebt

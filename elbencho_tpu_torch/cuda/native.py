@@ -1,0 +1,282 @@
+"""Native CUDA transfer path: driver resolution + ctypes wrapper.
+
+`--tpubackend pjrt` routes the storage <-> GPU data path through the port's
+C++ transfer engine (csrc/cuda_path.cpp), which drives the card through the
+CUDA driver API with no Python on the hot path. The flag keeps the original
+package's name for CLI and result-tree parity; this module is the port's
+counterpart of the original's tpu/native.py (NativePjrtPath), without its
+stripe, checkpoint, ingest, reshard, rotation, fault-policy,
+transfer-manager and raw-ceiling parts.
+
+This module resolves WHICH driver library the engine loads, makes sure the
+kernel library is built when on-device verify or write generation is on,
+and hands the engine's C function pointer to the storage engine:
+
+  - on the card: EBT_CUDA_DRIVER if set, else libcuda.so.1 (the driver
+    PyTorch's runtime uses in the same process); the kernels come from
+    build/torch_kernels/libebt_torch_kernels.so (ops/kernel_build.py).
+  - with EBT_TORCH_DEVICE=cpu: EBT_CUDA_DRIVER must name a library (the
+    tests name the mock driver, build/torch_core/libebtcudamock.so, which
+    also exports the kernels' C entries as their plain host versions).
+    Nothing picks a CPU stand-in by itself.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+from ..config import Config
+from ..engine import load_lib
+from ..exceptions import ProgException
+from .devices import NO_CUDA_MESSAGE, requested_device_type
+
+DEFAULT_DRIVER = "libcuda.so.1"
+
+
+def resolve_driver() -> str:
+    """The driver library the engine loads (see the module docstring)."""
+    explicit = os.environ.get("EBT_CUDA_DRIVER", "")
+    kind = requested_device_type()
+    if kind == "cpu":
+        if not explicit:
+            raise ProgException(
+                "--tpubackend pjrt with EBT_TORCH_DEVICE=cpu needs "
+                "EBT_CUDA_DRIVER to name a driver library (for example the "
+                "mock, build/torch_core/libebtcudamock.so)")
+        return explicit
+    if kind != "cuda":
+        raise ProgException(
+            f"unsupported device type {kind!r} (expected cuda or cpu)")
+    if not torch.cuda.is_available():
+        raise ProgException(NO_CUDA_MESSAGE)
+    return explicit or DEFAULT_DRIVER
+
+
+def kernel_launches() -> dict[str, int]:
+    """Kernel launches the native engine made, over every path of the
+    process since the last reset_kernel_launches() (the C++ counterpart of
+    the Python wrappers' LAUNCHES)."""
+    out = (ctypes.c_uint64 * 2)()
+    load_lib().ebt_cuda_kernel_launches(out)
+    return {"verify_u32": out[0], "fill_u64": out[1]}
+
+
+def reset_kernel_launches() -> None:
+    load_lib().ebt_cuda_reset_kernel_launches()
+
+
+def _chunk_bytes() -> int:
+    return int(os.environ.get("EBT_TPU_CHUNK_BYTES", 0) or 0)
+
+
+class NativeCudaPath:
+    """Owns one native CudaPath handle; exposes the raw DevCopyFn pointer
+    and context for ebt_engine_set_dev_callback."""
+
+    def __init__(self, cfg: Config) -> None:
+        self._lib = load_lib()
+        self.so_path = resolve_driver()
+        nids = len(cfg.tpu_ids)
+        ids = (ctypes.c_int * max(1, nids))(*cfg.tpu_ids)
+        err = ctypes.create_string_buffer(1024)
+        self._h = self._lib.ebt_cuda_create(
+            self.so_path.encode(), _chunk_bytes(), cfg.block_size, ids, nids,
+            err, len(err))
+        if not self._h:
+            raise ProgException(
+                f"CUDA driver init failed ({self.so_path}): "
+                f"{err.value.decode()}")
+
+    def _kernel_lib(self) -> str:
+        """The library exporting the kernels' C entries: on the CPU the mock
+        driver itself, on the card the nvcc-built kernel library."""
+        if requested_device_type() == "cpu":
+            return self.so_path
+        from ..ops.kernel_build import LIB_PATH, build_lib
+
+        build_lib()
+        return LIB_PATH
+
+    def _enable(self, enable_fn, salt: int, feature: str) -> None:
+        err = ctypes.create_string_buffer(1024)
+        if enable_fn(self._h, salt, self._kernel_lib().encode(), err,
+                     len(err)) != 0:
+            raise ProgException(f"{feature} unavailable: "
+                                f"{err.value.decode()}")
+
+    def enable_device_verify(self, cfg: Config) -> None:
+        """Read blocks are checked on the device by the verify kernel
+        (csrc/verify.cu), launched by the engine once per block."""
+        self._enable(self._lib.ebt_cuda_enable_verify, cfg.verify_salt,
+                     "on-device verify")
+
+    def enable_device_write_gen(self, cfg: Config) -> None:
+        """Verified writes source a pattern the fill kernel (csrc/fill.cu)
+        generates in device memory, fetched to the host buffer."""
+        self._enable(self._lib.ebt_cuda_enable_write_gen, cfg.verify_salt,
+                     "device write generation")
+
+    @property
+    def num_devices(self) -> int:
+        return self._lib.ebt_cuda_num_devices(self._h)
+
+    # ---- registered-buffer tier (cuMemHostRegister; field names keep the
+    # original's "zero-copy") ----
+
+    @property
+    def dma_supported(self) -> bool:
+        """Registration probed at init (one register/unregister round
+        trip) and not disabled by EBT_PJRT_NO_DMAMAP."""
+        return bool(self._lib.ebt_cuda_dma_supported(self._h))
+
+    def register_buffer(self, addr: int, length: int) -> bool:
+        """Pin [addr, addr+length); False = staged fallback (cause in
+        reg_error()). The engine drives this itself via DevCopyFn
+        direction 4 — this export is for tests."""
+        return self._lib.ebt_cuda_register(self._h, addr, length) == 0
+
+    def deregister_buffer(self, addr: int) -> bool:
+        return self._lib.ebt_cuda_deregister(self._h, addr) == 0
+
+    def reg_error(self) -> str:
+        buf = ctypes.create_string_buffer(1024)
+        self._lib.ebt_cuda_reg_error(self._h, buf, len(buf))
+        return buf.value.decode()
+
+    @property
+    def zero_copy_count(self) -> int:
+        """Chunks copied from registered (pinned) host memory so far."""
+        return self._lib.ebt_cuda_zero_copy_count(self._h)
+
+    @property
+    def zero_copy_engaged(self) -> bool:
+        """True when hot-path copies from registered memory take the
+        registered tier (capability and not the NO_READY diagnostic)."""
+        return bool(self._lib.ebt_cuda_zero_copy_engaged(self._h))
+
+    def set_reg_window(self, nbytes: int) -> None:
+        """Byte budget of the bounded-registration LRU pin cache
+        (--regwindow); 0 = unbounded."""
+        self._lib.ebt_cuda_set_reg_window(self._h, int(nbytes))
+
+    def reg_cache_stats(self) -> dict[str, int]:
+        """Registration-cache counters: hits/misses/evictions, current and
+        peak pinned bytes, and staged_fallbacks (window registrations that
+        ended on the staged path)."""
+        out = (ctypes.c_uint64 * 6)()
+        self._lib.ebt_cuda_reg_cache_stats(self._h, out)
+        return {"hits": out[0], "misses": out[1], "evictions": out[2],
+                "pinned_bytes": out[3], "pinned_peak_bytes": out[4],
+                "staged_fallbacks": out[5]}
+
+    # ---- deferred D2H ----
+
+    def set_d2h_depth(self, depth: int) -> None:
+        """--d2hdepth: > 1 makes direction-1 fetches enqueue under the
+        buffer's pending queue (awaited at the engine's pre-write barrier);
+        1 keeps the serial fetch-then-write path."""
+        self._lib.ebt_cuda_set_d2h_depth(self._h, int(depth))
+
+    def d2h_stats(self) -> dict[str, int]:
+        """Blocks submitted via the deferred engine, nanoseconds the
+        pre-write barriers blocked, and bytes whose fetch had completed
+        before its barrier started. Session-cumulative."""
+        out = (ctypes.c_uint64 * 3)()
+        self._lib.ebt_cuda_d2h_stats(self._h, out)
+        return {"deferred_count": out[0], "await_wait_ns": out[1],
+                "overlap_bytes": out[2]}
+
+    # ---- per-device lanes and latency ----
+
+    @property
+    def num_lanes(self) -> int:
+        return self._lib.ebt_cuda_num_lanes(self._h)
+
+    @property
+    def single_lane(self) -> bool:
+        """True when EBT_PJRT_SINGLE_LANE=1 forced the single-shard ledger
+        (the lane-split A/B control)."""
+        return bool(self._lib.ebt_cuda_single_lane(self._h))
+
+    def lane_stats(self) -> list[dict[str, int]]:
+        """Per-lane counters, indexed like the selected device list.
+        Session-cumulative."""
+        out: list[dict[str, int]] = []
+        buf = (ctypes.c_uint64 * 5)()
+        for lane in range(self.num_lanes):
+            if self._lib.ebt_cuda_lane_stats(self._h, lane, buf) != 0:
+                continue
+            out.append({"lane": lane, "submits": buf[0], "awaits": buf[1],
+                        "lock_wait_ns": buf[2], "to_hbm": buf[3],
+                        "from_hbm": buf[4]})
+        return out
+
+    @property
+    def latency_clock(self) -> str:
+        """'onready' = completion stamped by a host function behind each
+        copy (cuLaunchHostFunc); 'await' = completion-await upper bounds
+        (driver refused host functions, or a diagnostic disabled them)."""
+        return "onready" if self._lib.ebt_cuda_onready_clock(self._h) \
+            else "await"
+
+    def reset_device_latency(self) -> None:
+        """Zero the per-chip histograms (phase scoping)."""
+        self._lib.ebt_cuda_reset_dev_histos(self._h)
+
+    def device_latency_histograms(self) -> dict[int, "LatencyHistogram"]:
+        """Per-chip transfer latency (enqueue -> copy complete per chunk,
+        both directions), keyed by index into the selected device list.
+        Devices with no transfers are omitted."""
+        from ..histogram import NUM_BUCKETS, LatencyHistogram
+
+        out: dict[int, LatencyHistogram] = {}
+        for dev in range(self.num_devices):
+            buckets = (ctypes.c_uint64 * NUM_BUCKETS)()
+            meta = (ctypes.c_uint64 * 4)()
+            if self._lib.ebt_cuda_dev_histo(self._h, dev, buckets, meta) != 0:
+                continue
+            if meta[0] == 0:
+                continue
+            out[dev] = LatencyHistogram.from_raw(
+                list(buckets), meta[0], meta[1], meta[2], meta[3])
+        return out
+
+    # ---- engine hookup, counters, errors ----
+
+    @property
+    def copy_fn_ptr(self) -> int:
+        return self._lib.ebt_cuda_copy_fn()
+
+    @property
+    def ctx(self) -> int:
+        return self._h
+
+    @property
+    def transferred_bytes(self) -> tuple[int, int]:
+        to_hbm = ctypes.c_uint64()
+        from_hbm = ctypes.c_uint64()
+        self._lib.ebt_cuda_stats(self._h, ctypes.byref(to_hbm),
+                                 ctypes.byref(from_hbm))
+        return to_hbm.value, from_hbm.value
+
+    def last_error(self) -> str:
+        buf = ctypes.create_string_buffer(1024)
+        self._lib.ebt_cuda_last_error(self._h, buf, len(buf))
+        return buf.value.decode()
+
+    def drain(self) -> None:
+        self._lib.ebt_cuda_drain(self._h)
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.ebt_cuda_destroy(self._h)
+            self._h = None
+
+    def __del__(self) -> None:
+        try:
+            self.close()
+        except Exception:
+            pass

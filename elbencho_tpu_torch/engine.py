@@ -7,9 +7,12 @@ lets the PyTorch/CUDA layer inject the storage->device staging step per block
 (reference analogue: the CUDA/cuFile function-pointer slots,
 LocalWorker.h:31-44).
 
-The port builds its own copy of the engine from core/src into
+The port builds its own copy of the engine from core/src, together with its
+native CUDA transfer engine (csrc/cuda_*.cpp, `--tpubackend pjrt`), into
 build/torch_core/libebtcore.so on first use, with the Makefile's compiler
-flags, and never loads the original package's library.
+flags, and never loads the original package's library. The CPU tests' mock
+CUDA driver (csrc/cuda_mock.cpp) is built beside it into
+build/torch_core/libebtcudamock.so by build_mock().
 """
 
 from __future__ import annotations
@@ -27,8 +30,14 @@ from .liveops import LiveOps
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_core")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libebtcore.so")
-# the Makefile's CORE_SRCS, CPPFLAGS, CXXFLAGS and LDFLAGS (make core)
-_CORE_SRCS = ("engine", "capi", "pjrt_path", "uring", "reactor", "numa")
+MOCK_DRIVER_PATH = os.path.join(_BUILD_DIR, "libebtcudamock.so")
+# the Makefile's CORE_SRCS, CPPFLAGS, CXXFLAGS and LDFLAGS (make core), plus
+# the port's CUDA engine, which must share the engine's singletons
+_CORE_SRCS = tuple(f"core/src/{s}.cpp" for s in (
+    "engine", "capi", "pjrt_path", "uring", "reactor", "numa")) + tuple(
+    f"elbencho_tpu_torch/csrc/{s}.cpp" for s in (
+        "cuda_api", "cuda_path", "cuda_capi"))
+_MOCK_SRC = "elbencho_tpu_torch/csrc/cuda_mock.cpp"
 _CPPFLAGS = ("-Icore/include", "-Icore/third_party")
 _CXXFLAGS = ("-O3", "-std=c++17", "-Wall", "-Wextra", "-fPIC", "-pthread")
 _LDFLAGS = ("-shared", "-pthread", "-ldl")
@@ -43,23 +52,43 @@ _lib_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
-def _build_lib() -> None:
-    """Compile the engine into _LIB_PATH. A file lock serialises concurrent
-    first uses (test workers, several processes); the library appears
-    atomically, so a reader never loads a half-written file."""
+def _fresh(out: str) -> bool:
+    """`out` exists and is newer than every native source it may contain."""
+    if not os.path.exists(out):
+        return False
+    built = os.path.getmtime(out)
+    for d in ("core/src", "core/include/ebt", "elbencho_tpu_torch/csrc"):
+        d = os.path.join(_REPO_ROOT, d)
+        if any(os.path.getmtime(os.path.join(d, f)) > built
+               for f in os.listdir(d)):
+            return False
+    return True
+
+
+def _build(out: str, srcs) -> None:
+    """Compile `srcs` into the shared library `out`. A file lock serialises
+    concurrent first uses (test workers, several processes); the library
+    appears atomically, so a reader never loads a half-written file."""
     os.makedirs(_BUILD_DIR, exist_ok=True)
     with open(os.path.join(_BUILD_DIR, "build.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if os.path.exists(_LIB_PATH):
+        if _fresh(out):
             return
-        tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-        srcs = [f"core/src/{s}.cpp" for s in _CORE_SRCS]
+        tmp = f"{out}.{os.getpid()}.tmp"
         # nice: a low priority keeps the ~25 s compile from disturbing work
         # that runs beside a first use (other benchmark or test processes)
         cmd = ["nice", "-n", "10", os.environ.get("CXX", "g++"), *_CPPFLAGS,
                *_CXXFLAGS, *srcs, *_LDFLAGS, "-o", tmp]
         subprocess.run(cmd, cwd=_REPO_ROOT, check=True, capture_output=True)
-        os.replace(tmp, _LIB_PATH)
+        os.replace(tmp, out)
+
+
+def build_mock() -> str:
+    """The mock CUDA driver library (built on first use); returns its
+    path."""
+    if not _fresh(MOCK_DRIVER_PATH):
+        _build(MOCK_DRIVER_PATH, [_MOCK_SRC])
+    return MOCK_DRIVER_PATH
 
 
 def load_lib() -> ctypes.CDLL:
@@ -68,8 +97,8 @@ def load_lib() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is not None:
             return _lib
-        if not os.path.exists(_LIB_PATH):
-            _build_lib()
+        if not _fresh(_LIB_PATH):
+            _build(_LIB_PATH, _CORE_SRCS)
         lib = ctypes.CDLL(_LIB_PATH)
         # Every ebt_* symbol declares BOTH restype and argtypes: ctypes
         # defaults the restype to c_int, which silently truncates pointers
@@ -484,8 +513,50 @@ def load_lib() -> ctypes.CDLL:
         lib.ebt_pjrt_enable_write_gen.restype = ctypes.c_int
         lib.ebt_pjrt_destroy.argtypes = [ctypes.c_void_p]
         lib.ebt_pjrt_destroy.restype = None
+        _declare_cuda(lib)
         _lib = lib
         return lib
+
+
+def _declare_cuda(lib: ctypes.CDLL) -> None:
+    """argtypes/restype of the native CUDA engine's ebt_cuda_* exports
+    (csrc/cuda_capi.cpp)."""
+    vp, u64, i32, s = (ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,
+                       ctypes.c_char_p)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    for name, args, res in (
+            ("create", [s, u64, u64, ctypes.POINTER(ctypes.c_int), i32, s,
+                        i32], vp),
+            ("destroy", [vp], None),
+            ("copy_fn", [], vp),
+            ("num_devices", [vp], i32),
+            ("drain", [vp], None),
+            ("stats", [vp, u64p, u64p], None),
+            ("last_error", [vp, s, i32], None),
+            ("dma_supported", [vp], i32),
+            ("zero_copy_engaged", [vp], i32),
+            ("register", [vp, vp, u64], i32),
+            ("deregister", [vp, vp], i32),
+            ("register_window", [vp, vp, u64], i32),
+            ("set_reg_window", [vp, u64], None),
+            ("reg_cache_stats", [vp, u64p], None),
+            ("reg_error", [vp, s, i32], None),
+            ("zero_copy_count", [vp], u64),
+            ("num_lanes", [vp], i32),
+            ("lane_stats", [vp, i32, u64p], i32),
+            ("single_lane", [vp], i32),
+            ("dev_histo", [vp, i32, u64p, u64p], i32),
+            ("reset_dev_histos", [vp], None),
+            ("onready_clock", [vp], i32),
+            ("set_d2h_depth", [vp, i32], None),
+            ("d2h_stats", [vp, u64p], None),
+            ("enable_verify", [vp, u64, s, s, i32], i32),
+            ("enable_write_gen", [vp, u64, s, s, i32], i32),
+            ("kernel_launches", [u64p], None),
+            ("reset_kernel_launches", [], None)):
+        fn = getattr(lib, f"ebt_cuda_{name}")
+        fn.argtypes = args
+        fn.restype = res
 
 
 def bind_zone_self(zone: int) -> int:

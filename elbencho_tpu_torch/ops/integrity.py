@@ -9,10 +9,10 @@ lanes: torch's unsigned dtypes have few ops, and two's-complement int64
 addition wraps mod 2^64 exactly as the u64 pattern needs. Lane values
 returned as tensors are int64 holding the u32 value (0..2^32-1).
 
-These are the plain versions of the CUDA kernel in csrc/verify.cu: the CPU
-tests hold them against the original package, and chip_smoke.py holds the
-kernel against them on the card. ops/verify_kernel.py calls them for a CPU
-tensor.
+These are the plain versions of the CUDA kernels in csrc/verify.cu and
+csrc/fill.cu: the CPU tests hold them against the original package, and
+chip_smoke.py holds the kernels against them on the card.
+ops/verify_kernel.py and ops/fill_kernel.py call them for a CPU tensor.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """The on-device --verify kernel: build, binding and wrappers.
 
 csrc/verify.cu is compiled with nvcc for sm_90a into
-build/torch_kernels/libebt_torch_kernels.so at first use and loaded with
-ctypes. It replaces the original package's Pallas kernel
+build/torch_kernels/libebt_torch_kernels.so at first use (kernel_build.py)
+and loaded with ctypes. It replaces the original package's Pallas kernel
 (ops/pallas_verify.py, verify_block_pallas) and its jitted verify_block_u32
 device program with one kernel and two entry points:
 
@@ -27,23 +27,13 @@ fallback. Each wrapper counts its kernel launches in LAUNCHES.
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import os
-import subprocess
 import threading
-import time
 
 import torch
 
 from . import integrity
+from .kernel_build import LIB_PATH, build_lib
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_REPO_ROOT = os.path.dirname(_PKG_DIR)
-SOURCE = os.path.join(_PKG_DIR, "csrc", "verify.cu")
-BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_kernels")
-LIB_PATH = os.path.join(BUILD_DIR, "libebt_torch_kernels.so")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 # u64 words one CTA of verify.cu covers per pass (kThreads x kUnroll x 2)
 PASS_WORDS = 2048
 
@@ -60,32 +50,6 @@ def reset_launches() -> None:
     with _count_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
-
-
-def _nvcc() -> str:
-    cuda_nvcc = "/usr/local/cuda/bin/nvcc"
-    return cuda_nvcc if os.path.exists(cuda_nvcc) else "nvcc"
-
-
-def build_lib() -> float:
-    """Compile the kernel library if it is missing; returns the seconds the
-    build took (0.0 when it was already built). A file lock serialises
-    concurrent first uses; the library appears atomically."""
-    if os.path.exists(LIB_PATH):
-        return 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if os.path.exists(LIB_PATH):
-            return 0.0
-        t0 = time.perf_counter()
-        tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, LIB_PATH)
-        return time.perf_counter() - t0
 
 
 def load_lib() -> ctypes.CDLL:

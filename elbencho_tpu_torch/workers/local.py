@@ -6,12 +6,13 @@ WorkerManager.cpp:152-171): here the threads live inside the native engine
 (core/src/engine.cpp) and this class feeds it config, attaches the GPU device
 backend, and reads back live counters and results.
 
-The port carries the staged/direct callback backend and the hostsim
-backend. The native pjrt path and the scenarios built on it (striping,
-checkpoint restore, reshard, ingest, serving rotation) are refused at
+The port carries the staged/direct callback backend, the hostsim backend,
+and the native pjrt path (`--tpubackend pjrt`: the C++ CUDA transfer engine
+of csrc/cuda_path.cpp, installed as a C function pointer). The scenarios
+the original builds on the native path (striping, checkpoint restore,
+reshard, ingest, serving rotation, the device fault policy) are refused at
 config validation, so the counter families only they produce stay at the
-WorkerGroup defaults (None), exactly as the original reports them for a
-non-pjrt run.
+WorkerGroup defaults (None).
 """
 
 from __future__ import annotations
@@ -32,7 +33,14 @@ class LocalWorkerGroup(WorkerGroup):
         self.cfg = cfg
         self.engine: NativeEngine | None = None
         self._dev_callback = dev_callback
+        self._native_path = None  # NativeCudaPath on --tpubackend pjrt
         self._prepared = False
+        self._reg_window = 0
+        self._d2h_depth = 0
+        # engagement-confirmed tiers and the phase's counter base
+        self._engaged_tier: str | None = None
+        self._engaged_d2h_tier: str | None = None
+        self._tier_base: dict = {}
 
     # ------------------------------------------------------------- lifecycle
 
@@ -137,7 +145,9 @@ class LocalWorkerGroup(WorkerGroup):
 
         backend = cfg.tpu_backend
         e.set("dev_backend", int(backend))
-        if backend == DevBackend.CALLBACK:
+        if cfg.tpu_backend_name == "pjrt":
+            self._build_native(e)
+        elif backend == DevBackend.CALLBACK:
             if cfg.verify_salt and not cfg.tpu_host_verify:
                 # staged/direct backends check --verify patterns on device,
                 # against the GPU copy (ops/verify_kernel.py); the engine
@@ -162,6 +172,59 @@ class LocalWorkerGroup(WorkerGroup):
             e.set("dev_write_path", 1)
         return e
 
+    def _build_native(self, e: NativeEngine) -> None:
+        """--tpubackend pjrt: the engine calls straight into the C++ CUDA
+        transfer engine (csrc/cuda_path.cpp) — a C function pointer, never
+        a Python trampoline."""
+        from ..cuda.native import NativeCudaPath
+
+        cfg = self.cfg
+        if self._native_path is None:
+            self._native_path = NativeCudaPath(cfg)
+        np_ = self._native_path
+        e.set_dev_callback_native(np_.copy_fn_ptr, np_.ctx)
+        if cfg.verify_salt and not cfg.tpu_host_verify:
+            # read blocks are checked by the verify kernel, launched from
+            # C++ once per block, and verified writes source the pattern the
+            # fill kernel generates on the device; a kernel that cannot be
+            # built or loaded raises
+            np_.enable_device_verify(cfg)
+            e.set("dev_verify", 1)
+            np_.enable_device_write_gen(cfg)
+            e.set("dev_write_gen", 1)
+        # --gpuids are resolved to driver devices inside the native path;
+        # num_devices is the selected-device count
+        e.set("num_devices", max(1, np_.num_devices))
+        e.set("dev_write_path", 1)
+        e.set("dev_deferred", 1)  # completion at the pre-reuse barrier
+        if not os.environ.get("EBT_TPU_NO_MMAP"):
+            e.set("dev_mmap", 1)
+        # bounded registration windows (--regwindow): an LRU cache of
+        # pinned spans registered ahead of the engine's I/O cursor
+        regwin = cfg.effective_reg_window()
+        np_.set_reg_window(regwin)
+        e.set("reg_window", regwin)
+        self._reg_window = regwin
+        # deferred D2H fetch engine (--d2hdepth, default = iodepth). Both
+        # sides get the SAME resolved depth: the native path decides
+        # per-fetch deferral with it, the engine the hot-loop shape.
+        d2h_depth = cfg.d2h_depth or max(1, cfg.iodepth)
+        np_.set_d2h_depth(d2h_depth)
+        e.set("d2h_depth", d2h_depth)
+        self._d2h_depth = d2h_depth
+        if np_.dma_supported:
+            # registered-buffer tier: the engine registers its I/O buffers
+            # at prepare and mmap windows per mapping (directions 4/5/6);
+            # the capability was probed with one real registration
+            LOGGER.info("native CUDA tier: zero-copy (registered (pinned) "
+                        "host memory, cuMemHostRegister)")
+            e.set("dev_register", 1)
+        else:
+            LOGGER.info(
+                "native CUDA tier: staged (pageable copies, host-synchronous "
+                "for their source; "
+                + (np_.reg_error() or "registration unavailable") + ")")
+
     def prepare(self) -> None:
         if self._prepared:
             return
@@ -178,10 +241,13 @@ class LocalWorkerGroup(WorkerGroup):
 
     def start_phase(self, phase: BenchPhase, bench_id: str) -> None:
         assert self.engine is not None
+        # tier-engagement deltas are phase-scoped: confirm_engaged_tier()
+        # sees only THIS phase's traffic
+        self._tier_base = self.tier_counter_snapshot()
         # per-chip latency is phase-scoped like every other histogram
-        staging = self._staging_path()
-        if staging is not None:
-            staging.reset_device_latency()
+        source = self._native_path or self._staging_path()
+        if source is not None:
+            source.reset_device_latency()
         self.engine.start_phase(int(phase))
 
     def wait_done(self, timeout_ms: int) -> int:
@@ -206,7 +272,16 @@ class LocalWorkerGroup(WorkerGroup):
                 staging.close()
             except Exception:
                 pass
+        if self._native_path is not None:
+            try:
+                self._native_path.close()
+            except Exception:
+                pass
+            self._native_path = None
         self._prepared = False
+        self._engaged_tier = None  # a fresh session must re-confirm
+        self._engaged_d2h_tier = None
+        self._tier_base = {}
 
     # ----------------------------------------------------------------- stats
 
@@ -309,10 +384,133 @@ class LocalWorkerGroup(WorkerGroup):
             return None
         return self.engine.io_engine_cause()
 
+    # ------------------------------------- empirical tier engagement
+    #
+    # The h2d tier (zero-copy -> staged) is CONFIRMED from counter deltas,
+    # never from capability alone: a registration that passed the init
+    # probe can still fail per buffer, silently dropping the leg to the
+    # staged tier. The counters say which path the bytes actually took.
+
+    def tier_counter_snapshot(self) -> dict[str, int]:
+        """Cumulative tier counters (zero-copy chunks, h2d/d2h bytes,
+        deferred d2h blocks) — diffed by confirm_engaged_tier()."""
+        np_ = self._native_path
+        if np_ is None:
+            return {}
+        to_hbm, from_hbm = np_.transferred_bytes
+        return {"zero_copy": np_.zero_copy_count,
+                "to_hbm": to_hbm,
+                "from_hbm": from_hbm,
+                "d2h_deferred": np_.d2h_stats()["deferred_count"]}
+
+    def confirm_engaged_tier(self,
+                             base: dict[str, int] | None = None) -> str | None:
+        """Which h2d tier the traffic since `base` (default: the last
+        start_phase) actually ran: "zero_copy" when copies from registered
+        memory happened, else "staged". Returns the previous confirmation
+        (or None) when the window moved no h2d bytes — a write phase must
+        not un-confirm the read tier."""
+        np_ = self._native_path
+        if np_ is None:
+            return None
+        base = self._tier_base if base is None else base
+        now = self.tier_counter_snapshot()
+        if now["to_hbm"] - base.get("to_hbm", 0) <= 0:
+            return self._engaged_tier
+        tier = ("zero_copy"
+                if now["zero_copy"] - base.get("zero_copy", 0) > 0
+                else "staged")
+        if tier != self._engaged_tier and self._engaged_tier is not None:
+            LOGGER.info(f"native CUDA tier engagement changed: "
+                        f"{self._engaged_tier} -> {tier}"
+                        + (f" ({np_.reg_error()})" if np_.reg_error()
+                           else ""))
+        self._engaged_tier = tier
+        return tier
+
+    def confirm_d2h_tier(self,
+                         base: dict[str, int] | None = None) -> str | None:
+        """Write-direction twin of confirm_engaged_tier: "deferred" when
+        blocks went through the deferred fetch engine since `base`, else
+        "serial". Returns the previous confirmation when the window moved
+        no d2h bytes."""
+        np_ = self._native_path
+        if np_ is None:
+            return None
+        base = self._tier_base if base is None else base
+        now = self.tier_counter_snapshot()
+        if now["from_hbm"] - base.get("from_hbm", 0) <= 0:
+            return self._engaged_d2h_tier
+        tier = ("deferred"
+                if now["d2h_deferred"] - base.get("d2h_deferred", 0) > 0
+                else "serial")
+        if (self._engaged_d2h_tier is not None
+                and tier != self._engaged_d2h_tier):
+            LOGGER.info(f"native CUDA d2h tier engagement changed: "
+                        f"{self._engaged_d2h_tier} -> {tier}")
+        self._engaged_d2h_tier = tier
+        return tier
+
+    def plugin_caps(self) -> dict | None:
+        """Capability probes of the session's driver library: registration
+        (zero-copy tier possible), the latency clock, and whether the
+        driver is the CPU test mock. None off the native path."""
+        np_ = self._native_path
+        if np_ is None:
+            return None
+        driver = os.path.basename(np_.so_path)
+        return {"dma_map": bool(np_.dma_supported), "xfer_mgr": False,
+                "onready_clock": np_.latency_clock, "plugin": driver,
+                "mock": "mock" in driver}
+
+    def native_device_count(self) -> int:
+        """Selected-device count of the native path (0 off it)."""
+        if self._native_path is None:
+            return 0
+        return self._native_path.num_devices
+
+    def d2h_tier(self) -> str | None:
+        return self._engaged_d2h_tier
+
+    def d2h_stats(self) -> dict[str, int] | None:
+        if self._native_path is None:
+            return None
+        return self._native_path.d2h_stats()
+
+    def effective_d2h_depth(self) -> int:
+        """Resolved --d2hdepth (0 before the pjrt engine was built)."""
+        return self._d2h_depth
+
+    def data_path_tier(self) -> str | None:
+        return self._engaged_tier
+
+    def reg_cache_stats(self) -> dict[str, int] | None:
+        if self._native_path is None:
+            return None
+        return self._native_path.reg_cache_stats()
+
+    def effective_reg_window(self) -> int:
+        """Resolved --regwindow byte budget (0 before prepare / off the
+        native path)."""
+        return self._reg_window
+
+    def lane_stats(self) -> list[dict[str, int]] | None:
+        if self._native_path is None:
+            return None
+        return self._native_path.lane_stats()
+
+    def single_lane(self) -> bool:
+        """True when EBT_PJRT_SINGLE_LANE=1 forced the single-shard ledger
+        shape (the lane-split A/B control)."""
+        return (self._native_path is not None
+                and self._native_path.single_lane)
+
     def device_latency(self) -> dict[str, "LatencyHistogram"]:
-        """Per-chip transfer latency histograms of the staged/direct path,
-        labelled by --gpuids entry like the original."""
-        source = self._staging_path()
+        """Per-chip transfer latency histograms, whichever backend ran the
+        device leg (the native path's host-function-stamped histograms, or
+        the staged/direct path's), labelled by --gpuids entry like the
+        original."""
+        source = self._native_path or self._staging_path()
         if source is None:
             return {}
         ids = self.cfg.tpu_ids
@@ -323,12 +521,17 @@ class LocalWorkerGroup(WorkerGroup):
         return out
 
     def device_latency_clock(self) -> dict[str, str]:
-        """One clock word per label: 'barrier' like the original's
-        staged/direct backends (event completion observed at the block's
-        wait or at the pre-reuse barrier)."""
-        if self._staging_path() is None:
+        """One clock word per label: native = 'onready'/'await' (the path
+        knows whether host-function stamps were available); staged/direct =
+        'barrier' like the original's (event completion observed at the
+        block's wait or at the pre-reuse barrier)."""
+        if self._native_path is not None:
+            clock = self._native_path.latency_clock
+        elif self._staging_path() is not None:
+            clock = "barrier"
+        else:
             return {}
-        return {label: "barrier" for label in self.device_latency()}
+        return {label: clock for label in self.device_latency()}
 
     def num_slots(self) -> int:
         return self.cfg.num_threads
@@ -344,6 +547,11 @@ class LocalWorkerGroup(WorkerGroup):
 
     def phase_results(self) -> list[WorkerPhaseResult]:
         assert self.engine is not None
+        # every finished phase refreshes the engagement confirmations, so
+        # the stats/result trees report the tiers the phase actually ran
+        if self._native_path is not None:
+            self.confirm_engaged_tier()
+            self.confirm_d2h_tier()
         out = []
         cpu_sw = self.engine.cpu_stonewall_pct()
         staging = self._staging_path()
@@ -357,6 +565,12 @@ class LocalWorkerGroup(WorkerGroup):
                 verr = staging.verify_errors.get(self.cfg.rank_offset + i)
                 if verr:
                     err = verr
+            if err and self._native_path is not None:
+                # surface the driver's root cause behind the engine's
+                # generic "device copy failed (rc=N)" message
+                nerr = self._native_path.last_error()
+                if nerr and nerr not in err:
+                    err = f"{err}: {nerr}"
             out.append(WorkerPhaseResult(
                 ops=lv.ops,
                 elapsed_us_list=[res.elapsed_us],

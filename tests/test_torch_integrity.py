@@ -3,7 +3,8 @@
 Inputs are made with numpy from fixed seeds and handed to both sides; all
 of this is integer arithmetic, so the stated tolerance is exact equality.
 The Pallas kernel runs in interpret mode, as the original's own tests run
-it; the port's verify wrappers take their plain path for a CPU tensor.
+it; the port's verify and fill wrappers take their plain path for a CPU
+tensor.
 """
 
 import numpy as np
@@ -16,7 +17,7 @@ import jax.numpy as jnp
 
 from elbencho_tpu.ops import integrity as jax_integrity
 from elbencho_tpu.ops.pallas_verify import verify_block_pallas
-from elbencho_tpu_torch.ops import integrity
+from elbencho_tpu_torch.ops import fill_kernel, integrity
 from elbencho_tpu_torch.ops import verify_kernel
 
 U64 = (1 << 64) - 1
@@ -180,3 +181,41 @@ def test_verify_block_u32_refuses_partial_words():
     with pytest.raises(ValueError):
         verify_kernel.verify_block_u32(torch.zeros(4, dtype=torch.int32),
                                        0, 1)
+
+
+# B3 (the pattern generator): (words, file offset, salt)
+FILL_CASES = [(4096, (1 << 33) + 4096, (1 << 40) + 7),   # large offset/salt
+              (1025, U64 - 4095, 7),                    # wraps past 2^64
+              (1, 8192, 4242), (3, 0, 1), (777, 64, 9)]  # odd word counts
+
+
+@pytest.mark.parametrize("n,off,salt", FILL_CASES)
+def test_fill_wrapper_matches_jax_bit_for_bit(n, off, salt):
+    """The fill wrapper's CPU path against the original's fill_block_u32,
+    exact, and without a kernel launch."""
+    before = dict(fill_kernel.LAUNCHES)
+    ours = fill_kernel.fill_block_u32(n, off, salt, "cpu")
+    ref = np.asarray(jax_integrity.fill_block_u32(
+        n, integrity.split_u64(off), integrity.split_u64(salt)))
+    assert ours.dtype == torch.int32 and ours.numel() == 2 * n
+    assert np.array_equal(ours.numpy().view(np.uint32), ref)
+    assert np.array_equal(ours.numpy().view(np.uint32), _pattern(8 * n, off,
+                                                                  salt))
+    assert fill_kernel.LAUNCHES == before
+
+
+def test_fill_in_place_at_an_odd_word():
+    """fill_u64_ into a view starting one word into its storage (a start 8
+    mod 16 on the card) writes only its own words."""
+    buf = torch.full((10,), -1, dtype=torch.int64)
+    fill_kernel.fill_u64_(buf[1:8], 4096 + 42)
+    words = buf.numpy().view(np.uint64)
+    assert words[0] == words[8] == words[9] == U64
+    assert list(words[1:8]) == [4096 + 42 + 8 * i for i in range(7)]
+
+
+def test_fill_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        fill_kernel.fill_u64_(torch.zeros(4, dtype=torch.int32), 0)
+    with pytest.raises(ValueError):
+        fill_kernel.fill_u64_(torch.zeros(8, dtype=torch.int64)[::2], 0)

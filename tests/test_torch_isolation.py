@@ -1,8 +1,10 @@
 """The port stands alone: no module of elbencho_tpu_torch/ and not
-chip_smoke.py imports jax or the original elbencho_tpu package."""
+chip_smoke.py imports jax or the original elbencho_tpu package, and no C++
+or CUDA source of the port includes PJRT."""
 
 import ast
 import os
+import re
 
 import pytest
 
@@ -45,3 +47,28 @@ def test_port_has_files():
 def test_no_jax_or_original_package_import(path):
     bad = sorted(set(_top_level_imports(path)) & FORBIDDEN)
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+# the modules the native CUDA engine added, which must be among the scanned
+NATIVE_MODULES = ("elbencho_tpu_torch/cuda/native.py",
+                  "elbencho_tpu_torch/ops/fill_kernel.py",
+                  "elbencho_tpu_torch/ops/kernel_build.py")
+
+
+def test_native_modules_are_scanned():
+    scanned = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert set(NATIVE_MODULES) <= scanned
+
+
+def _native_sources():
+    d = os.path.join(REPO, "elbencho_tpu_torch", "csrc")
+    return sorted(os.path.join(d, f) for f in os.listdir(d))
+
+
+@pytest.mark.parametrize("path", _native_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_pjrt_include(path):
+    includes = re.findall(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]',
+                          open(path).read(), re.M)
+    bad = [i for i in includes if "pjrt" in i.lower()]
+    assert not bad, f"{os.path.relpath(path, REPO)} includes {bad}"

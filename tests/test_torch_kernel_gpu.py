@@ -1,4 +1,4 @@
-"""The verify kernel against its plain version on the card.
+"""The verify and fill kernels against their plain versions on the card.
 
 The CUDA kernel has no CPU mode, so these tests skip without a CUDA device.
 They import neither jax nor the original package, so they also run on a
@@ -13,7 +13,7 @@ import torch
 
 from elbencho_tpu_torch.config import config_from_args
 from elbencho_tpu_torch.cuda.backend import TorchStagingPath
-from elbencho_tpu_torch.ops import integrity, verify_kernel
+from elbencho_tpu_torch.ops import fill_kernel, integrity, verify_kernel
 
 U64 = (1 << 64) - 1
 CASES = [(0, 1), ((1 << 33) + 4096, (1 << 40) + 7), (U64 - 4095, 1 << 62)]
@@ -166,3 +166,34 @@ def test_staged_verify_on_the_card(cuda, tmp_path, monkeypatch):
     buf[planted] ^= 0x81
     assert sp.copy(0, 0, 0, buf.ctypes.data, buf.nbytes, file_off) == 2
     assert sp.verify_errors[0].endswith(f"file offset {file_off + planted}")
+
+
+# B3 on the card: (words, word offset into the buffer, file offset, salt)
+FILL_CASES = [(1 << 16, 0, (1 << 33) + 4096, (1 << 40) + 7),
+              (4097, 0, U64 - 4095, 7),            # wraps past 2^64
+              (1, 0, 0, 1), (3, 0, 8, 2), (12345, 0, 64, 9),  # odd counts
+              (1 << 16, 1, 4096, 42), (4097, 1, 8192, 5)]     # start 8 mod 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,skip,off,salt", FILL_CASES)
+def test_fill_kernel_matches_plain(cuda, n, skip, off, salt):
+    """The fill kernel writes exactly the plain pattern, only its words,
+    and counts one launch."""
+    buf = torch.full((n + skip + 2,), -1, dtype=torch.int64, device="cuda")
+    before = fill_kernel.LAUNCHES["fill_block_u32"]
+    fill_kernel.fill_u64_(buf[skip:skip + n], off + salt)
+    torch.cuda.synchronize()
+    assert fill_kernel.LAUNCHES["fill_block_u32"] == before + 1
+    want = integrity.expected_words(n, off + salt)
+    got = buf.cpu()
+    assert torch.equal(got[skip:skip + n], want)
+    assert bool((got[:skip] == -1).all()) and bool((got[skip + n:] == -1).all())
+
+
+@pytest.mark.gpu
+def test_fill_block_u32_on_the_card_matches_cpu(cuda):
+    off, salt = (1 << 33) + 4096, (1 << 40) + 7
+    gpu = fill_kernel.fill_block_u32(3001, off, salt, "cuda")
+    assert gpu.device.type == "cuda"
+    assert torch.equal(gpu.cpu(), fill_kernel.fill_block_u32(3001, off, salt))
