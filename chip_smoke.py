@@ -43,7 +43,29 @@ Phases, each reported on its own line:
      once per block read, the file must hold the pattern, and a planted
      corrupt byte must be reported at its exact offset;
  10. direct and native reads of the 4 GiB file in turns, three pairs,
-     printed as measurements (nothing asserted or claimed).
+     printed as measurements (nothing asserted or claimed);
+ 11. hold the ingest kernel (B4, fused verify + checksum) against its plain
+     version (a clean 64 KiB block, corrupt first, last and random words, a
+     base that wraps past 2^64, a start 8 mod 16, a batch of 8 ranks x 4 MiB
+     with one corrupt rank) and time it at 64 KiB, 4 MiB, 256 MiB and as
+     batches of 2 and 8 ranks x 4 MiB, beside one torch.sum over the same
+     bytes (a floor: no single PyTorch call computes the fused step);
+ 12. hold the reduction kernel (B5) against its plain version through
+     MeshStatsReducer over [cuda:0], [cuda:0, cuda:0] and every card
+     (exactness cases, values of 2^63 and above, a column wrapping past
+     2^64) and time one launch beside one torch.sum(rows, 0);
+ 13. the slice's main path: entry()'s step on the card, run_sharded_ingest
+     over each device list (2 ranks of 4 MiB per device at real file
+     offsets, one rank corrupt) and a MeshStatsReducer reduction of its
+     per-device counters; exactly one ingest launch per device and step,
+     one reduction launch per step and reduce;
+ 14. distributed service mode on the card: two port services (subprocesses,
+     --gpuids 0) and a port master on a 2 GiB file in /dev/shm, staged
+     --verify write + read, then the native engine (--tpubackend pjrt
+     --lat): totals equal to the file, host-prefixed per-chip rows, a
+     corrupt byte failing the run framed by the host whose service reports
+     its exact offset, /metrics answering; with two or more cards the slice
+     tier (--gpuids 0,1, SliceOps reduced over two devices).
 
 The second-to-last line is a JSON object describing each kernel of the path;
 the last line is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -78,6 +100,9 @@ TIME_SIZES = (CHUNK, BLOCK, 8 << 20, 256 << 20)  # 8 MiB: the direct block
 FILL_SIZES = (BLOCK, 8 << 20, 256 << 20)
 MAIN_ARGS = ["-t", "4", "-s", "4G", "-b", "8M", "--iodepth", "4", "--gpuids",
              "0", "--lat", "--nolive"]
+INGEST_OPS_PER_BYTE = 4     # verify's 3, plus the checksum's adds
+ENTRY_BLOCK = 64 << 10      # graft_entry.entry()'s block
+DIST_SIZE = 2 << 30         # the distributed runs' file
 COLD_BYTES = 128 << 20      # rotating buffers, 2.5x the 50 MB L2
 GRAPH_LAUNCHES = 200
 
@@ -449,21 +474,22 @@ def read_csv(path: str) -> dict[str, dict[str, str]]:
     return {r["operation"]: r for r in csv.DictReader(open(path))}
 
 
-def run_cli(cli, args: list[str]) -> tuple[int, str]:
-    """Run the port's CLI in-process; returns (rc, what it wrote to
-    stderr), which is also passed through."""
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
+def run_cli(cli, args: list[str]) -> tuple[int, str, str]:
+    """Run the port's CLI in-process; returns (rc, what it wrote to stdout,
+    what it wrote to stderr), both also passed through."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(args)
+    sys.stdout.write(out.getvalue())
     sys.stderr.write(err.getvalue())
-    return rc, err.getvalue()
+    return rc, out.getvalue(), err.getvalue()
 
 
 def main_path(cli, d: str) -> None:
     """Phase 6: the README's storage -> GPU setting at 4 GiB, direct."""
     path, csvp = os.path.join(d, "f4g"), os.path.join(d, "p4.csv")
     t0 = time.perf_counter()
-    rc, _ = run_cli(cli, ["-w", "-r", "-t", "4", "-s", "4G", "-b", "8M",
+    rc, _, _ = run_cli(cli, ["-w", "-r", "-t", "4", "-s", "4G", "-b", "8M",
                           "--iodepth", "4", "--gpuids", "0", "--tpubackend",
                           "direct", "--lat", "--nolive", "--csvfile", csvp,
                           path])
@@ -500,7 +526,7 @@ def verify_run(cli, vk, d: str) -> int:
     args = ["-t", "2", "-s", "1G", "-b", "4M", "--verify", "42", "--gpuids",
             "0", "--nolive", path]
     vk.reset_launches()
-    rc, _ = run_cli(cli, ["-w", "-r", "--csvfile", csvp, *args])
+    rc, _, _ = run_cli(cli, ["-w", "-r", "--csvfile", csvp, *args])
     launched = sum(vk.LAUNCHES.values())
     if rc != 0 or launched != size // BLOCK:
         raise AssertionError(f"verify run: rc {rc}, {launched} kernel "
@@ -516,7 +542,7 @@ def verify_run(cli, vk, d: str) -> int:
         if repair is not None:
             flip_byte(path, repair)
         flip_byte(path, corrupt)
-        rc, err = run_cli(cli, ["-r", *args])
+        rc, _, err = run_cli(cli, ["-r", *args])
         want = f"on-device data verification failed at file offset {corrupt}"
         if rc != 1 or want not in err:
             raise AssertionError(f"corrupt run: rc {rc}, expected '{want}'")
@@ -529,7 +555,7 @@ def cli_read_gibs(cli, path: str, backend: str, d: str) -> float:
     csvp = os.path.join(d, f"pair-{backend}.csv")
     if os.path.exists(csvp):
         os.remove(csvp)
-    rc, _ = run_cli(cli, ["-r", *MAIN_ARGS, "--tpubackend", backend,
+    rc, _, _ = run_cli(cli, ["-r", *MAIN_ARGS, "--tpubackend", backend,
                           "--csvfile", csvp, path])
     if rc != 0:
         raise AssertionError(f"{backend} read: rc {rc}")
@@ -593,7 +619,7 @@ def native_verify_run(cli, native, d: str) -> dict:
     args = ["-t", "2", "-s", "1G", "-b", "4M", "--verify", str(salt),
             "--gpuids", "0", "--tpubackend", "pjrt", "--nolive", path]
     native.reset_kernel_launches()
-    rc, _ = run_cli(cli, ["-w", "-r", "--csvfile", csvp, *args])
+    rc, _, _ = run_cli(cli, ["-w", "-r", "--csvfile", csvp, *args])
     launches = native.kernel_launches()
     blocks = size // BLOCK
     if rc != 0 or launches != {"verify_u32": blocks, "fill_u64": blocks}:
@@ -615,7 +641,7 @@ def native_verify_run(cli, native, d: str) -> dict:
                            f"{rows['READ']['MiB/s last']} MiB/s")
     corrupt = 9 * BLOCK + CHUNK + 4321
     flip_byte(path, corrupt)
-    rc, err = run_cli(cli, ["-r", *args])
+    rc, _, err = run_cli(cli, ["-r", *args])
     want = f"on-device data verification failed at file offset {corrupt}"
     if rc != 1 or want not in err:
         raise AssertionError(f"native corrupt run: rc {rc}, expected "
@@ -634,20 +660,395 @@ def read_pairs(cli, path: str, d: str) -> None:
                        f"{nat:.3f} GiB/s")
 
 
+def _step_row(out: dict) -> tuple[int, ...]:
+    return tuple(int(out[k]) for k in ("ok_bytes", "bad_words",
+                                       "first_bad_word", "checksum"))
+
+
+def check_ingest(ik, integ) -> int:
+    """Phase 11: the ingest kernel against its plain version on the same
+    lanes on the card; returns the largest absolute difference over the
+    four fields (0 when they agree)."""
+    rng = np.random.default_rng(4)
+    errs = []
+    n64 = ENTRY_BLOCK // 4
+    cases = [("64KiB clean", n64, 8192, 1234, [], False),
+             ("64KiB corrupt first/last/random", n64, 8192, 1234,
+              [0, n64 - 1, int(rng.integers(0, n64))], False),
+             ("wrap past 2^64", (8 << 20) // 4, U64 - (4 << 20) + 1, 12345,
+              [int(rng.integers(0, (8 << 20) // 4))], False),
+             ("start 8 mod 16", BLOCK // 4 + 2, (1 << 33) + 4096,
+              (1 << 40) + 7, [BLOCK // 4 + 1], True)]
+    for name, n, off, salt, corrupt, misalign in cases:
+        lanes = pattern_lanes(n, off, salt, misalign=misalign)
+        for pos in corrupt:
+            lanes[pos] ^= 0x00A5A500
+        args = (*integ.split_u64(off), *integ.split_u64(salt))
+        got = _step_row(ik.ingest_verify_step(lanes, *args))
+        torch.cuda.synchronize()
+        want = _step_row(integ.ingest_verify_step(lanes, *args))
+        err = max(abs(g - w) for g, w in zip(got, want))
+        if err or got[1] != len(set(p // 2 for p in corrupt)):
+            raise AssertionError(f"ingest kernel {name}: kernel {got} != "
+                                 f"plain {want}")
+        phase("ingest", f"{name}: kernel == plain {got}")
+        errs.append(err)
+    salt = 42
+    offs = [(1 << 30) + r * BLOCK for r in range(8)]
+    blocks = torch.stack([pattern_lanes(BLOCK // 4, o, salt) for o in offs])
+    blocks[6, 123457] ^= 0x10
+    got = ik.ingest_verify_batch(blocks, offs, salt)
+    torch.cuda.synchronize()
+    want = integ.ingest_verify_batch_plain(blocks, offs, salt)
+    err = int((got - want).abs().max())
+    if err or int(got[:, 1].sum()) != 1 or int(got[6, 0]) != 0:
+        raise AssertionError(f"ingest batch: kernel {got.tolist()} != "
+                             f"plain {want.tolist()}")
+    phase("ingest", f"8 ranks x 4 MiB, rank 6 corrupt: kernel == plain "
+                    f"(bad words per rank {got[:, 1].tolist()})")
+    errs.append(err)
+    # smaller launches after a larger one on the same stream and workspace,
+    # 100 bad words in rank 1's first CTA pass: each finds its tickets at 0
+    blocks[1, 0:200:2] ^= 0x1000
+    for sl in (slice(0, 8), slice(2, 3), slice(1, 3), slice(0, 4)):
+        got = ik.ingest_verify_batch(blocks[sl], offs[sl], salt)
+        torch.cuda.synchronize()
+        want = integ.ingest_verify_batch_plain(blocks[sl], offs[sl], salt)
+        err = int((got - want).abs().max())
+        if err:
+            raise AssertionError(f"ingest batch ranks {sl}: kernel "
+                                 f"{got.tolist()} != plain {want.tolist()}")
+        errs.append(err)
+    phase("ingest", "8, 1, 2 and 4 ranks in turn on one workspace, 100 bad "
+                    "words in rank 1's first 16 KiB: kernel == plain")
+    return max(errs)
+
+
+def ingest_bound_ms(nbytes: int) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = INGEST_OPS_PER_BYTE * nbytes / ALU_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_ingest(ik, integ, ranks: int, rank_bytes: int) -> dict:
+    """Phase 11 at one shape: device time per launch of the bare C entry
+    (CUDA graph replay timed with events) with the data in L2 and out of it
+    (buffers rotating over 128 MiB), the plain version, and one torch.sum
+    over the same bytes."""
+    salt = 42
+    offs = [(1 << 20) + r * rank_bytes for r in range(ranks)]
+    lanes = rank_bytes // 4
+    one = torch.stack([integ.fill_block_u32(lanes // 2, o, salt, "cuda")
+                       for o in offs])
+    lib = ik.load_lib()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ws = torch.zeros(lib.ebt_ingest_workspace_bytes(sms, ranks) // 8,
+                     dtype=torch.int64, device="cuda")  # zeroed once
+    bases = torch.tensor([o + salt for o in offs], dtype=torch.int64,
+                         device="cuda")
+    out = torch.empty((ranks, 4), dtype=torch.int64, device="cuda")
+
+    def kernel(blocks):  # the bare launch; timing launches are not counted
+        rc = lib.ebt_ingest_verify_u32(
+            blocks.data_ptr(), lanes, ranks, lanes, bases.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), sms,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"ingest kernel launch failed ({rc})")
+
+    nbytes = ranks * rank_bytes
+    cold = [one] + [one.clone() for _ in range(max(2, COLD_BYTES // nbytes)
+                                               - 1)]
+    r = {"bytes": nbytes, "warm": graph_ms(kernel, [one]),
+         "cold": graph_ms(kernel, cold),
+         "sum": graph_ms(lambda b: torch.sum(b.view(torch.int64)), [one]),
+         "plain": events_ms(lambda: integ.ingest_verify_batch_plain(
+             one, offs, salt), 5 if nbytes > (64 << 20) else 50)}
+    want = integ.ingest_verify_batch_plain(one, offs, salt)
+    if not torch.equal(out, want):
+        raise AssertionError(f"timed ingest kernel: {out.tolist()} != "
+                             f"{want.tolist()}")
+    r["bound"], r["by"] = ingest_bound_ms(nbytes)
+    phase("ingest-time", f"{ranks} x {rank_bytes >> 10} KiB: device L2-warm "
+                         f"{r['warm']:.6f} ms "
+                         f"({100 * r['bound'] / r['warm']:.1f}% of bound), "
+                         f"L2-cold {r['cold']:.6f} ms "
+                         f"({100 * r['bound'] / r['cold']:.1f}%); bound "
+                         f"{r['bound']:.6f} ms ({r['by']}); plain "
+                         f"{r['plain']:.6f} ms")
+    phase("ingest-sum", f"{ranks} x {rank_bytes >> 10} KiB: torch.sum on the "
+                        f"int64 view, device {r['sum']:.6f} ms")
+    return r
+
+
+def device_lists() -> list[list[torch.device]]:
+    """[cuda:0], [cuda:0, cuda:0] (the gather and a multi-row sum on one
+    card) and, with two or more cards, every card."""
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    lists = [cards[:1], [cards[0], cards[0]]]
+    if len(cards) > 1:
+        lists.append(cards)
+    return lists
+
+
+def check_reduce(mesh) -> int:
+    """Phase 12: MeshStatsReducer's exact totals on each device list;
+    returns the largest absolute difference (0 when exact)."""
+    errs = []
+    for devs in device_lists():
+        n = len(devs)
+        reducer = mesh.MeshStatsReducer(devs)
+        for name, rows in (
+                ("exactness", [[(1 << 40) + 977 * i, (1 << 33) * i + 3, i]
+                               for i in range(n)]),
+                ("repeat", [[1, 2, 3]] * n),
+                ("2^63 and a wrap past 2^64",
+                 [[(1 << 63) + d, U64 - d, (1 << 62) + d, 7]
+                  for d in range(n)])):
+            got = reducer.reduce(rows)
+            want = [sum(r[c] for r in rows) & U64 for c in range(len(rows[0]))]
+            err = max(abs(g - w) for g, w in zip(got, want))
+            if err:
+                raise AssertionError(f"reducer {name} on {devs}: {got} != "
+                                     f"{want}")
+            errs.append(err)
+        phase("reduce", f"MeshStatsReducer over {[str(d) for d in devs]}: "
+                        f"exact on 3 cases")
+    return max(errs)
+
+
+def time_reduce(ik, integ, n: int, k: int) -> dict:
+    """Phase 12: one reduction launch on [n, k] rows (CUDA graph replay
+    timed with events), the plain version, and torch.sum(rows, 0), which
+    computes the same column sums mod 2^64."""
+    rows = torch.from_numpy(np.random.default_rng(n * k).integers(
+        0, U64, (n, k), dtype=np.uint64, endpoint=True).view(np.int64)).cuda()
+    out = torch.empty(k, dtype=torch.int64, device="cuda")
+    lib = ik.load_lib()
+
+    def kernel(r):
+        rc = lib.ebt_sum_rows_u64(r.data_ptr(), n, k, out.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"sum_rows kernel launch failed ({rc})")
+
+    r = {"warm": graph_ms(kernel, [rows]),
+         "lib": graph_ms(lambda x: torch.sum(x, 0), [rows]),
+         "plain": events_ms(lambda: integ.sum_rows_u64_plain(rows), 50)}
+    if not torch.equal(out, integ.sum_rows_u64_plain(rows)):
+        raise AssertionError("timed sum_rows kernel: wrong sums")
+    nbytes = (n * k + k) * 8
+    r["bound"] = max(nbytes / HBM_BYTES_PER_S, n * k / ALU_OPS_PER_S) * 1e3
+    phase("reduce-time", f"[{n}, {k}] rows: device {r['warm']:.6f} ms "
+                         f"(launch-bound; bytes bound {r['bound']:.9f} ms); "
+                         f"plain {r['plain']:.6f} ms; torch.sum(rows, 0) "
+                         f"{r['lib']:.6f} ms")
+    return r
+
+
+def slice_main_path(ik, integ, mesh, graft_entry) -> dict:
+    """Phase 13: entry()'s step, run_sharded_ingest and a MeshStatsReducer
+    reduction on the card, with the launch counts of exactly this run."""
+    ik.reset_launches()  # count only this phase's launches
+    fn, args = graft_entry.entry()
+    if args[0].device.type != "cuda":
+        raise AssertionError(f"entry() put its block on {args[0].device}")
+    got = _step_row(fn(*args))
+    want = _step_row(integ.ingest_verify_step(args[0].cpu(), *args[1:]))
+    if got != want or got[1] or got[0] != ENTRY_BLOCK:
+        raise AssertionError(f"entry(): kernel {got} != plain {want}")
+    phase("graft", f"entry() on {args[0].device}: fn(*args) == plain {got}")
+    steps, launches_b4 = 0, 1
+    salt = 42
+    for devs in device_lists():
+        n = len(devs)
+        ranks = 2 * n
+        offs = np.array([(5 << 30) + r * BLOCK for r in range(ranks)],
+                        dtype=np.uint64)  # real file offsets: past 2^32
+        words = np.arange(BLOCK // 8, dtype=np.uint64) * np.uint64(8)
+        blocks = np.stack([(words + o + np.uint64(salt)).view(np.uint32)
+                           for o in offs])
+        blocks[-1, 99999] ^= 0x1  # the last rank is corrupt
+        out = mesh.run_sharded_ingest(devs, blocks, offs, salt)
+        steps += 1
+        launches_b4 += n
+        want_ok = float((ranks - 1) * BLOCK)
+        if (float(out["bad_words"]) != 1.0 or float(out["iops"]) != ranks
+                or float(out["ok_bytes"]) != want_ok):
+            raise AssertionError(f"sharded ingest on {devs}: {out}")
+        per_dev = [[BLOCK * 2, 2, d] for d in range(n)]
+        tot = mesh.MeshStatsReducer(devs).reduce(per_dev)
+        steps += 1
+        if tot != [BLOCK * 2 * n, 2 * n, n * (n - 1) // 2]:
+            raise AssertionError(f"reducer on {devs}: {tot}")
+        phase("graft", f"run_sharded_ingest over {[str(d) for d in devs]}: "
+                       f"{ranks} ranks x 4 MiB, {out}")
+    launches = dict(ik.LAUNCHES)
+    if launches != {"ingest_verify_u32": launches_b4, "sum_rows_u64": steps}:
+        raise AssertionError(f"slice main path launches {launches}, want "
+                             f"{launches_b4} ingest and {steps} reductions")
+    phase("graft", f"launches: {launches} (one ingest per device and step "
+                   f"plus entry()'s, one reduction per step and reduce)")
+    return launches
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _http_json(url: str) -> dict:
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return json.loads(r.read())
+
+
+@contextlib.contextmanager
+def port_services(d: str, n: int = 2):
+    """n port service subprocesses on the card, stopped afterwards."""
+    import urllib.request
+    ports = [_free_port() for _ in range(n)]
+    logs = [open(os.path.join(d, f"svc{p}.log"), "w") for p in ports]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "elbencho_tpu_torch.cli", "--service",
+         "--foreground", "--port", str(p)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=log, stderr=subprocess.STDOUT) for p, log in zip(ports, logs)]
+    try:
+        deadline = time.monotonic() + 120
+        for p in ports:
+            while True:
+                try:
+                    urllib.request.urlopen(f"http://127.0.0.1:{p}/info",
+                                           timeout=2).read()
+                    break
+                except OSError:
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(f"service on port {p} not up")
+                    time.sleep(0.2)
+        yield ports
+    except BaseException:
+        for p, log in zip(ports, logs):
+            log.flush()
+            tail = open(log.name).read()[-3000:]
+            print(f"service {p} log tail:\n{tail}", file=sys.stderr)
+        raise
+    finally:
+        for pr in procs:
+            pr.terminate()
+        for pr in procs:
+            try:
+                pr.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                pr.kill()
+                pr.wait()
+        for log in logs:
+            log.close()
+
+
+def distributed_run(cli, d: str) -> None:
+    """Phase 14: two port services and a port master on the card."""
+    import urllib.request
+    path, size = os.path.join(d, "dist"), DIST_SIZE
+    t0 = time.perf_counter()
+    with port_services(d) as ports:
+        phase("dist", f"2 port services up on ports {ports} in "
+                      f"{time.perf_counter() - t0:.1f}s")
+        hosts = ",".join(f"127.0.0.1:{p}" for p in ports)
+        base = ["--hosts", hosts, "-t", "2", "-s", f"{size >> 20}M", "-b", "4M",
+                "--verify", "42", "--gpuids", "0", "--nolive"]
+        for backend, extra in (("staged", []), ("pjrt", ["--lat"])):
+            csvp = os.path.join(d, f"dist-{backend}.csv")
+            rc, out, _ = run_cli(cli, ["-w", "-r", *base, "--tpubackend",
+                                           backend, *extra, "--csvfile",
+                                           csvp, path])
+            if rc != 0:
+                raise AssertionError(f"distributed {backend}: rc {rc}")
+            rows = read_csv(csvp)
+            for op in ("WRITE", "READ"):
+                if int(rows[op]["bytes last"]) != size:
+                    raise AssertionError(f"distributed {backend} {op}: "
+                                         f"{rows[op]['bytes last']} bytes")
+            totals = [ln.split()[-1] for ln in out.splitlines()
+                      if "Total MiB" in ln]
+            if totals != [str(size >> 20)] * 2:
+                raise AssertionError(f"Total MiB rows {totals}")
+            if backend == "pjrt":
+                for p in ports:
+                    want = f"TPU 127.0.0.1:{p}:0 xfer lat us"
+                    rows_p = [ln for ln in out.splitlines() if want in ln]
+                    if len(rows_p) != 2 or not all("clock=onready" in ln
+                                                   for ln in rows_p):
+                        raise AssertionError(f"per-chip rows of {p}: "
+                                             f"{rows_p}")
+            phase("dist", f"{backend} --verify {size >> 20} MiB through 2 "
+                          f"services: "
+                          f"WRITE {int(rows['WRITE']['MiB/s last']) / 1024:.3f}"
+                          f" GiB/s, READ "
+                          f"{int(rows['READ']['MiB/s last']) / 1024:.3f} GiB/s")
+        # rank 3 (the second service's second thread) reads the last quarter
+        bad = 3 * (size // 4) + size // 8 + 12345
+        flip_byte(path, bad)
+        rc, _, err = run_cli(cli, ["-r", *base, "--tpubackend", "staged",
+                                       path])
+        framed = f"service 127.0.0.1:{ports[1]}: worker failed"
+        history = _http_json(f"http://127.0.0.1:{ports[1]}/benchresult"
+                             ).get("ErrorHistory") or []
+        want = f"on-device data verification failed at file offset {bad}"
+        if rc != 1 or framed not in err or not any(want in ln
+                                                   for ln in history):
+            raise AssertionError(f"corrupt distributed read: rc {rc}, "
+                                 f"history {history}")
+        phase("dist", f"corrupt byte: rc 1, '{framed}', service reports "
+                      f"'{want}'")
+        for p in ports:
+            with urllib.request.urlopen(f"http://127.0.0.1:{p}/metrics",
+                                        timeout=30) as r:
+                if r.status != 200 or b"ebt_scrape_ok 1" not in r.read():
+                    raise AssertionError(f"/metrics of {p}")
+        phase("dist", "/metrics answers 200 (ebt_scrape_ok 1) on both")
+        if torch.cuda.device_count() >= 2:
+            rc, _, _ = run_cli(cli, [
+                "--hosts", hosts, "-w", "-r", "-t", "2", "-s",
+                f"{size >> 20}M", "-b", "4M", "--gpuids", "0,1",
+                "--tpubackend", "staged",
+                "--nolive", path])
+            for p in ports:
+                sl = _http_json(f"http://127.0.0.1:{p}/benchresult")
+                if rc != 0 or sl["SliceOps"]["NumDevices"] != 2 or \
+                        sl["SliceOps"]["Reduction"] != "psum":
+                    raise AssertionError(f"slice tier on {p}: rc {rc}, {sl}")
+            phase("dist", "slice tier: SliceOps reduced over 2 devices on "
+                          "both services")
+        else:
+            phase("dist", "slice tier not run: it needs two devices and "
+                          "this machine has one card")
+        cli.main(["--hosts", hosts, "--quit"])
+    phase("dist", f"distributed phase took {time.perf_counter() - t0:.1f}s")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    from elbencho_tpu_torch import cli, engine
+    from elbencho_tpu_torch import cli, engine, graft_entry
     from elbencho_tpu_torch.cuda import native
     from elbencho_tpu_torch.ops import fill_kernel as fk
+    from elbencho_tpu_torch.ops import ingest_kernel as ik
     from elbencho_tpu_torch.ops import integrity as integ
     from elbencho_tpu_torch.ops import kernel_build
     from elbencho_tpu_torch.ops import verify_kernel as vk
+    from elbencho_tpu_torch.parallel import mesh
 
     card = gpu_name_and_power()
     print(card, flush=True)
-    build_all(engine, kernel_build, (vk, fk))
+    build_all(engine, kernel_build, (vk, fk, ik))
 
     max_err = check_kernel(vk, integ)
     times = {n: time_kernel(vk, integ, n) for n in TIME_SIZES}
@@ -655,6 +1056,14 @@ def main() -> int:
     fill_err = check_fill(fk, integ)
     fill_times = {n: time_fill(fk, integ, n) for n in FILL_SIZES}
     fill_at_block = fill_times[BLOCK]
+    ingest_err = check_ingest(ik, integ)
+    ingest_times = {shape: time_ingest(ik, integ, *shape) for shape in (
+        (1, ENTRY_BLOCK), (1, BLOCK), (2, BLOCK), (8, BLOCK),
+        (1, 256 << 20))}
+    ingest_main = ingest_times[(2, BLOCK)]  # one device's launch, phase 13
+    reduce_err = check_reduce(mesh)
+    reduce_main = time_reduce(ik, integ, 4, 4)  # phase 13's gathered rows
+    time_reduce(ik, integ, 2, 5)  # the slice tier's: 2 devices x 5 counters
 
     with scratch_dir(2 * (4 << 30)) as d:
         vk.reset_launches()  # count only the main path's launches
@@ -671,9 +1080,13 @@ def main() -> int:
             raise AssertionError("the fill wrapper launched on the native "
                                  "path; the engine launches from C++")
         read_pairs(cli, path, d)
+        os.remove(path)
+        slice_launches = slice_main_path(ik, integ, mesh, graft_entry)
+        distributed_run(cli, d)
     phase("launches", f"staged --verify run: {staged_launches} verify "
                       f"launches (Python wrapper); native --verify run: "
-                      f"{launches} (C++ engine)")
+                      f"{launches} (C++ engine); slice path: "
+                      f"{slice_launches}")
 
     print(json.dumps({"kernels": [{
         "name": "verify_u32",
@@ -699,6 +1112,32 @@ def main() -> int:
         "bound_ms": fill_at_block["bound"],
         "bound_by": "bytes",
         "library_ms": fill_at_block["lib"],
+    }, {
+        "name": "ingest_verify_u32",
+        "route": "cuda",
+        "source": "elbencho_tpu_torch/csrc/ingest.cu",
+        "replaces": "elbencho_tpu/ops/integrity.py:74",
+        "launches": slice_launches["ingest_verify_u32"],
+        "max_abs_err": ingest_err,
+        "ms": ingest_main["warm"],
+        "plain_ms": ingest_main["plain"],
+        "bound_ms": ingest_main["bound"],
+        "bound_by": ingest_main["by"],
+        "library_ms": None,
+    }, {
+        "name": "sum_rows_u64",
+        "route": "cuda",
+        "source": "elbencho_tpu_torch/csrc/mesh_reduce.cu",
+        "replaces": "elbencho_tpu/parallel/mesh.py:95",
+        "launches": slice_launches["sum_rows_u64"],
+        "max_abs_err": reduce_err,
+        "ms": reduce_main["warm"],
+        "plain_ms": reduce_main["plain"],
+        "bound_ms": reduce_main["bound"],
+        "bound_by": "bytes",
+        "bound_note": "launch-bound: bound_ms is the bytes bound of a few "
+                      "hundred bytes; a launch sets the time",
+        "library_ms": reduce_main["lib"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,11 +20,12 @@ tools/gen_completion.py + tools/lint_interfaces.py keep the CLI, the bash
 completion, and the docs from drifting apart.
 
 PyTorch/CUDA port: --gpuids selects CUDA device indices and --tpubackend
-staged|direct moves blocks into GPU memory. Flags whose subsystem the port
-does not carry yet (the native pjrt path and everything built on it,
-distributed mode, the metrics listener, striping, fault injection) are
-refused by Config._refuse_unported with the flag's name, never run as
-something else.
+staged|direct|pjrt moves blocks into GPU memory. Flags whose subsystem the
+port does not carry yet (striping, checkpoint restore, reshard, ingest,
+serving rotation, fault injection, the native engine's device fault policy)
+are refused by Config._refuse_unported with the flag's name, never run as
+something else — also when they reach a service over the wire
+(apply_wire -> check_args).
 """
 
 from __future__ import annotations
@@ -645,9 +646,6 @@ class Config:
              pjrt and (self.max_errors_spec or "0").strip() != "0"),
             ("EBT_PJRT_XFER_MGR",
              pjrt and os.environ.get("EBT_PJRT_XFER_MGR") is not None),
-            ("--service", self.run_as_service),
-            ("--hosts", bool(self.hosts)),
-            ("--metricsport", bool(self.metrics_port)),
             ("--checkpoint", bool(self.checkpoint_manifest)),
             ("--checkpoint-shards", bool(self.checkpoint_shards)),
             ("--rotate", bool(self.rotate_period_s)),
@@ -657,10 +655,6 @@ class Config:
             ("--stripe", bool(self.stripe_policy)),
             ("--tpustripe", self.tpu_stripe),
             ("--chaos", bool(self.chaos_spec)),
-            # the staged/direct backends drive one device; the native
-            # engine has per-device lanes
-            ("--gpuids with more than one device",
-             len(self.tpu_ids) > 1 and not pjrt),
         )
         for flag, given in unported:
             if given:
@@ -672,9 +666,25 @@ class Config:
         (reference: ProgArgs::checkArgs + checkPathDependentArgs,
         ProgArgs.cpp:390-631)."""
         self._refuse_unported()
-        if self.interrupt_services or self.quit_services:
+        if not 0 <= self.metrics_port <= 65535:
             raise ProgException(
-                "--interrupt/--quit require --hosts to know whom to signal")
+                f"--metricsport {self.metrics_port}: not a valid TCP port "
+                "(0 disables, 1-65535 serve)")
+        if self.metrics_port and self.run_as_service:
+            raise ProgException(
+                "--metricsport is a master/local-mode flag: a service "
+                "daemon already serves /metrics on its benchmark port "
+                "(--port)")
+
+        if self.run_as_service:
+            self.num_dataset_threads = self.num_threads
+            return  # full validation happens when the master's config arrives
+
+        if self.interrupt_services or self.quit_services:
+            if not self.hosts:
+                raise ProgException(
+                    "--interrupt/--quit require --hosts to know whom to signal")
+            return
 
         if self.record_size or self.shuffle_window or \
                 self.shuffle_seed != 1 or self.ingest_epochs or \
@@ -1358,11 +1368,10 @@ def build_parser() -> argparse.ArgumentParser:
     tpu = p.add_argument_group("GPU data path")
     tpu.add_argument("--gpuids", "--tpuids", type=str, default="",
                      dest="tpu_ids", metavar="IDS",
-                     help="CUDA device index for the storage→GPU memory "
-                          "data path (one device, or several with "
-                          "--tpubackend pjrt, assigned round-robin to "
-                          "threads; the port runs on the CPU only when "
-                          "EBT_TORCH_DEVICE=cpu).")
+                     help="Comma-separated CUDA device indices for the "
+                          "storage→GPU memory data path, assigned "
+                          "round-robin to threads (the port runs on the CPU "
+                          "only when EBT_TORCH_DEVICE=cpu).")
     tpu.add_argument("--tpubackend", type=str, default="",
                      dest="tpu_backend_name", metavar="KIND",
                      help="Device path backend: hostsim (host-memory "
@@ -1658,7 +1667,7 @@ def config_from_args(argv: list[str] | None = None) -> Config:
             pass
         if sys.platform.startswith("linux"):
             features.append("DIRECTIO")
-        features += ["VERIFY", "RWMIX", "HOSTSIM"]
+        features += ["VERIFY", "RWMIX", "HOSTSIM", "DISTRIBUTED"]
         try:
             import torch
 

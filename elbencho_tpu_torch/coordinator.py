@@ -1,4 +1,4 @@
-"""Coordinator: the benchmark phase state machine (local workers only).
+"""Coordinator: the benchmark phase state machine.
 
 Rebuild of the reference's source/Coordinator.{h,cpp}: dispatch to service
 mode, master-mode consistency checks, synchronized start-time wait
@@ -8,9 +8,10 @@ interleave (runBenchmarks, Coordinator.cpp:190-231), per-phase live-stats wait
 graceful-then-hard semantics (Coordinator.cpp:238-253), and error/interrupt
 unwinding (Coordinator.cpp:66-104).
 
-The port runs local workers only: service mode, --hosts master mode and the
---metricsport listener are refused at config validation (not yet ported, see
-ROADMAP.md), and so are the checkpoint, reshard and ingest scenarios.
+The port's coordinator serves local workers, the --hosts master
+(workers/remote.py), service mode (service.py) and the --metricsport
+listener; the checkpoint, reshard and ingest scenarios are refused at config
+validation (not yet ported, see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -35,13 +36,30 @@ class Coordinator:
         self.workers: WorkerGroup | None = None
         self.stats: Statistics | None = None
         self._interrupted = False
+        self._current_phase = BenchPhase.IDLE  # what /metrics labels
 
     # ------------------------------------------------------------- dispatch
 
     def main(self) -> int:
+        cfg = self.cfg
+        if cfg.run_as_service:
+            from .service import Service
+            return Service(cfg).run()
+        if cfg.interrupt_services or cfg.quit_services:
+            from .workers.remote import send_interrupt_to_hosts
+            # nothing here needs the early latch, and the HTTP fan-out can
+            # block tens of seconds on dead hosts — let Ctrl-C raise
+            from .utils.signals import restore_default_handlers
+
+            restore_default_handlers()
+            send_interrupt_to_hosts(cfg.hosts, quit_services=cfg.quit_services)
+            return 0
         return self._run_master_or_local()
 
     def _make_workers(self) -> WorkerGroup:
+        if self.cfg.hosts:
+            from .workers.remote import RemoteWorkerGroup
+            return RemoteWorkerGroup(self.cfg)
         from .workers.local import LocalWorkerGroup
         return LocalWorkerGroup(self.cfg)
 
@@ -50,6 +68,21 @@ class Coordinator:
         self.workers = self._make_workers()
         self.stats = Statistics(cfg, self.workers)
         exit_code = 0
+        metrics_srv = None
+        if cfg.metrics_port:
+            # live observability for the whole run (docs/CAMPAIGNS.md):
+            # the master serves the pod-merged counter families (local
+            # mode: the local group's) in Prometheus text format — up
+            # BEFORE prepare so a soak run is scrapeable end to end
+            from .metrics import MetricsServer, render_metrics
+
+            metrics_srv = MetricsServer(
+                lambda: render_metrics(
+                    self.workers, cfg, self._current_phase, role="master",
+                    campaign=((cfg.campaign_name, cfg.campaign_stage, "")
+                              if cfg.campaign_name else None)),
+                cfg.metrics_port)
+            metrics_srv.start()
         try:
             # handlers BEFORE prepare: a SIGINT during the (potentially slow)
             # preparation — CUDA/device init, file preallocation — must set
@@ -77,6 +110,11 @@ class Coordinator:
                 self.workers.teardown()
             except Exception as e:  # teardown must never mask the real error
                 LOGGER.error(f"worker teardown failed: {e}")
+            if metrics_srv is not None:
+                try:
+                    metrics_srv.stop()
+                except Exception as e:
+                    LOGGER.error(f"metrics listener shutdown failed: {e}")
         return exit_code
 
     # -------------------------------------------------------------- signals
@@ -187,6 +225,7 @@ class Coordinator:
         if self._interrupted:
             raise ProgInterruptedException("benchmark interrupted")
         bench_id = str(uuid.uuid4())
+        self._current_phase = phase
         self.workers.start_phase(phase, bench_id)
         status = self.stats.live_loop(phase, self.expected_totals(phase))
         results = self.workers.phase_results()

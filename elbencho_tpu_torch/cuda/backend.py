@@ -203,24 +203,23 @@ class TorchStagingPath:
         during benchmark preparation, so the measured phase starts on a hot
         path; the chunk size is auto-tuned like the original's."""
         probe = np.zeros(min(self.chunk_bytes, 1 << 20), dtype=np.uint8)
-        for d in self.devices:
-            self._put(probe, d).wait()
+        for i in range(len(self.devices)):
+            self._put(probe, i).wait()
         if self._autotune_chunk and self.block_size > self.DEFAULT_CHUNK:
             self.chunk_bytes = self._pick_chunk_size()
 
     def _pick_chunk_size(self, probe_bytes: int = 24 << 20) -> int:
         """Time candidate chunk sizes on the first device and keep the
         fastest. Runs once per staging path, during preparation."""
-        dev = self.devices[0]
         best_c, best_r = self.chunk_bytes, 0.0
         for c in (2 << 20, 4 << 20, 8 << 20):
             if c > self.block_size:
                 continue
             src = np.zeros(c, dtype=np.uint8)
-            self._put(src, dev).wait()
+            self._put(src, 0).wait()
             n = max(2, probe_bytes // c)
             t0 = time.perf_counter()
-            chunks = [self._put(src, dev) for _ in range(n)]
+            chunks = [self._put(src, 0) for _ in range(n)]
             for ch in chunks:
                 ch.wait()
             rate = n * c / (time.perf_counter() - t0)
@@ -259,11 +258,13 @@ class TorchStagingPath:
             event.record(stream)
         return dst, event
 
-    def _put(self, view: np.ndarray, device: torch.device,
+    def _put(self, view: np.ndarray, dev_idx: int,
              dst: torch.Tensor | None = None) -> _Chunk:
+        """Copy `view` to the selected device dev_idx (an index into the
+        --gpuids list, which is also the latency row's key)."""
         t0 = time.perf_counter()  # enqueue timestamp (latency clock)
-        arr, event = self._copy_to_device(view, device, dst)
-        return _Chunk(arr, event, self.devices.index(device), t0)
+        arr, event = self._copy_to_device(view, self.devices[dev_idx], dst)
+        return _Chunk(arr, event, dev_idx, t0)
 
     def _write_source(self, rank: int, device, length: int) -> torch.Tensor:
         """Device-resident data used as the source for the write path (the
@@ -309,7 +310,7 @@ class TorchStagingPath:
         return torch.cuda.stream(self._stream(device))
 
     def _staged_verify(self, rank: int, file_off: int, view: np.ndarray,
-                       device: torch.device) -> None:
+                       dev_idx: int) -> None:
         """Stage a block chunk by chunk into one device buffer and verify
         it with one kernel launch, whose result is read once. Runs
         synchronously on the engine's callback thread: --verify is a
@@ -317,13 +318,14 @@ class TorchStagingPath:
         are queued on the copy stream behind the block's chunk copies."""
         n = view.shape[0]
         n8 = (n // 8) * 8
+        device = self.devices[dev_idx]
         chunks: list[_Chunk] = []
         try:
             with self._on_copy_stream(device):
                 block = torch.empty(n, dtype=torch.uint8, device=device)
             c = self.chunk_bytes
             for s in range(0, n, c):
-                chunks.append(self._put(view[s:s + c], device,
+                chunks.append(self._put(view[s:s + c], dev_idx,
                                         block[s:s + c]))
             num_bad = first_bad = 0
             if n8:
@@ -385,13 +387,13 @@ class TorchStagingPath:
             raise first_err
 
     def _to_device(self, rank: int, buf_ptr: int, view: np.ndarray,
-                   device: torch.device) -> None:
+                   dev_idx: int) -> None:
         """Directions 0/3 without --verify: staged waits for the block's
         copies, direct registers them for the pre-reuse barrier."""
         chunks: list[_Chunk] = []
         try:
             for v in self._chunk_views(view):
-                chunks.append(self._put(v, device))
+                chunks.append(self._put(v, dev_idx))
         except Exception:
             # chunks enqueued before the failure may still be reading the
             # engine buffer — register them so the barrier waits them out
@@ -415,9 +417,10 @@ class TorchStagingPath:
             self._bytes_to_hbm += view.shape[0]
 
     def _from_device(self, rank: int, view: np.ndarray,
-                     device: torch.device) -> None:
+                     dev_idx: int) -> None:
         """Direction 1: serve the block just staged (round-trip mode),
-        else the rank-seeded write source."""
+        else the rank-seeded write source, which lives on the rank's
+        device."""
         t0 = time.perf_counter()
         host = torch.from_numpy(view)
         arrs = self.last_staged_arrays(rank)
@@ -430,11 +433,12 @@ class TorchStagingPath:
                 host[pos:pos + n].copy_(a)
                 pos += n
         else:
-            src = self._write_source(rank, device, view.shape[0])
+            src = self._write_source(rank, self.devices[dev_idx],
+                                     view.shape[0])
             host.copy_(src[:view.shape[0]])
         # d2h leg latency, attributed to the serving chip (synchronous
         # copy: the sample is exact)
-        self._add_dev_sample(self.devices.index(device), t0)
+        self._add_dev_sample(dev_idx, t0)
         with self._lock:
             self._bytes_from_hbm += view.shape[0]
 
@@ -442,7 +446,9 @@ class TorchStagingPath:
              length: int, file_off: int) -> int:
         try:
             self._sweep_latency_watch()
-            device = self.devices[dev_idx % len(self.devices)]
+            # the engine assigns rank % num_devices; one side stream per
+            # device, one latency row per --gpuids entry
+            dev_idx %= len(self.devices)
             if direction == 2:  # engine is about to overwrite this buffer
                 self._barrier(buf_ptr)
                 return 0
@@ -451,11 +457,11 @@ class TorchStagingPath:
                 if self.device_verify and direction == 0:
                     # only storage reads are verified on device; the write
                     # round-trip stages a pattern the host just generated
-                    self._staged_verify(rank, file_off, view, device)
+                    self._staged_verify(rank, file_off, view, dev_idx)
                 else:
-                    self._to_device(rank, buf_ptr, view, device)
+                    self._to_device(rank, buf_ptr, view, dev_idx)
             else:  # device -> host (write path source)
-                self._from_device(rank, view, device)
+                self._from_device(rank, view, dev_idx)
             return 0
         except VerifyFailure as e:
             # recorded per rank so the framework can surface the exact

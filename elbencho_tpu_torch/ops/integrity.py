@@ -9,10 +9,11 @@ lanes: torch's unsigned dtypes have few ops, and two's-complement int64
 addition wraps mod 2^64 exactly as the u64 pattern needs. Lane values
 returned as tensors are int64 holding the u32 value (0..2^32-1).
 
-These are the plain versions of the CUDA kernels in csrc/verify.cu and
-csrc/fill.cu: the CPU tests hold them against the original package, and
-chip_smoke.py holds the kernels against them on the card.
-ops/verify_kernel.py and ops/fill_kernel.py call them for a CPU tensor.
+These are the plain versions of the CUDA kernels in csrc/verify.cu,
+csrc/fill.cu, csrc/ingest.cu and csrc/mesh_reduce.cu: the CPU tests hold
+them against the original package, and chip_smoke.py holds the kernels
+against them on the card. ops/verify_kernel.py, ops/fill_kernel.py and
+ops/ingest_kernel.py call them for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -122,6 +123,58 @@ def ingest_verify_step(block_u32: torch.Tensor, off_lo: int, off_hi: int,
     ok_bytes = torch.where(num_bad == 0, nbytes, 0)
     return {"ok_bytes": ok_bytes, "bad_words": num_bad,
             "first_bad_word": first_bad, "checksum": checksum}
+
+
+def ingest_bases(offsets, salt: int) -> torch.Tensor:
+    """The per-rank pattern bases offsets[r] + salt (mod 2^64) as int64 u64
+    bits on the CPU; offsets is an int64 tensor of u64 bits or a sequence
+    of ints."""
+    if isinstance(offsets, torch.Tensor):
+        offs = offsets.to("cpu", torch.int64)
+    else:
+        offs = torch.from_numpy(
+            np.asarray(offsets, dtype=np.uint64).view(np.int64).copy())
+    return offs + signed64(salt)  # int64 addition wraps mod 2^64
+
+
+def ingest_verify_batch_plain(blocks: torch.Tensor, offsets,
+                              salt: int) -> torch.Tensor:
+    """ingest_verify_step over each row of `blocks` (int32 lanes, [ranks,
+    lanes], an even lane count), row r at file offset offsets[r]: the
+    original's vmapped per-rank step (parallel/mesh.py). offsets is an int64
+    tensor of u64 bits or a sequence of ints. Returns int64[ranks, 4] rows
+    {ok_bytes, bad_words, first_bad_word, checksum}."""
+    if blocks.dim() != 2 or blocks.shape[1] % 2:
+        raise ValueError("ingest step: expected [ranks, lanes] int32 lanes "
+                         f"with an even lane count, got {tuple(blocks.shape)}")
+    n_ranks, n_lanes = blocks.shape
+    num_words = n_lanes // 2
+    bases = ingest_bases(offsets, salt).to(blocks.device)
+    words = blocks.contiguous().view(torch.int64)
+    i = torch.arange(num_words, dtype=torch.int64, device=blocks.device)
+    bad = words != (i * 8 + bases[:, None])
+    num_bad = bad.sum(dim=1)
+    if num_words:
+        first = torch.where(num_bad > 0, bad.to(torch.uint8).argmax(dim=1),
+                            num_words)
+    else:
+        first = torch.zeros(n_ranks, dtype=torch.int64, device=blocks.device)
+    checksum = (blocks.to(torch.int64) & U32_MASK).sum(dim=1) & U32_MASK
+    ok = torch.where(num_bad == 0, (n_lanes * 4) & U32_MASK, 0)
+    return torch.stack([ok, num_bad, first, checksum], dim=1)
+
+
+def sum_rows_u64_plain(rows: torch.Tensor) -> torch.Tensor:
+    """Column sums mod 2^64 of u64 counters carried in int64 [n, k]; the
+    original's MeshStatsReducer reduction without its 16-bit limbs. The
+    halves are summed apart, so no int64 sum overflows: exact for
+    n < 2^31 rows."""
+    lo = rows & U32_MASK
+    hi = (rows >> 32) & U32_MASK
+    s_lo = lo.sum(dim=0)
+    s_hi = (hi.sum(dim=0) + (s_lo >> 32)) & U32_MASK
+    s_hi = torch.where(s_hi >= 1 << 31, s_hi - (1 << 32), s_hi)
+    return s_hi * (1 << 32) + (s_lo & U32_MASK)
 
 
 def make_example_block(num_bytes: int = 1 << 16, file_off: int = 4096,

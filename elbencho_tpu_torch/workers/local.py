@@ -34,6 +34,7 @@ class LocalWorkerGroup(WorkerGroup):
         self.engine: NativeEngine | None = None
         self._dev_callback = dev_callback
         self._native_path = None  # NativeCudaPath on --tpubackend pjrt
+        self._mesh_reducer = None  # slice_stats' device reduction
         self._prepared = False
         self._reg_window = 0
         self._d2h_depth = 0
@@ -284,6 +285,37 @@ class LocalWorkerGroup(WorkerGroup):
         self._tier_base = {}
 
     # ----------------------------------------------------------------- stats
+
+    def slice_stats(self) -> dict | None:
+        """Reduce this slice's per-worker LiveOps across its devices — the
+        device stats tier below the HTTP fan-in. Counters are grouped per
+        device on the host (each device owns its assigned ranks, rank %
+        num_devices like the engine); the totals come from the device
+        reduction of parallel/mesh.py (MeshStatsReducer: one row per
+        device, gathered with peer copies, summed by the B5 kernel). None
+        below two devices, as in the original."""
+        staging = self._staging_path()
+        if staging is None or self.engine is None or len(staging.devices) < 2:
+            return None
+        import numpy as np
+
+        ndev = len(staging.devices)
+        per_dev = np.zeros((ndev, 5), dtype=np.uint64)
+        for i in range(self.engine.num_workers):
+            o = self.engine.live(i).ops
+            d = (self.cfg.rank_offset + i) % ndev
+            per_dev[d] += np.array([o.entries, o.bytes, o.iops, o.read_bytes,
+                                    o.read_iops], dtype=np.uint64)
+        if self._mesh_reducer is None:
+            from ..parallel.mesh import MeshStatsReducer
+            self._mesh_reducer = MeshStatsReducer(staging.devices)
+        tot = self._mesh_reducer.reduce(per_dev)
+        return {
+            "Ops": {"entries": tot[0], "bytes": tot[1], "iops": tot[2],
+                    "read_bytes": tot[3], "read_iops": tot[4]},
+            "NumDevices": ndev,
+            "Reduction": "psum",
+        }
 
     def time_limit_hit(self) -> bool:
         return self.engine is not None and self.engine.time_limit_hit()

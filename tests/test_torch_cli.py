@@ -53,6 +53,25 @@ def test_verify_clean_matches_jax(bench_dir, tmp_path, capfd, backend):
 
 
 @pytest.mark.parametrize("backend", ["staged", "direct"])
+@pytest.mark.parametrize("verify", [False, True])
+def test_two_devices_match_jax(bench_dir, tmp_path, capfd, backend, verify):
+    """--gpuids 0,1 on the staged/direct backends: ranks alternate between
+    the devices, with one latency row per device, as in the original."""
+    p = str(bench_dir / "f2")
+    args = ["-w", "-r", "-t", "4", "-s", "2M", "-b", "128k", "--iodepth",
+            "2", "--gpuids", "0,1", "--tpubackend", backend, "--lat",
+            *(["--verify", "42"] if verify else []), p]
+    jrc, jrows, jlabels, _ = _run(jax_main, args, tmp_path / "j.csv", capfd)
+    trc, trows, tlabels, _ = _run(torch_main, args, tmp_path / "t.csv",
+                                  capfd)
+    assert jrc == trc == 0
+    assert trows == jrows
+    assert tlabels == jlabels
+    for dev in ("0", "1"):
+        assert f"READ      TPU {dev} xfer lat us" in tlabels
+
+
+@pytest.mark.parametrize("backend", ["staged", "direct"])
 @pytest.mark.parametrize("size,block,corrupt_off", [
     ("1M", "128k", 300001),          # unaligned: byte refinement step
     ("8M", "4M", (3 << 20) + 13),    # second 2MiB chunk of a 4MiB block
@@ -122,16 +141,15 @@ def test_file_written_by_one_package_verifies_under_the_other(
     pytest.param(["--tpubackend", "pjrt", "--retry", "2", "-r", "-s", "1M",
                   "PATH"], "--retry with --tpubackend pjrt",
                  id="args0---tpubackend pjrt"),
-    (["--hosts", "localhost:1611", "-r", "-s", "1M", "PATH"], "--hosts"),
-    (["--service", "--foreground"], "--service"),
-    (["--metricsport", "9100", "-r", "-s", "1M", "PATH"], "--metricsport"),
+    (["--chaos", "seed=1", "-r", "-s", "1M", "PATH"], "--chaos"),
+    (["--rotate", "1", "-r", "-s", "1M", "PATH"], "--rotate"),
+    (["--reshard", "2", "-r", "PATH"], "--reshard"),
     (["--stripe", "rr", "--gpuids", "0", "-r", "-s", "1M", "PATH"],
      "--stripe"),
     (["--tpustripe", "--gpuids", "0", "-r", "-s", "1M", "PATH"],
      "--tpustripe"),
     (["--checkpoint-shards", "2", "-r", "PATH"], "--checkpoint-shards"),
-    (["--gpuids", "0,1", "-r", "-s", "1M", "PATH"],
-     "--gpuids with more than one device"),
+    (["--ingestshards", "2", "-r", "PATH"], "--ingestshards"),
 ])
 def test_unported_flags_refused(bench_dir, capfd, args, flag):
     argv = [str(bench_dir / "r") if a == "PATH" else a for a in args]

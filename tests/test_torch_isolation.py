@@ -49,15 +49,29 @@ def test_no_jax_or_original_package_import(path):
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
 
-# the modules the native CUDA engine added, which must be among the scanned
+# modules later slices added (the native CUDA engine; distributed mode, the
+# mesh tier and the graft entry), which must be among the scanned
 NATIVE_MODULES = ("elbencho_tpu_torch/cuda/native.py",
                   "elbencho_tpu_torch/ops/fill_kernel.py",
-                  "elbencho_tpu_torch/ops/kernel_build.py")
+                  "elbencho_tpu_torch/ops/kernel_build.py",
+                  "elbencho_tpu_torch/ops/ingest_kernel.py",
+                  "elbencho_tpu_torch/parallel/mesh.py",
+                  "elbencho_tpu_torch/graft_entry.py",
+                  "elbencho_tpu_torch/service.py",
+                  "elbencho_tpu_torch/metrics.py",
+                  "elbencho_tpu_torch/workers/remote.py")
+# the kernel sources, which must be among the native sources scanned
+KERNEL_SOURCES = ("verify.cu", "fill.cu", "ingest.cu", "mesh_reduce.cu")
 
 
 def test_native_modules_are_scanned():
     scanned = {os.path.relpath(p, REPO) for p in _port_files()}
     assert set(NATIVE_MODULES) <= scanned
+
+
+def test_kernel_sources_are_scanned():
+    assert {os.path.basename(p) for p in _native_sources()} >= \
+        set(KERNEL_SOURCES)
 
 
 def _native_sources():

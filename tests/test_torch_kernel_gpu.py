@@ -1,4 +1,5 @@
-"""The verify and fill kernels against their plain versions on the card.
+"""The verify, fill, ingest and reduction kernels against their plain
+versions on the card.
 
 The CUDA kernel has no CPU mode, so these tests skip without a CUDA device.
 They import neither jax nor the original package, so they also run on a
@@ -13,7 +14,9 @@ import torch
 
 from elbencho_tpu_torch.config import config_from_args
 from elbencho_tpu_torch.cuda.backend import TorchStagingPath
-from elbencho_tpu_torch.ops import fill_kernel, integrity, verify_kernel
+from elbencho_tpu_torch.ops import (fill_kernel, ingest_kernel, integrity,
+                                    verify_kernel)
+from elbencho_tpu_torch.parallel import mesh
 
 U64 = (1 << 64) - 1
 CASES = [(0, 1), ((1 << 33) + 4096, (1 << 40) + 7), (U64 - 4095, 1 << 62)]
@@ -197,3 +200,148 @@ def test_fill_block_u32_on_the_card_matches_cpu(cuda):
     gpu = fill_kernel.fill_block_u32(3001, off, salt, "cuda")
     assert gpu.device.type == "cuda"
     assert torch.equal(gpu.cpu(), fill_kernel.fill_block_u32(3001, off, salt))
+
+
+# ---------------------------------------------------------------- B4, B5
+
+def _step_rows(out: dict) -> list[int]:
+    return [int(out[k]) for k in ("ok_bytes", "bad_words", "first_bad_word",
+                                  "checksum")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("off,salt", CASES)
+@pytest.mark.parametrize("n_words", [1, 2, 3, PASS - 1, PASS + 1,
+                                     256 * PASS + 1, 1 << 19])
+@pytest.mark.parametrize("misalign", [False, True])
+@pytest.mark.parametrize("corrupt", [False, True])
+def test_ingest_kernel_matches_plain(cuda, off, salt, n_words, misalign,
+                                     corrupt):
+    """The fused verify + checksum step: word counts around the per-pass
+    width, a start 8 mod 16, offsets that carry and wrap, corrupt lanes
+    including the last."""
+    cpu = _lanes(2 * n_words, off, salt)
+    if corrupt:
+        cpu = _corrupt(cpu, n_words)
+    room = torch.empty(2 * n_words + 4, dtype=torch.int32, device="cuda")
+    gpu = room[2:2 + 2 * n_words] if misalign else room[:2 * n_words]
+    gpu.copy_(cpu)
+    args = (*integrity.split_u64(off), *integrity.split_u64(salt))
+    before = ingest_kernel.LAUNCHES["ingest_verify_u32"]
+    got = ingest_kernel.ingest_verify_step(gpu, *args)
+    assert got["checksum"].device.type == "cuda"
+    assert _step_rows(got) == _step_rows(
+        integrity.ingest_verify_step(cpu, *args))
+    assert ingest_kernel.LAUNCHES["ingest_verify_u32"] == before + 1
+
+
+@pytest.mark.gpu
+def test_ingest_batch_matches_plain(cuda):
+    """One launch over 8 ranks at their own offsets (one wrapping past
+    2^64), rows strided inside a wider tensor, one rank corrupt; then a
+    larger batch on the same stream grows the workspace."""
+    salt = (1 << 40) + 7
+    offs = [r * (1 << 20) for r in range(7)] + [U64 - 4095]
+    cpu = torch.stack([_lanes(1 << 18, o, salt) for o in offs])
+    cpu[5, 777] ^= 0x40
+    wide = torch.zeros((8, (1 << 18) + 6), dtype=torch.int32, device="cuda")
+    gpu = wide[:, 2:2 + (1 << 18)]
+    gpu.copy_(cpu)
+    got = ingest_kernel.ingest_verify_batch(gpu, offs, salt)
+    want = integrity.ingest_verify_batch_plain(cpu, offs, salt)
+    assert torch.equal(got.cpu(), want)
+    assert int(want[:, 1].sum()) == 1
+    big = torch.stack([_lanes(1 << 12, o, 3) for o in range(0, 64 << 12,
+                                                             1 << 12)])
+    offs_big = list(range(0, 64 << 12, 1 << 12))
+    assert torch.equal(
+        ingest_kernel.ingest_verify_batch(big.cuda(), offs_big, 3).cpu(),
+        integrity.ingest_verify_batch_plain(big, offs_big, 3))
+
+
+@pytest.mark.gpu
+def test_ingest_smaller_batch_after_larger_on_one_workspace(cuda):
+    """A batch of 4 ranks with 100 bad words in rank 1's first 16 KiB (the
+    first CTA's pass), then a 1-rank step on another rank's block, a 2-rank
+    batch and 4 ranks again on the same stream and workspace: every launch
+    finds its tickets at 0, whatever the earlier, larger batch left in its
+    slots. (With the tickets placed after the launch's own n_ranks regions,
+    the step's ticket would be rank 1's first bad-word slot, 100, more than
+    the step's 64 CTAs, and no CTA would fold: `out` would stay unwritten.)"""
+    salt, lanes = 9, 1 << 18
+    # offsets 1 MiB + 8*977 apart: a CTA's partial checksum differs from
+    # rank to rank (1 MiB alone is 2^32 over a CTA's 2048 words)
+    offs = [r * (lanes * 4 + 8 * 977) for r in range(4)]
+    cpu = torch.stack([_lanes(lanes, o, salt) for o in offs])
+    cpu[1, 0:200:2] ^= 0x1000  # 100 bad words, all in the first CTA's pass
+    gpu = cpu.cuda()
+    for _ in range(2):
+        got = ingest_kernel.ingest_verify_batch(gpu, offs, salt)
+        assert torch.equal(got.cpu(), integrity.ingest_verify_batch_plain(
+            cpu, offs, salt))
+        assert got[:, 1].tolist() == [0, 100, 0, 0]
+        args = (*integrity.split_u64(offs[2]), *integrity.split_u64(salt))
+        assert _step_rows(ingest_kernel.ingest_verify_step(gpu[2], *args)) \
+            == _step_rows(integrity.ingest_verify_step(cpu[2], *args))
+        got = ingest_kernel.ingest_verify_batch(gpu[1:3], offs[1:3], salt)
+        assert torch.equal(got.cpu(), integrity.ingest_verify_batch_plain(
+            cpu[1:3], offs[1:3], salt))
+
+
+@pytest.mark.gpu
+def test_ingest_kernel_refuses_what_it_does_not_take(cuda):
+    gpu = _lanes(1 << 10, 0, 1).cuda()
+    with pytest.raises(ValueError, match="even lane count"):
+        ingest_kernel.ingest_verify_step(gpu[:-1], 0, 0, 1, 0)
+    with pytest.raises(ValueError, match="aligned"):
+        ingest_kernel.ingest_verify_batch(gpu[1:-1].view(1, -1), [4], 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", [(1, 1), (2, 5), (37, 6), (1000, 3),
+                                 (3, 100), (5, 0)])
+def test_sum_rows_kernel_matches_plain(cuda, n, k):
+    rows = np.random.default_rng(n * 1000 + k).integers(
+        0, U64, (n, k), dtype=np.uint64, endpoint=True)
+    cpu = torch.from_numpy(rows.view(np.int64))
+    before = ingest_kernel.LAUNCHES["sum_rows_u64"]
+    got = ingest_kernel.sum_rows_u64(cpu.cuda())
+    assert torch.equal(got.cpu(), integrity.sum_rows_u64_plain(cpu))
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint64),
+                                  rows.sum(axis=0, dtype=np.uint64))
+    assert ingest_kernel.LAUNCHES["sum_rows_u64"] == before + (k > 0)
+
+
+def _device_lists():
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [cards[:1], [cards[0], cards[0]], cards]
+
+
+@pytest.mark.gpu
+def test_mesh_reducer_and_sharded_ingest_on_the_card(cuda):
+    """MeshStatsReducer and run_sharded_ingest over [cuda:0], [cuda:0,
+    cuda:0] and every card: exact totals, one ingest launch per device and
+    one reduction per step."""
+    for devs in _device_lists():
+        n = len(devs)
+        rows = [[(1 << 63) + d, U64 - d, (1 << 40) + d, d]
+                for d in range(n)]
+        ingest_kernel.reset_launches()
+        assert mesh.MeshStatsReducer(devs).reduce(rows) == [
+            sum(r[c] for r in rows) & U64 for c in range(4)]
+        assert ingest_kernel.LAUNCHES == {"ingest_verify_u32": 0,
+                                          "sum_rows_u64": 1}
+        words, salt = 1 << 12, 5
+        offs = np.arange(2 * n, dtype=np.uint64) * np.uint64(words * 8)
+        blocks = np.stack([_lanes(2 * words, int(o), salt).numpy().view(
+            np.uint32) for o in offs])
+        blocks[1, 10] ^= 0xFF
+        ingest_kernel.reset_launches()
+        got = mesh.run_sharded_ingest(devs, blocks, offs, salt)
+        assert ingest_kernel.LAUNCHES == {"ingest_verify_u32": n,
+                                          "sum_rows_u64": 1}
+        assert got["bad_words"] == 1.0 and got["iops"] == float(2 * n)
+        assert got["ok_bytes"] == float((2 * n - 1) * words * 8)
+        plain = integrity.ingest_verify_batch_plain(
+            torch.from_numpy(blocks.view(np.int32)), offs, salt)
+        assert got["checksum"] == float(np.float32(int(plain[:, 3].sum())))

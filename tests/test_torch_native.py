@@ -641,7 +641,7 @@ def test_zero_copy_partial_registration_failure(pkgs, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("args,env", [
-    (["-t", "2", "-s", "4M", "-b", "256K", "--regwindow", "2M"], {}),
+    (["-t", "1", "-s", "8M", "-b", "256K", "--regwindow", "2M"], {}),
     (["-t", "1", "-s", "24M", "-b", "6M"], {}),
     (["-t", "2", "-s", "4M", "-b", "1M"],
      {"EBT_MOCK_PJRT_DMAMAP_FAIL_AFTER": 1}),
