@@ -53,7 +53,8 @@ Phases, each reported on its own line:
  12. hold the reduction kernel (B5) against its plain version through
      MeshStatsReducer over [cuda:0], [cuda:0, cuda:0] and every card
      (exactness cases, values of 2^63 and above, a column wrapping past
-     2^64) and time one launch beside one torch.sum(rows, 0);
+     2^64) and time one launch beside one torch.sum(rows, 0) and one launch
+     of an empty kernel of the same block shape (the launch floor);
  13. the slice's main path: entry()'s step on the card, run_sharded_ingest
      over each device list (2 ranks of 4 MiB per device at real file
      offsets, one rank corrupt) and a MeshStatsReducer reduction of its
@@ -65,7 +66,25 @@ Phases, each reported on its own line:
      --lat): totals equal to the file, host-prefixed per-chip rows, a
      corrupt byte failing the run framed by the host whose service reports
      its exact offset, /metrics answering; with two or more cards the slice
-     tier (--gpuids 0,1, SliceOps reduced over two devices).
+     tier (--gpuids 0,1, SliceOps reduced over two devices);
+ 15. the native stripe tier on two lanes of the card (--gpuids 0,0): the
+     4 GiB file read with --stripe rr, then contig (tier "striped", one
+     settled unit per block, the lanes' bytes as the planner places them,
+     GiB/s and p50/p99 per lane);
+ 16. a 1 GiB native --verify write + read with --stripe rr over two lanes:
+     one C++ fill launch per block written and one verify launch per block
+     read on the lane the planner chose, a corrupt byte at its exact offset;
+ 17. the staged and direct placements over two lanes (the --stripe mesh
+     fallback, direct --tpustripe on its default two submitters, direct
+     with EBT_TPU_SUBMITTERS=2, direct inline): half the file on each lane,
+     GiB/s beside a probe of whether a pageable copy releases the GIL; then
+     1 GiB staged --tpustripe --verify, one verify launch per 2 MiB chunk on
+     its own lane and a corrupt byte at its exact offset;
+ 18. checkpoint restore at the shard layout of meta-llama/Llama-3.1-8B
+     (four files, 16.1 GB, written to /dev/shm from a seeded generator):
+     every shard on device 0, then over --gpuids 0,0 with one shard
+     replicated, then a generated 8 x 256 MiB checkpoint; every shard
+     resident, bytes per device as the manifest places them.
 
 The second-to-last line is a JSON object describing each kernel of the path;
 the last line is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -77,6 +96,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import ctypes
 import io
 import json
 import os
@@ -105,6 +125,10 @@ ENTRY_BLOCK = 64 << 10      # graft_entry.entry()'s block
 DIST_SIZE = 2 << 30         # the distributed runs' file
 COLD_BYTES = 128 << 20      # rotating buffers, 2.5x the 50 MB L2
 GRAPH_LAUNCHES = 200
+STRIPE_READ = ["-t", "4", "-b", "8M", "--iodepth", "4", "--tpubackend",
+               "pjrt", "--lat", "--nolive"]
+# meta-llama/Llama-3.1-8B, model-0000{1..4}-of-00004.safetensors (bf16)
+LLAMA_8B_SHARDS = (4976698672, 4999802720, 4915916176, 1168138808)
 
 
 def phase(name: str, msg: str) -> None:
@@ -230,6 +254,9 @@ def check_kernel(vk, integ) -> int:
     odd_n = 3 * 32768 + 12345  # not a tile multiple, and odd
     errs.append(check_pair(vk, integ, "partial tile",
                            pattern_lanes(odd_n, 512, 9), 512, 9, rng))
+    errs.append(check_pair(vk, integ, "2 MiB chunk (staged --tpustripe)",
+                           pattern_lanes(CHUNK // 4, 5 * BLOCK + CHUNK, 42),
+                           5 * BLOCK + CHUNK, 42, rng))
     errs.append(check_pair(vk, integ, "start 8 mod 16", pattern_lanes(
         BLOCK // 4 + 3, off, salt, misalign=True), off, salt, rng))
     n_words = 256 * vk.PASS_WORDS + 777  # not a per-pass multiple, and odd
@@ -833,7 +860,14 @@ def time_reduce(ik, integ, n: int, k: int) -> dict:
         if rc:
             raise RuntimeError(f"sum_rows kernel launch failed ({rc})")
 
-    r = {"warm": graph_ms(kernel, [rows]),
+    lib.ebt_launch_floor.argtypes = [ctypes.c_void_p]
+
+    def empty(_):  # an empty kernel of the same block shape: the floor
+        rc = lib.ebt_launch_floor(torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"empty kernel launch failed ({rc})")
+
+    r = {"warm": graph_ms(kernel, [rows]), "floor": graph_ms(empty, [rows]),
          "lib": graph_ms(lambda x: torch.sum(x, 0), [rows]),
          "plain": events_ms(lambda: integ.sum_rows_u64_plain(rows), 50)}
     if not torch.equal(out, integ.sum_rows_u64_plain(rows)):
@@ -841,9 +875,10 @@ def time_reduce(ik, integ, n: int, k: int) -> dict:
     nbytes = (n * k + k) * 8
     r["bound"] = max(nbytes / HBM_BYTES_PER_S, n * k / ALU_OPS_PER_S) * 1e3
     phase("reduce-time", f"[{n}, {k}] rows: device {r['warm']:.6f} ms "
-                         f"(launch-bound; bytes bound {r['bound']:.9f} ms); "
-                         f"plain {r['plain']:.6f} ms; torch.sum(rows, 0) "
-                         f"{r['lib']:.6f} ms")
+                         f"(launch-bound; bytes bound {r['bound']:.9f} ms; "
+                         f"empty kernel, same block shape, "
+                         f"{r['floor']:.6f} ms); plain {r['plain']:.6f} ms; "
+                         f"torch.sum(rows, 0) {r['lib']:.6f} ms")
     return r
 
 
@@ -1032,6 +1067,384 @@ def distributed_run(cli, d: str) -> None:
     phase("dist", f"distributed phase took {time.perf_counter() - t0:.1f}s")
 
 
+def drive(group, ph, label: str):
+    """Run one phase of a worker group; returns (results, seconds)."""
+    group.start_phase(ph, "smoke")
+    while not group.wait_done(1000):
+        pass
+    res = group.phase_results()
+    errs = [r.error for r in res if r.error]
+    if errs:
+        raise AssertionError(f"{label}: {errs}")
+    return res, max(max(r.elapsed_us_list) for r in res) / 1e6
+
+
+def lane_rows(group) -> str:
+    """p50/p99 transfer latency per lane (--gpuids 0,0 labels both lanes
+    "0" in the result rows, so the lanes' own histograms are read)."""
+    source = group._native_path or group._staging_path()
+    return "; ".join(f"lane {k} p50 {h.percentile_us(50.0)} us p99 "
+                     f"{h.percentile_us(99.0)} us" for k, h in sorted(
+                         source.device_latency_histograms().items()))
+
+
+def stripe_split(size: int, unit: int, n: int, policy: str) -> list[int]:
+    """The bytes each of n lanes must receive when the planner places
+    `unit`-byte units of a `size`-byte file (rr: unit u on lane u mod n;
+    contig: runs of ceil(units / n) units, the tail on the last lane)."""
+    units = -(-size // unit)
+    per = -(-units // n)
+    out = [0] * n
+    for u in range(units):
+        lane = u % n if policy == "rr" else min(u // per, n - 1)
+        out[lane] += min(unit, size - u * unit)
+    return out
+
+
+def native_stripe(path: str, size: int, gpuids: str = "0,0") -> None:
+    """Phase 15: the stripe tier of the native engine, by default on two
+    lanes of one card (--gpuids 0,0), rr then contig, over the native run's
+    file: the tier must read "striped", every block be one settled unit and
+    the lanes' bytes add up to the file, split as the planner places the
+    units."""
+    from elbencho_tpu_torch.common import BenchPhase
+    from elbencho_tpu_torch.config import config_from_args
+    from elbencho_tpu_torch.workers.local import LocalWorkerGroup
+
+    block = 8 << 20
+    n = len(gpuids.split(","))
+    for policy in ("rr", "contig"):
+        cfg = config_from_args(["-r", "-s", str(size), *STRIPE_READ,
+                                "--gpuids", gpuids, "--stripe", policy,
+                                path])
+        group = LocalWorkerGroup(cfg)
+        group.prepare()
+        try:
+            base = group.tier_counter_snapshot()
+            lanes0 = [ln["to_hbm"] for ln in group.lane_stats()]
+            res, secs = drive(group, BenchPhase.READFILES, f"stripe {policy}")
+            moved = sum(r.ops.bytes for r in res)
+            st = group.stripe_stats()
+            lanes = [ln["to_hbm"] - b for ln, b in zip(group.lane_stats(),
+                                                       lanes0)]
+            tier = group.confirm_stripe_tier(base)
+            unit = cfg.stripe_unit_blocks(
+                spans_active=group._native_path.dma_supported) * block
+            want = stripe_split(size, unit, n, policy)
+            blocks = size // block
+            if (tier != "striped" or moved != size or lanes != want
+                    or st["units_submitted"] != blocks
+                    or st["units_awaited"] != blocks
+                    or group.stripe_error()):
+                raise AssertionError(
+                    f"stripe {policy}: tier {tier}, moved {moved}, lanes "
+                    f"{lanes} (want {want}), {st}, error "
+                    f"'{group.stripe_error()}'")
+            phase("stripe", f"--stripe {policy} --gpuids {gpuids}, "
+                            f"{size >> 20} MiB in {unit >> 20} MiB units: "
+                            f"tier {tier}, {st['units_awaited']}/"
+                            f"{st['units_submitted']} units settled, lane "
+                            f"bytes {lanes}; READ "
+                            f"{size / secs / (1 << 30):.3f} GiB/s; "
+                            f"{lane_rows(group)}")
+        finally:
+            group.teardown()
+
+
+def native_stripe_verify(cli, native, d: str,
+                         size: int = 1 << 30) -> tuple[str, dict]:
+    """Phase 16: 1 GiB native --verify write + read with --stripe rr over
+    two lanes: the engine launches the fill kernel once per block written
+    and the verify kernel once per block read, each on the lane the
+    planner chose (the lanes' bytes split in halves), and a planted corrupt
+    byte is reported at its exact offset. Returns the file (corrupt byte
+    repaired) and the launches."""
+    from elbencho_tpu_torch.common import BenchPhase
+    from elbencho_tpu_torch.config import config_from_args
+    from elbencho_tpu_torch.workers.local import LocalWorkerGroup
+
+    path = os.path.join(d, "sv1g")
+    salt = 42
+    args = ["-t", "2", "-s", str(size), "-b", "4M", "--verify", str(salt),
+            "--gpuids", "0,0", "--tpubackend", "pjrt", "--stripe", "rr",
+            "--nolive", path]
+    group = LocalWorkerGroup(config_from_args(["-w", "-r", *args]))
+    group.prepare()
+    try:
+        native.reset_kernel_launches()
+        drive(group, BenchPhase.CREATEFILES, "stripe verify write")
+        lanes0 = [ln["to_hbm"] for ln in group.lane_stats()]
+        _, secs = drive(group, BenchPhase.READFILES, "stripe verify read")
+        launches = native.kernel_launches()
+        lanes = [ln["to_hbm"] - b for ln, b in zip(group.lane_stats(),
+                                                   lanes0)]
+        st = group.stripe_stats()
+    finally:
+        group.teardown()
+    blocks = size // BLOCK
+    if (launches != {"verify_u32": blocks, "fill_u64": blocks}
+            or lanes != [size // 2] * 2):
+        raise AssertionError(f"stripe verify: launches {launches} for "
+                             f"{blocks} blocks each way, lanes {lanes}")
+    phase("stripe-verify", f"clean {size >> 20} MiB --stripe rr --verify: "
+                           f"engine "
+                           f"launches {launches} for {blocks} blocks each "
+                           f"way, lane bytes {lanes}, stripe {st}; READ "
+                           f"{size / secs / (1 << 30):.3f} GiB/s")
+    corrupt = 11 * BLOCK + CHUNK + 999  # block 11: lane 0's third unit
+    flip_byte(path, corrupt)
+    rc, _, err = run_cli(cli, ["-r", *args])
+    want = f"on-device data verification failed at file offset {corrupt}"
+    if rc != 1 or want not in err:
+        raise AssertionError(f"stripe verify corrupt run: rc {rc}, expected "
+                             f"'{want}'")
+    phase("stripe-verify", f"corrupt byte found: rc 1, '{want}'")
+    flip_byte(path, corrupt)
+    return path, launches
+
+
+def gil_probe() -> tuple[float, float]:
+    """Whether a pageable host -> device copy releases the GIL: a Python
+    counting loop's rate while another thread copies 8 MiB blocks from
+    pageable memory, over its rate alone, and the copier's rate beside the
+    loop over its rate alone (both near 1.0 when the copy releases it)."""
+    import threading
+    src = torch.from_numpy(np.ones(8 << 20, dtype=np.uint8))
+    dst = torch.empty(8 << 20, dtype=torch.uint8, device="cuda")
+    stream = torch.cuda.Stream()
+    window = 0.5
+
+    def count(stop) -> int:
+        n = 0
+        while not stop.is_set():
+            n += 1
+        return n
+
+    def copies(stop, out) -> None:
+        n = 0
+        with torch.cuda.stream(stream):
+            while not stop.is_set():
+                dst.copy_(src, non_blocking=True)
+                stream.synchronize()
+                n += 1
+        out.append(n)
+
+    def run(with_count: bool, with_copy: bool) -> tuple[int, int]:
+        stop, got = threading.Event(), []
+        t = threading.Thread(target=copies, args=(stop, got)) \
+            if with_copy else None
+        if t:
+            t.start()
+        timer = threading.Timer(window, stop.set)
+        timer.start()
+        n = count(stop) if with_count else (stop.wait() or 0)
+        if t:
+            t.join()
+        return n, got[0] if got else 0
+
+    run(False, True)  # warm-up
+    solo_count, _ = run(True, False)
+    _, solo_copy = run(False, True)
+    both_count, both_copy = run(True, True)
+    return both_count / solo_count, both_copy / max(1, solo_copy)
+
+
+STAGED_TIERS = (
+    ("staged --stripe rr (mesh fallback)", "staged", ["--stripe", "rr"],
+     None),
+    ("direct --tpustripe (default submitters)", "direct", ["--tpustripe"],
+     None),
+    ("direct EBT_TPU_SUBMITTERS=2", "direct", [], "2"),
+    ("direct inline (EBT_TPU_SUBMITTERS=0)", "direct", [], "0"),
+)
+
+
+def staged_tiers(path: str, size: int) -> None:
+    """Phase 17: the staged and direct placements over two lanes of one
+    card with 2 MiB chunks, 4 MiB blocks: each must put half the file on
+    each lane; GiB/s printed, inline beside the submitters."""
+    from elbencho_tpu_torch.common import BenchPhase
+    from elbencho_tpu_torch.config import config_from_args
+    from elbencho_tpu_torch.workers.local import LocalWorkerGroup
+
+    ratio_count, ratio_copy = gil_probe()
+    phase("gil", f"pageable 8 MiB host -> device copies in a second thread: "
+                 f"a Python loop keeps {ratio_count:.3f} of its solo rate, "
+                 f"the copier {ratio_copy:.3f} of its solo rate")
+    saved = {k: os.environ.get(k) for k in ("EBT_TPU_CHUNK_BYTES",
+                                            "EBT_TPU_SUBMITTERS")}
+    os.environ["EBT_TPU_CHUNK_BYTES"] = str(CHUNK)
+    try:
+        for label, backend, extra, submitters in STAGED_TIERS:
+            os.environ.pop("EBT_TPU_SUBMITTERS", None)
+            if submitters is not None:
+                os.environ["EBT_TPU_SUBMITTERS"] = submitters
+            group = LocalWorkerGroup(config_from_args(
+                ["-r", "-t", "2", "-s", str(size), "-b", "4M", "--gpuids",
+                 "0,0", "--tpubackend", backend, *extra, "--lat",
+                 "--nolive", path]))
+            group.prepare()
+            try:
+                sp = group._dev_callback.staging_path
+                _, secs = drive(group, BenchPhase.READFILES, label)
+                per_dev = sp.device_bytes()
+                mode = ("inline" if sp.inline_submit else
+                        f"{sp.num_submitters} submitters"
+                        if sp.direct else "blocking")
+                if per_dev != [size // 2] * 2 or \
+                        sp.transferred_bytes[0] != size or \
+                        (extra == ["--tpustripe"] and sp.num_submitters != 2):
+                    raise AssertionError(f"{label}: bytes per lane {per_dev}"
+                                         f", {sp.transferred_bytes}, {mode}")
+                phase("placement", f"{label}: bytes per lane {per_dev}, "
+                                   f"{mode}; READ "
+                                   f"{size / secs / (1 << 30):.3f} GiB/s; "
+                                   f"{lane_rows(group)}")
+            finally:
+                group.teardown()
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def staged_stripe_verify(cli, vk, d: str, size: int = 1 << 30) -> int:
+    """Phase 17b: staged --tpustripe --verify over two lanes, 2 MiB chunks
+    of 4 MiB blocks: each chunk is checked on the lane it landed on, one
+    launch per chunk, and a corrupt byte in a block's second chunk (lane 1)
+    is reported at its exact offset. Returns the clean run's launches."""
+    path = os.path.join(d, "ts1g")
+    args = ["-t", "2", "-s", str(size), "-b", "4M", "--verify", "42",
+            "--gpuids",
+            "0,0", "--tpubackend", "staged", "--tpustripe", "--nolive", path]
+    os.environ["EBT_TPU_CHUNK_BYTES"] = str(CHUNK)
+    try:
+        rc, _, _ = run_cli(cli, ["-w", *args])
+        vk.reset_launches()
+        rc_r, _, _ = run_cli(cli, ["-r", *args])
+        launched = sum(vk.LAUNCHES.values())
+        if rc or rc_r or launched != size // CHUNK:
+            raise AssertionError(f"staged --tpustripe --verify: rc {rc}/"
+                                 f"{rc_r}, {launched} launches for "
+                                 f"{size // CHUNK} chunks read")
+        phase("tpustripe-verify", f"clean {size >> 20} MiB: {launched} "
+                                  f"verify launches "
+                                  f"for {size // CHUNK} chunks read")
+        corrupt = 5 * BLOCK + CHUNK + 4242
+        flip_byte(path, corrupt)
+        rc, _, err = run_cli(cli, ["-r", *args])
+    finally:
+        del os.environ["EBT_TPU_CHUNK_BYTES"]
+    want = f"on-device data verification failed at file offset {corrupt}"
+    if rc != 1 or want not in err:
+        raise AssertionError(f"tpustripe corrupt run: rc {rc}, expected "
+                             f"'{want}'")
+    phase("tpustripe-verify", f"corrupt byte found: rc 1, '{want}'")
+    os.remove(path)
+    return launched
+
+
+def write_shards(d: str, sizes, seed: int = 20261016) -> list[str]:
+    """The checkpoint's shard files, each made from its own PCG64 stream of
+    one seeded numpy SeedSequence, all written together (the generator
+    and the writes release the GIL)."""
+    streams = np.random.SeedSequence(seed).spawn(len(sizes))
+
+    def write(i: int) -> str:
+        p = os.path.join(d, f"model-{i + 1:05d}-of-{len(sizes):05d}"
+                            ".safetensors")
+        gen = np.random.PCG64(streams[i])
+        with open(p, "wb") as f:
+            left = sizes[i]
+            while left:
+                k = min(left, 64 << 20)
+                f.write(gen.random_raw(-(-k // 8)).view(np.uint8)[:k])
+                left -= k
+        return p
+
+    with ThreadPoolExecutor(len(sizes)) as pool:
+        return list(pool.map(write, range(len(sizes))))
+
+
+def restore(args: list[str], label: str, want_dev: list[int]) -> float:
+    """One checkpoint restore through the worker group: every shard
+    resident, resident bytes per device as the manifest places them, no
+    error. Returns the phase's seconds."""
+    from elbencho_tpu_torch.common import BenchPhase
+    from elbencho_tpu_torch.config import config_from_args
+    from elbencho_tpu_torch.workers.local import LocalWorkerGroup
+
+    cfg = config_from_args(args)
+    group = LocalWorkerGroup(cfg)
+    group.prepare()
+    try:
+        res, secs = drive(group, BenchPhase.CHECKPOINT, label)
+        st, dev = group.ckpt_stats(), group.ckpt_dev_bytes()
+        err = group.ckpt_error()
+        n, total = len(cfg.ckpt_shards), cfg.ckpt_total_bytes()
+        if (st["shards_resident"] != n or st["shards_total"] != n
+                or dev != want_dev or err
+                or sum(r.ops.bytes for r in res) != total):
+            raise AssertionError(f"{label}: {st}, bytes per device {dev} "
+                                 f"(want {want_dev}), error '{err}'")
+        lat = lane_rows(group) if cfg.show_latency else ""
+        phase("restore", f"{label}: {st['shards_resident']}/{n} shards "
+                         f"resident, bytes per device {dev}; RESTORE "
+                         f"{total / secs / (1 << 30):.3f} GiB/s, every shard "
+                         f"resident after {secs:.3f} s (all-resident "
+                         f"barriers {st['resident_wait_ns'] / 1e9:.3f} s)"
+                         + (f"; {lat}" if lat else ""))
+    finally:
+        group.teardown()
+    return secs
+
+
+def write_manifest(d: str, name: str, paths, devices) -> str:
+    man = os.path.join(d, name)
+    with open(man, "w") as f:
+        json.dump({"version": 1, "shards": [
+            {"path": p, "devices": dv} for p, dv in zip(paths, devices)]}, f)
+    return man
+
+
+def checkpoint_restore(d: str, shard_sizes=LLAMA_8B_SHARDS,
+                       gen_size: str = "256M") -> None:
+    """Phase 18: checkpoint restore at the shard layout of
+    meta-llama/Llama-3.1-8B (four bf16 safetensors files; only their byte
+    counts are used): every shard on device 0, then over two lanes with
+    one shard replicated, then the generated form."""
+    t0 = time.perf_counter()
+    paths = write_shards(d, shard_sizes)
+    s = list(shard_sizes)
+    total = sum(s)
+    phase("restore", f"{len(s)} shards, {total} bytes written from a seeded "
+                     f"generator in {time.perf_counter() - t0:.1f}s")
+    man = write_manifest(d, "man0.json", paths, [[0]] * len(s))
+    restore(["-t", "4", "--tpubackend", "pjrt", "--checkpoint", man, "--lat",
+             "--nolive"], "all shards on device 0", [total])
+    man2 = write_manifest(d, "man2.json", paths, [[0], [1], [0], [0, 1]])
+    restore(["-t", "4", "--gpuids", "0,0", "--tpubackend", "pjrt",
+             "--checkpoint", man2, "--lat", "--nolive"],
+            "--gpuids 0,0, shards 0 and 2 on lane 0, 1 on lane 1, 3 on both",
+            [s[0] + s[2] + s[3], s[1] + s[3]])
+    for p in paths:
+        os.remove(p)
+    gen = os.path.join(d, "gen")
+    os.mkdir(gen)
+    n_gen = 8
+    gen_bytes = n_gen * _size_bytes(gen_size)
+    restore(["-w", "--checkpoint-shards", str(n_gen), "-s", gen_size, "-t",
+             "4", "--tpubackend", "pjrt", "--nolive", gen],
+            f"generated, {n_gen} x {gen_size}", [gen_bytes])
+    shutil.rmtree(gen)
+    phase("restore", f"checkpoint phase took {time.perf_counter() - t0:.1f}s")
+
+
+def _size_bytes(spec: str) -> int:
+    return int(spec[:-1]) << {"K": 10, "M": 20, "G": 30}[spec[-1]]
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1065,7 +1478,8 @@ def main() -> int:
     reduce_main = time_reduce(ik, integ, 4, 4)  # phase 13's gathered rows
     time_reduce(ik, integ, 2, 5)  # the slice tier's: 2 devices x 5 counters
 
-    with scratch_dir(2 * (4 << 30)) as d:
+    # the 4 GiB file, the 1 GiB stripe file and the 16.1 GB checkpoint
+    with scratch_dir(4 * (4 << 30) + sum(LLAMA_8B_SHARDS)) as d:
         vk.reset_launches()  # count only the main path's launches
         main_path(cli, d)
         os.environ["EBT_TPU_CHUNK_BYTES"] = str(CHUNK)
@@ -1080,13 +1494,21 @@ def main() -> int:
             raise AssertionError("the fill wrapper launched on the native "
                                  "path; the engine launches from C++")
         read_pairs(cli, path, d)
+        native_stripe(path, 4 << 30)
         os.remove(path)
+        path, stripe_launches = native_stripe_verify(cli, native, d)
+        staged_tiers(path, 1 << 30)
+        os.remove(path)
+        tpustripe_launches = staged_stripe_verify(cli, vk, d)
+        checkpoint_restore(d)
         slice_launches = slice_main_path(ik, integ, mesh, graft_entry)
         distributed_run(cli, d)
     phase("launches", f"staged --verify run: {staged_launches} verify "
                       f"launches (Python wrapper); native --verify run: "
-                      f"{launches} (C++ engine); slice path: "
-                      f"{slice_launches}")
+                      f"{launches} (C++ engine); native --stripe --verify "
+                      f"run: {stripe_launches} (C++ engine); staged "
+                      f"--tpustripe --verify run: {tpustripe_launches} "
+                      f"(Python wrapper); slice path: {slice_launches}")
 
     print(json.dumps({"kernels": [{
         "name": "verify_u32",
@@ -1136,7 +1558,9 @@ def main() -> int:
         "bound_ms": reduce_main["bound"],
         "bound_by": "bytes",
         "bound_note": "launch-bound: bound_ms is the bytes bound of a few "
-                      "hundred bytes; a launch sets the time",
+                      "hundred bytes; an empty kernel of the same block "
+                      f"shape takes {reduce_main['floor']:.6f} ms on this "
+                      "card (CUDA-graph replay), the floor of any launch",
         "library_ms": reduce_main["lib"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

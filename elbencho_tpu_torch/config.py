@@ -20,10 +20,11 @@ tools/gen_completion.py + tools/lint_interfaces.py keep the CLI, the bash
 completion, and the docs from drifting apart.
 
 PyTorch/CUDA port: --gpuids selects CUDA device indices and --tpubackend
-staged|direct|pjrt moves blocks into GPU memory. Flags whose subsystem the
-port does not carry yet (striping, checkpoint restore, reshard, ingest,
-serving rotation, fault injection, the native engine's device fault policy)
-are refused by Config._refuse_unported with the flag's name, never run as
+staged|direct|pjrt moves blocks into GPU memory; --stripe, --tpustripe,
+--checkpoint and --checkpoint-shards place blocks across the devices. Flags
+whose subsystem the port does not carry yet (reshard, ingest, serving
+rotation, fault injection, the native engine's device fault policy) are
+refused by Config._refuse_unported with the flag's name, never run as
 something else — also when they reach a service over the wire
 (apply_wire -> check_args).
 """
@@ -615,6 +616,11 @@ class Config:
     def selected_phases(self) -> list[BenchPhase]:
         """Ordered phase sequence (reference: Coordinator::runBenchmarks order,
         Coordinator.cpp:190-231)."""
+        if self.checkpoint_manifest or self.checkpoint_shards:
+            # the checkpoint scenario is its own ordered sequence: shard
+            # creation (generated mode with -w) happens at prepare, and the
+            # only measured phase is the restore
+            return [BenchPhase.CHECKPOINT]
         phases: list[BenchPhase] = []
         if self.run_sync:
             pass  # sync/dropcache interleave handled by coordinator
@@ -646,14 +652,10 @@ class Config:
              pjrt and (self.max_errors_spec or "0").strip() != "0"),
             ("EBT_PJRT_XFER_MGR",
              pjrt and os.environ.get("EBT_PJRT_XFER_MGR") is not None),
-            ("--checkpoint", bool(self.checkpoint_manifest)),
-            ("--checkpoint-shards", bool(self.checkpoint_shards)),
             ("--rotate", bool(self.rotate_period_s)),
             ("--reshard", bool(self.reshard_devices)),
             ("--ingest", bool(self.ingest_manifest)),
             ("--ingestshards", bool(self.ingest_shards)),
-            ("--stripe", bool(self.stripe_policy)),
-            ("--tpustripe", self.tpu_stripe),
             ("--chaos", bool(self.chaos_spec)),
         )
         for flag, given in unported:
@@ -697,6 +699,10 @@ class Config:
             raise ProgException(
                 "--bgbudget/--bgadapt pace the --rotate background "
                 "restore; add --rotate SECS")
+
+        if self.checkpoint_manifest or self.checkpoint_shards:
+            self._check_checkpoint_args()
+            return
 
         if not self.paths:
             raise ProgException("at least one benchmark path is required")
@@ -771,6 +777,13 @@ class Config:
                 f"(expected {', '.join(TPU_BACKEND_NAMES)})")
         if self.tpu_ids and not self.tpu_backend_name:
             self.tpu_backend_name = "staged"  # gpuids implies the staged path
+        if self.tpu_stripe and self.tpu_backend_name not in ("staged", "direct",
+                                                             "pjrt"):
+            # hostsim never constructs the staging path, so striping there
+            # would be silently ignored - reject instead
+            raise ProgException(
+                "--tpustripe requires the staged or direct TPU backend "
+                "(--gpuids and/or --tpubackend staged|direct)")
         if self.reg_window and self.tpu_backend_name != "pjrt":
             # the registration window governs the native path's pin cache;
             # on any other backend it would be silently ignored
@@ -785,6 +798,43 @@ class Config:
             raise ProgException(
                 "--d2hdepth requires the native pjrt backend "
                 "(--tpubackend pjrt)")
+        if self.stripe_policy and self.stripe_policy not in ("rr", "contig"):
+            raise ProgException(
+                f"unknown --stripe policy: {self.stripe_policy} "
+                "(expected rr or contig)")
+        if self.stripe_policy and self.tpu_backend_name not in ("pjrt",
+                                                                "staged"):
+            # the planner/scatter/gather subsystem lives in the native
+            # path; the staged backend gets the mesh fallback — anywhere
+            # else the flag would be silently ignored
+            raise ProgException(
+                "--stripe requires the native pjrt backend or the staged "
+                "mesh fallback (--tpubackend pjrt|staged)")
+        if self.stripe_policy and self.tpu_stripe:
+            # the per-chunk scatter re-routes each chunk of a planner-placed
+            # block to a different device — it would silently break the
+            # plan's placement contract
+            raise ProgException(
+                "--stripe (block-range planner) and --tpustripe "
+                "(per-chunk scatter) are mutually exclusive")
+        if self.stripe_policy and self.path_type == BenchPathType.DIR:
+            raise ProgException(
+                "--stripe operates on a file's block range; directory "
+                "mode has no block range to stripe")
+        if self.stripe_policy and self.tpu_backend_name == "pjrt":
+            # alignment refusal: a stripe unit must never split a
+            # --regwindow registration span (the unit is sized to whole
+            # spans, so the span itself must be a whole multiple of the
+            # block — otherwise a window eviction could unpin memory
+            # another device's unit still rides)
+            span = self.stripe_reg_span_bytes()
+            if span % self.block_size:
+                raise ProgException(
+                    f"--stripe with --block {self.block_size} would split "
+                    f"a {span}-byte registration span (span % block != 0); "
+                    "choose a block size that divides the span, or adjust "
+                    "--regwindow so the span is a whole multiple of the "
+                    "block")
         if self.reg_window and self.reg_window < 2 * self.block_size:
             # the window cache keeps the current and next span pinned: a
             # smaller budget would run the whole phase on the staged path
@@ -833,6 +883,145 @@ class Config:
         # class geometry validates against the final --block / rank count
         self._check_load_args()
         self._check_fault_args()
+
+    # ------------------------------------------- checkpoint-restore scenario
+
+    def _check_checkpoint_args(self) -> None:
+        """Validation for the --checkpoint / --checkpoint-shards restore
+        scenario (docs/CHECKPOINT.md). Every malformed manifest input is
+        refused here with a cause string — fail fast at config time, never
+        mid-restore — and the parsed shard list lands in self.ckpt_shards
+        (device-range placement re-checked at prepare against the native
+        path's resolved device count)."""
+        from .checkpoint import (generated_shards, load_manifest,
+                                 validate_placement)
+
+        if self.checkpoint_manifest and self.checkpoint_shards:
+            raise ProgException(
+                "--checkpoint (explicit manifest) and --checkpoint-shards "
+                "(generated manifest) are mutually exclusive")
+        self._check_io_loop_args()
+        if self.tpu_backend_name != "pjrt":
+            # the restore ledger (direction 9/10, per-shard reconciliation,
+            # the all-resident barrier) lives in the native path; any other
+            # backend would time storage reads, not time-to-resident
+            raise ProgException(
+                "--checkpoint requires the native pjrt backend "
+                "(--tpubackend pjrt)")
+        other_phases = [flag for flag, on in (
+            ("-d/--mkdirs", self.run_create_dirs),
+            ("-r/--read", self.run_read),
+            ("--stat", self.run_stat_files),
+            ("-F/--delfiles", self.run_delete_files),
+            ("-D/--deldirs", self.run_delete_dirs)) if on]
+        if other_phases:
+            raise ProgException(
+                "--checkpoint runs the RESTORE phase only; drop "
+                + ", ".join(other_phases))
+        if self.run_create_files and not self.checkpoint_shards:
+            raise ProgException(
+                "-w with --checkpoint would overwrite real checkpoint "
+                "shards; shard creation (-w) is only supported with the "
+                "generated --checkpoint-shards manifest")
+        if self.use_random_offsets:
+            raise ProgException(
+                "--checkpoint restores shards as sequential reads; --rand "
+                "does not apply")
+        if self.stripe_policy or self.tpu_stripe:
+            # the manifest owns direction-0 placement; a stripe planner
+            # re-routing restore blocks would silently break it
+            raise ProgException(
+                "--checkpoint and --stripe/--tpustripe are mutually "
+                "exclusive: the manifest owns block->device placement")
+        if self.verify_salt or self.do_verify_direct:
+            raise ProgException(
+                "--checkpoint restores arbitrary shard content; --verify/"
+                "--verifydirect do not apply")
+        if self.arrival_mode or self.arrival_rate or self.tenants_spec:
+            # the restore phase's clock is time-to-all-devices-resident,
+            # not per-op latency; pacing shard reads would just distort it
+            raise ProgException(
+                "--checkpoint and --arrival/--rate/--tenants are mutually "
+                "exclusive: the restore clock measures residency, not "
+                "paced arrivals")
+        if self.d2h_depth < 0:
+            raise ProgException("--d2hdepth must be >= 0 (0 = auto)")
+        self._check_fault_args()
+
+        # dataset threads span service hosts (shards partition by global
+        # rank % num_dataset_threads, like file-mode block ranges)
+        self._derive_dataset_threads()
+
+        ndev = len(self.tpu_ids) or None  # None = resolved at prepare
+        if self.checkpoint_manifest:
+            if self.paths:
+                raise ProgException(
+                    "--checkpoint MANIFEST takes its shard paths from the "
+                    "manifest; drop the PATH argument(s)")
+            self.ckpt_shards = load_manifest(self.checkpoint_manifest)
+        else:
+            if len(self.paths) != 1 or not os.path.isdir(self.paths[0]):
+                raise ProgException(
+                    "--checkpoint-shards needs exactly one existing "
+                    "directory PATH for the generated shard files")
+            self.ckpt_shards = generated_shards(
+                self.paths[0], self.checkpoint_shards, self.file_size,
+                ndev, must_exist=not self.run_create_files)
+        if ndev:
+            validate_placement(
+                self.ckpt_shards, ndev,
+                self.checkpoint_manifest or "--checkpoint-shards")
+        self.path_type = BenchPathType.FILE
+        if not self.block_size:
+            raise ProgException("block size must be > 0 for --checkpoint")
+        if self.reg_window and self.reg_window < 2 * self.block_size:
+            raise ProgException(
+                f"--regwindow ({self.reg_window}) must be at least 2x the "
+                f"block size ({self.block_size}): the window cache keeps "
+                "the current and next span pinned")
+
+    def ckpt_total_bytes(self) -> int:
+        """Total manifest bytes (each shard counted once — storage reads;
+        replicated shards still read storage once per restore)."""
+        return sum(s.bytes for s in self.ckpt_shards)
+
+    # ------------------------------------------- striped-fill geometry
+    #
+    # Single source of truth for the numbers the native stripe planner is
+    # configured with (workers/local.py) AND the alignment validation above
+    # — a divergence between the two would validate one geometry and run
+    # another.
+
+    def stripe_reg_span_bytes(self) -> int:
+        """The engine's registration-span size under this config (mirrors
+        regSpanBytesFor in engine.cpp: at most half the --regwindow
+        budget, at least one block, 16 MiB default, page-aligned). The
+        mirror is pinned against the native formula by a test
+        (ebt_reg_span_bytes) — a silent divergence would re-admit stripe
+        units that split registration spans."""
+        span = 16 << 20
+        span = min(span, self.effective_reg_window() // 2)
+        span = max(span, self.block_size)
+        page = os.sysconf("SC_PAGE_SIZE")
+        return (span + page - 1) & ~(page - 1)
+
+    def stripe_unit_blocks(self, spans_active: bool = True) -> int:
+        """Stripe-unit size in blocks: whole registration spans when the
+        pin-cache span grid is in play (so a unit never splits a span),
+        one block otherwise (staged fallback, or a driver without host
+        registration — no spans exist to split)."""
+        if not spans_active or self.tpu_backend_name != "pjrt":
+            return 1
+        return max(1, self.stripe_reg_span_bytes() // self.block_size)
+
+    def stripe_total_blocks(self) -> int:
+        """The striped fill's PER-FILE block range: the engine hands the
+        planner file-LOCAL offsets (fileModeSeq: off = block-in-file x
+        bs), so each bench path's range is striped across the full device
+        set independently."""
+        if not self.block_size:
+            return 0
+        return self.file_size // self.block_size
 
     def detect_path_type(self) -> None:
         """Classify bench paths (reference: findBenchPathType,

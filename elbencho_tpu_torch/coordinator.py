@@ -10,8 +10,9 @@ unwinding (Coordinator.cpp:66-104).
 
 The port's coordinator serves local workers, the --hosts master
 (workers/remote.py), service mode (service.py) and the --metricsport
-listener; the checkpoint, reshard and ingest scenarios are refused at config
-validation (not yet ported, see ROADMAP.md).
+listener, and runs the checkpoint-restore scenario's RESTORE phase; the
+reshard and ingest scenarios are refused at config validation (not yet
+ported, see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -186,7 +187,7 @@ class Coordinator:
         cfg = self.cfg
         phases = cfg.selected_phases()
         data_phases = {BenchPhase.CREATEFILES, BenchPhase.READFILES,
-                       BenchPhase.STATFILES}
+                       BenchPhase.STATFILES, BenchPhase.CHECKPOINT}
         if not phases and (cfg.run_sync or cfg.run_drop_caches):
             # standalone sync / dropcaches run
             self._run_sync_and_drop_caches()
@@ -299,6 +300,13 @@ class Coordinator:
         cfg = self.cfg
         n_local_ranks = cfg.num_threads * max(1, len(cfg.hosts) or 1)
         exp = LiveOps()
+        if phase == BenchPhase.CHECKPOINT:
+            # the whole manifest is restored once per phase (shards
+            # partitioned across ranks; entries = shards, bytes = storage
+            # reads — replicated placements re-read nothing)
+            exp.entries = len(cfg.ckpt_shards)
+            exp.bytes = cfg.ckpt_total_bytes()
+            return exp
         if cfg.path_type == BenchPathType.DIR:
             files_per_rank = cfg.num_dirs * cfg.num_files
             if phase in (BenchPhase.CREATEDIRS, BenchPhase.DELETEDIRS):

@@ -29,12 +29,14 @@ void copyOut(const std::string& s, char* buf, int len) {
 extern "C" {
 
 // device_ids (length n_device_ids, may be 0) selects CUDA device ordinals
-// (--gpuids). Returns nullptr on failure with the reason in errbuf.
+// (--gpuids); stripe != 0 rotates each block's chunks over the lanes
+// (--tpustripe). Returns nullptr on failure with the reason in errbuf.
 void* ebt_cuda_create(const char* driver_path, uint64_t chunk_bytes,
-                      uint64_t block_size, const int* device_ids,
+                      uint64_t block_size, int stripe, const int* device_ids,
                       int n_device_ids, char* errbuf, int errlen) {
   std::vector<int> ids(device_ids, device_ids + n_device_ids);
-  auto* p = new CudaPath(driver_path, chunk_bytes, block_size, ids);
+  auto* p =
+      new CudaPath(driver_path, chunk_bytes, block_size, stripe != 0, ids);
   if (!p->ok()) {
     copyOut(p->error(), errbuf, errlen);
     delete p;
@@ -140,6 +142,83 @@ void ebt_cuda_reset_dev_histos(void* p) { P(p)->resetDeviceLatency(); }
 
 // 1 = host-function completion stamps ("onready"), 0 = await upper bounds
 int ebt_cuda_onready_clock(void* p) { return P(p)->onReadyClock() ? 1 : 0; }
+
+// ---- stripe tier (--stripe), the twins of the ebt_pjrt_stripe_* exports
+
+// policy 0 = off, 1 = round-robin, 2 = contiguous runs; unit_blocks the
+// placement granularity in blocks. Before the first data copy; 0 ok.
+int ebt_cuda_set_stripe_plan(void* p, int policy, uint64_t total_blocks,
+                             uint64_t unit_blocks) {
+  return P(p)->setStripePlan(policy, total_blocks, unit_blocks);
+}
+
+// the lane the planner maps file_offset to, -1 without a plan
+int ebt_cuda_stripe_device_for(void* p, uint64_t file_offset) {
+  return P(p)->stripeDeviceFor(file_offset);
+}
+
+// out[4] = {units_submitted, units_awaited, barrier_wait_ns, barriers};
+// per-lane fill bytes ride ebt_cuda_lane_stats out[3]
+void ebt_cuda_stripe_stats(void* p, uint64_t* out) {
+  CudaPath::StripeStats s = P(p)->stripeStats();
+  out[0] = s.units_submitted;
+  out[1] = s.units_awaited;
+  out[2] = s.barrier_wait_ns;
+  out[3] = s.barriers;
+}
+
+// the direction-8 gather barrier, run explicitly; 0 ok
+int ebt_cuda_stripe_barrier(void* p) { return P(p)->stripeBarrier(); }
+
+// "device N unit U: cause" of the first failed unit; empty if none
+void ebt_cuda_stripe_error(void* p, char* buf, int len) {
+  copyOut(P(p)->stripeError(), buf, len);
+}
+
+// ---- checkpoint-restore ledger (--checkpoint), the twins of the
+// ebt_pjrt_ckpt_* exports
+
+// parallel arrays of nentries (shard, lane, bytes) placement pairs; before
+// the first data copy. 0 ok, 1 on a sealed path or a bad entry.
+int ebt_cuda_set_ckpt_plan(void* p, int nshards, const int* entry_shard,
+                           const int* entry_device,
+                           const uint64_t* entry_bytes, int nentries) {
+  if (nentries <= 0 || !entry_shard || !entry_device || !entry_bytes)
+    return 1;
+  std::vector<int> shards(entry_shard, entry_shard + nentries);
+  std::vector<int> devs(entry_device, entry_device + nentries);
+  std::vector<uint64_t> bytes(entry_bytes, entry_bytes + nentries);
+  return P(p)->setCkptPlan(nshards, shards, devs, bytes);
+}
+
+// out[4] = {shards_total, shards_resident, resident_wait_ns, barriers}
+void ebt_cuda_ckpt_stats(void* p, uint64_t* out) {
+  CudaPath::CkptStats s = P(p)->ckptStats();
+  out[0] = s.shards_total;
+  out[1] = s.shards_resident;
+  out[2] = s.resident_wait_ns;
+  out[3] = s.barriers;
+}
+
+// out[2] = {bytes submitted under a shard tag, bytes resident}
+void ebt_cuda_ckpt_byte_totals(void* p, uint64_t* out) {
+  P(p)->ckptByteTotals(out);
+}
+
+// fills up to n resident-byte counts, one per lane; returns the lane count
+int ebt_cuda_ckpt_dev_bytes(void* p, uint64_t* out, int n) {
+  std::vector<uint64_t> v = P(p)->ckptDevBytes();
+  for (int i = 0; i < n && i < (int)v.size(); i++) out[i] = v[i];
+  return (int)v.size();
+}
+
+// the direction-10 all-resident barrier, run explicitly; 0 ok
+int ebt_cuda_ckpt_barrier(void* p) { return P(p)->ckptBarrier(); }
+
+// "device N shard S: cause" of the first failed restore copy; empty if none
+void ebt_cuda_ckpt_error(void* p, char* buf, int len) {
+  copyOut(P(p)->ckptError(), buf, len);
+}
 
 // ---- write leg and kernels
 

@@ -21,6 +21,16 @@
  *   EBT_MOCK_CUDA_XFER_US     per-copy service time on its device's channel:
  *                             copies to one device queue, devices overlap
  *   EBT_MOCK_CUDA_FAIL_AT     fail the Nth cuMemcpyHtoDAsync (1-based)
+ *   EBT_MOCK_CUDA_DEV_FAIL_AT  "<dev>:<n>": the Nth cuMemcpyHtoDAsync that
+ *                             targets device <dev> (0-based dev, 1-based n,
+ *                             warm-up copies included) fails in flight: the
+ *                             call succeeds, the copy lands nothing, and its
+ *                             stream stays in error, as after a real
+ *                             asynchronous fault: later work on it is
+ *                             accepted and never runs, and every query,
+ *                             synchronise or event wait on it reports the
+ *                             fault (the original mock's
+ *                             EBT_MOCK_STRIPE_FAIL_AT)
  *   EBT_MOCK_CUDA_XFER_FAIL_AT  fail the Nth cuMemcpyDtoHAsync (1-based)
  *   EBT_MOCK_CUDA_FAIL_READY_AT  fail the Nth completion attach
  *                             (cuLaunchHostFunc or cuEventRecord, 1-based)
@@ -32,12 +42,16 @@
  *   EBT_MOCK_CUDA_HOSTREG_FAIL_AFTER  every cuMemHostRegister after the Nth
  *                             fails (the init probe passes, real ones fail)
  *   EBT_MOCK_CUDA_HOSTREG_MAX_BYTES   ranges larger than N bytes fail
+ *   EBT_MOCK_CUDA_UNREGISTER_US  cuMemHostUnregister takes N us, during
+ *                             which the range still counts as registered,
+ *                             as the driver's unpin does
  * A read-only mapping registered without CU_MEMHOSTREGISTER_READ_ONLY is
  * refused, as the real driver refuses it.
  *
  * Test helpers: ebt_mock_total_bytes / ebt_mock_checksum (bytes landed on
  * the devices by host-to-device copies and their additive checksum),
  * ebt_mock_exec_count(dev) (kernel launches per device),
+ * ebt_mock_dev_h2d_count(dev) (host-to-device copies per device),
  * ebt_mock_hostreg_active (registered ranges), ebt_mock_live_buffers
  * (allocated minus freed device buffers), ebt_mock_h2d_count /
  * ebt_mock_completion_count (calls so far, for the *_AT seams) and
@@ -99,6 +113,7 @@ std::atomic<uint64_t> g_d2h_calls{0};
 std::atomic<uint64_t> g_completion_calls{0};
 std::atomic<uint64_t> g_hostreg_calls{0};
 std::atomic<uint64_t> g_exec[kMaxDevices];
+std::atomic<uint64_t> g_dev_h2d[kMaxDevices];
 std::atomic<int64_t> g_live_buffers{0};
 
 // the current context's device, per thread
@@ -167,6 +182,7 @@ struct Op {
   std::function<void()> fn;
   Clock::time_point not_before{};
   int service_us = 0;
+  std::string fault;  // EBT_MOCK_CUDA_DEV_FAIL_AT: puts the stream in error
 };
 
 struct Stream {
@@ -177,6 +193,7 @@ struct Stream {
   std::deque<Op> q;
   bool busy = false;
   bool stop = false;
+  std::string fault;  // non-empty: the stream is in error, work is dropped
   std::thread worker;
 
   void run() {
@@ -187,13 +204,18 @@ struct Stream {
       Op op = std::move(q.front());
       q.pop_front();
       busy = true;
+      const bool dropped = !fault.empty();
       lk.unlock();
-      if (op.not_before > Clock::now())
-        std::this_thread::sleep_until(op.not_before);
-      if (op.service_us > 0)
-        std::this_thread::sleep_until(reserve_service(device, op.service_us));
-      op.fn();
+      if (!dropped) {
+        if (op.not_before > Clock::now())
+          std::this_thread::sleep_until(op.not_before);
+        if (op.service_us > 0)
+          std::this_thread::sleep_until(
+              reserve_service(device, op.service_us));
+        if (op.fault.empty()) op.fn();
+      }
       lk.lock();
+      if (!dropped && !op.fault.empty()) fault = op.fault;
       busy = false;
       if (q.empty()) idle_cv.notify_all();
     }
@@ -211,6 +233,10 @@ struct Stream {
     std::lock_guard<std::mutex> lk(m);
     return q.empty() && !busy;
   }
+  std::string error() {
+    std::lock_guard<std::mutex> lk(m);
+    return fault;
+  }
 };
 
 struct Event {
@@ -218,6 +244,7 @@ struct Event {
   std::condition_variable cv;
   uint64_t recorded = 0;
   uint64_t completed = 0;
+  Stream* stream = nullptr;  // of the last record
 };
 
 Op copy_op(std::function<void()> fn) {
@@ -353,12 +380,17 @@ CUresult cuStreamDestroy_v2(void* stream) {
 }
 
 CUresult cuStreamSynchronize(void* stream) {
-  static_cast<Stream*>(stream)->sync();
-  return kOk;
+  auto* s = static_cast<Stream*>(stream);
+  s->sync();
+  std::string fault = s->error();
+  return fault.empty() ? kOk : inject(fault.c_str());
 }
 
 CUresult cuStreamQuery(void* stream) {
-  return static_cast<Stream*>(stream)->idle() ? kOk : kNotReady;
+  auto* s = static_cast<Stream*>(stream);
+  std::string fault = s->error();
+  if (!fault.empty()) return inject(fault.c_str());
+  return s->idle() ? kOk : kNotReady;
 }
 
 CUresult cuEventCreate(void** event, unsigned) {
@@ -380,6 +412,7 @@ CUresult cuEventRecord(void* event, void* stream) {
   {
     std::lock_guard<std::mutex> lk(e->m);
     gen = ++e->recorded;
+    e->stream = static_cast<Stream*>(stream);
   }
   Op op;
   op.fn = [e, gen] {
@@ -394,7 +427,12 @@ CUresult cuEventRecord(void* event, void* stream) {
 CUresult cuEventSynchronize(void* event) {
   auto* e = static_cast<Event*>(event);
   std::unique_lock<std::mutex> lk(e->m);
-  e->cv.wait(lk, [e] { return e->completed >= e->recorded; });
+  // a stream in error never reaches the record: report its fault instead
+  while (!e->cv.wait_for(lk, std::chrono::milliseconds(2),
+                         [e] { return e->completed >= e->recorded; })) {
+    std::string fault = e->stream ? e->stream->error() : std::string();
+    if (!fault.empty()) return inject(fault.c_str());
+  }
   return kOk;
 }
 
@@ -428,14 +466,37 @@ CUresult cuMemcpyHtoDAsync_v2(unsigned long long dst, const void* src,
   uint64_t n = ++g_h2d_calls;
   if (env_int("EBT_MOCK_CUDA_FAIL_AT") == (long long)n)
     return inject("mock transfer failure (EBT_MOCK_CUDA_FAIL_AT)");
+  auto* st = static_cast<Stream*>(stream);
+  const int sdev = st->device % kMaxDevices;
+  const uint64_t dev_n = ++g_dev_h2d[sdev];
+  const char* df = std::getenv("EBT_MOCK_CUDA_DEV_FAIL_AT");
+  int fdev = -1, fn = 0;
+  if (df && *df && std::sscanf(df, "%d:%d", &fdev, &fn) == 2 &&
+      fdev == sdev && fn > 0 && dev_n == (uint64_t)fn) {
+    Op op = copy_op([] {});
+    op.fault = "mock stripe transfer failure (EBT_MOCK_CUDA_DEV_FAIL_AT "
+               "device " + std::to_string(fdev) + ")";
+    st->push(std::move(op));
+    return kOk;
+  }
   char* d = (char*)(uintptr_t)dst;
   if (registered(src, bytes)) {
     // pinned source: read when the copy runs, so a premature reuse of the
-    // host buffer corrupts what lands
-    static_cast<Stream*>(stream)->push(copy_op([d, src, bytes] {
+    // host buffer corrupts what lands; a source unpinned before then faults
+    // the stream, as the copy engine's read of unmapped memory does
+    Op op = copy_op({});
+    op.fn = [d, src, bytes, st] {
+      if (!registered(src, bytes)) {
+        std::lock_guard<std::mutex> lk(st->m);
+        if (st->fault.empty())
+          st->fault = "mock copy from host memory unregistered while the "
+                      "copy was in flight";
+        return;
+      }
       std::memcpy(d, src, bytes);
       land(d, bytes);
-    }));
+    };
+    st->push(std::move(op));
   } else {
     // pageable source: taken at the call, like the driver's staging copy
     auto staged = std::make_shared<std::vector<char>>((const char*)src,
@@ -457,7 +518,11 @@ CUresult cuMemcpyDtoHAsync_v2(void* dst, unsigned long long src, size_t bytes,
   auto* st = static_cast<Stream*>(stream);
   st->push(copy_op([dst, s, bytes] { std::memcpy(dst, s, bytes); }));
   // into pageable memory the call returns only once the copy has landed
-  if (!registered(dst, bytes)) st->sync();
+  if (!registered(dst, bytes)) {
+    st->sync();
+    std::string fault = st->error();
+    if (!fault.empty()) return inject(fault.c_str());
+  }
   return kOk;
 }
 
@@ -499,6 +564,8 @@ CUresult cuMemHostRegister_v2(void* p, size_t bytes, unsigned flags) {
 }
 
 CUresult cuMemHostUnregister(void* p) {
+  if (int us = env_int("EBT_MOCK_CUDA_UNREGISTER_US"))
+    std::this_thread::sleep_for(std::chrono::microseconds(us));
   std::lock_guard<std::mutex> lk(g_reg_m);
   auto it = g_reg.find((uintptr_t)p);
   if (it == g_reg.end()) return kNotRegistered;
@@ -562,6 +629,9 @@ uint64_t ebt_mock_checksum() { return g_checksum; }
 uint64_t ebt_mock_exec_count(int dev) {
   return dev >= 0 && dev < kMaxDevices ? g_exec[dev].load() : 0;
 }
+uint64_t ebt_mock_dev_h2d_count(int dev) {
+  return dev >= 0 && dev < kMaxDevices ? g_dev_h2d[dev].load() : 0;
+}
 uint64_t ebt_mock_hostreg_active() {
   std::lock_guard<std::mutex> lk(g_reg_m);
   return g_reg.size();
@@ -580,6 +650,7 @@ void ebt_mock_reset() {
   g_completion_calls = 0;
   g_hostreg_calls = 0;
   for (auto& e : g_exec) e = 0;
+  for (auto& e : g_dev_h2d) e = 0;
 }
 
 }  // extern "C"

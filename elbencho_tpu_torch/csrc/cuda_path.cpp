@@ -57,10 +57,12 @@ bool CudaPath::makeCurrent(int lane_idx, bool force) {
 }
 
 CudaPath::CudaPath(const std::string& driver_path, uint64_t chunk_bytes,
-                   uint64_t block_size, const std::vector<int>& device_ids)
+                   uint64_t block_size, bool stripe,
+                   const std::vector<int>& device_ids)
     : chunk_bytes_(chunk_bytes ? chunk_bytes : (2u << 20)),
       block_size_(block_size),
-      gen_(++g_path_gen) {
+      gen_(++g_path_gen),
+      stripe_(stripe) {
   // the verify pattern is u64-word based; a chunk boundary inside a word
   // would phase-shift every later chunk's expected pattern
   chunk_bytes_ &= ~7ull;
@@ -388,6 +390,8 @@ int CudaPath::awaitRelease(Pending& p) {
     (p.d2h ? lane.bytes_from_hbm : lane.bytes_to_hbm)
         .fetch_sub(p.bytes, std::memory_order_relaxed);
   }
+  settleStripe(p, rc);
+  settleCkpt(p, rc);
   return rc;
 }
 
@@ -397,13 +401,30 @@ int CudaPath::syncStream(int lane, cu::CUstream stream) {
   return awaitRelease(p);
 }
 
-void CudaPath::enqueue(void* buf, std::vector<Pending>& ps) {
+void CudaPath::enqueue(void* buf, std::vector<Pending>& ps,
+                       int64_t stripe_unit, int64_t ckpt_shard) {
   if (ps.empty()) return;
-  Lane& lane = laneFor(ps.front().lane);
   QueueShard& shard = shardFor(buf);
-  TimedMutexLock lk(shard.m, lane.lock_wait_ns);
+  TimedMutexLock lk(shard.m, laneFor(ps.front().lane).lock_wait_ns);
   auto& q = shard.pending[(uint64_t)(uintptr_t)buf];
+  bool first = true;
   for (Pending& p : ps) {
+    // every chunk of a planner-routed block carries the stripe flag
+    // (failure attribution); only the first carries the unit, and
+    // units_submitted counts as that tag enqueues, so a submit that fails
+    // before enqueuing anything never strands the reconciliation
+    p.stripe = stripe_unit >= 0;
+    p.stripe_unit = first ? stripe_unit : -1;
+    if (first && stripe_unit >= 0)
+      stripe_units_submitted_.fetch_add(1, std::memory_order_relaxed);
+    first = false;
+    // restore blocks: every chunk's bytes count as submitted under the
+    // shard (byte-level reconciliation)
+    p.ckpt_shard = ckpt_shard;
+    if (ckpt_shard >= 0 && p.bytes && ckpt_sub_bytes_)
+      ckpt_sub_bytes_[ckpt_shard].fetch_add(p.bytes,
+                                            std::memory_order_relaxed);
+    Lane& lane = laneFor(p.lane);
     (p.d2h ? lane.bytes_from_hbm : lane.bytes_to_hbm)
         .fetch_add(p.bytes, std::memory_order_relaxed);
     q.push_back(p);
@@ -510,59 +531,89 @@ bool CudaPath::ensureBuffer(int lane, cu::CUdeviceptr* p, uint64_t* cap,
 
 // ---------------------------------------------------------------- read leg
 
-int CudaPath::submitH2D(int device_idx, const char* buf, uint64_t len) {
-  // One range lookup per block: every chunk shares the answer. The
-  // registration check and an in-flight hold are taken together under
-  // reg_mutex_, so a window eviction cannot unregister the range between the
-  // check and the copies; the hold sits in the shard's draining ledger until
-  // the enqueued pendings take over. Under EBT_PJRT_NO_READY the tier is
-  // excluded, as in the original.
+int CudaPath::submitH2D(int device_idx, const char* buf, uint64_t len,
+                        int64_t stripe_unit, int64_t ckpt_shard) {
+  // One range lookup per block: every chunk shares the answer; the hold
+  // (holdForCopy) sits in the shard's draining ledger until the enqueued
+  // pendings take over.
   const int li = laneIndex(device_idx);
   Lane& lane = *lanes_[li];
   QueueShard& shard = shardFor(buf);
-  const uint64_t key = (uint64_t)(uintptr_t)buf;
-  bool zc;
-  {
-    TimedMutexLock rlk(reg_mutex_, lane.lock_wait_ns);
-    zc = dma_ok_ && !no_ready_diag_ && bufferRegisteredLocked(buf, len);
-    if (zc) {
-      MutexLock slk(shard.m);
-      shard.draining[key] += len ? len : 1;
-    }
-  }
+  const bool zc = holdForCopy(buf, len, lane, shard);
   std::vector<Pending> submitted;
   int rc = 0;
-  for (uint64_t off = 0; off < len;) {
+  int chunk_i = 0;
+  for (uint64_t off = 0; off < len; chunk_i++) {
     const uint64_t n = std::min(chunk_bytes_, len - off);
+    // --tpustripe: the block's chunks rotate over the lanes
+    const int ci = chunkLane(li, chunk_i);
+    Lane& cl = *lanes_[ci];
+    if (ci != li && !makeCurrent(ci, false)) {
+      rc = 1;
+      break;
+    }
     // the block's chunks land at their offsets in the lane's landing buffer
     const uint64_t dst = off + n <= landing_cap_ ? off : 0;
     auto t0 = Clock::now();
-    if (!check("cuMemcpyHtoDAsync", api_.cuMemcpyHtoDAsync(
-                                        lane.landing + dst, buf + off, n,
-                                        lane.h2d))) {
+    if (!check("cuMemcpyHtoDAsync",
+               api_.cuMemcpyHtoDAsync(cl.landing + dst, buf + off, n,
+                                      cl.h2d))) {
       rc = 1;
       break;
     }
     if (zc) zero_copy_count_.fetch_add(1, std::memory_order_relaxed);
     Pending p;
     p.bytes = n;
-    attachCompletion(p, li, lane.h2d, li, t0);
+    attachCompletion(p, ci, cl.h2d, ci, t0);
     submitted.push_back(p);
     off += n;
   }
+  if (stripe_ && lanes_.size() > 1) makeCurrent(li, false);
   // chunks copied before a failure may still be reading the buffer: they
   // are enqueued either way so the barrier waits them out
-  enqueue((void*)buf, submitted);
-  if (zc) {
-    TimedMutexLock lk(shard.m, lane.lock_wait_ns);
-    auto it = shard.draining.find(key);
-    if (it != shard.draining.end()) {
-      it->second -= std::min(it->second, len ? len : 1);
-      if (!it->second) shard.draining.erase(it);
-    }
-    shard.cv.notify_all();
-  }
+  enqueue((void*)buf, submitted, stripe_unit, ckpt_shard);
+  if (zc) releaseHold(buf, len, lane, shard);
   return rc;
+}
+
+bool CudaPath::holdForCopy(const char* buf, uint64_t len, Lane& lane,
+                           QueueShard& shard) {
+  // The driver decides per call whether a source is pinned. A range whose
+  // registration is changing (in_transit_) may still be pinned in the
+  // driver while the cache already counts it gone: a copy issued then would
+  // be an asynchronous DMA from memory about to be unpinned, which faults
+  // the context. So that change is waited out first. Then the registration
+  // check and an in-flight hold are taken together under reg_mutex_, so a
+  // window eviction cannot unregister the range between the check and the
+  // copies. Under EBT_PJRT_NO_READY the tier is excluded, as in the
+  // original.
+  const auto t0 = Clock::now();
+  CondLock rlk(reg_mutex_);
+  lane.lock_wait_ns.fetch_add(
+      (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(
+          Clock::now() - t0)
+          .count(),
+      std::memory_order_relaxed);
+  while (rangeInTransitLocked((uintptr_t)buf, len))
+    reg_cv_.wait(rlk.native());
+  const bool zc =
+      dma_ok_ && !no_ready_diag_ && bufferRegisteredLocked(buf, len);
+  if (zc) {
+    MutexLock slk(shard.m);
+    shard.draining[(uint64_t)(uintptr_t)buf] += len ? len : 1;
+  }
+  return zc;
+}
+
+void CudaPath::releaseHold(const char* buf, uint64_t len, Lane& lane,
+                           QueueShard& shard) {
+  TimedMutexLock lk(shard.m, lane.lock_wait_ns);
+  auto it = shard.draining.find((uint64_t)(uintptr_t)buf);
+  if (it != shard.draining.end()) {
+    it->second -= std::min(it->second, len ? len : 1);
+    if (!it->second) shard.draining.erase(it);
+  }
+  shard.cv.notify_all();  // a barrier may be waiting out this hold
 }
 
 // --verify: the block's chunks land in one device block buffer, the verify
@@ -584,6 +635,10 @@ int CudaPath::submitH2DVerified(int worker_rank, int device_idx,
     if (!rb.host && !check("cuMemHostAlloc",
                            api_.cuMemHostAlloc((void**)&rb.host, 32, 0)))
       return 1;
+    // the copies are awaited below, inside this call: the hold keeps a
+    // window eviction from unpinning the source until then
+    QueueShard& shard = shardFor(buf);
+    const bool held = holdForCopy(buf, n8, lane, shard);
     std::vector<Pending> waits;
     int rc = 0;
     for (uint64_t off = 0; off < n8;) {
@@ -620,6 +675,7 @@ int CudaPath::submitH2DVerified(int worker_rank, int device_idx,
     for (Pending& p : waits)  // await ALL even after a failure
       if (awaitRelease(p)) rc = 1;
     if (syncStream(li, lane.h2d)) rc = 1;
+    if (held) releaseHold(buf, n8, lane, shard);
     if (rc) return 1;
     if (rb.host[1] != 0) {
       const uint64_t first = (uint64_t)rb.host[2];
@@ -662,33 +718,53 @@ int CudaPath::submitH2DVerified(int worker_rank, int device_idx,
 int CudaPath::roundTripH2D(int worker_rank, int device_idx, const char* buf,
                            uint64_t len) {
   // synchronous: verify is a correctness mode; the next direction-1 fetch
-  // of this rank serves these bytes back
+  // of this rank serves these bytes back. Under --tpustripe the chunks
+  // rotate over the lanes, each into that lane's staged buffer at its
+  // offset, and the fetch gathers them from the same lanes; the bytes
+  // count on the rank's lane, as in the original.
   const int li = laneIndex(device_idx);
-  Lane& lane = *lanes_[li];
   RankBufs& rb = rankBufs(worker_rank, li);
   rb.staged_len = 0;
-  if (!ensureBuffer(li, &rb.staged, &rb.staged_cap, len)) return 1;
+  const int nl = stripe_ ? std::min<int>((int)lanes_.size(),
+                                         (int)((len + chunk_bytes_ - 1) /
+                                               chunk_bytes_))
+                         : 1;
+  for (int k = 0; k < std::max(nl, 1); k++) {
+    const int ci = chunkLane(li, k);
+    RankBufs& rc_buf = rankBufs(worker_rank, ci);
+    if (ci != li && !makeCurrent(ci, false)) return 1;
+    if (!ensureBuffer(ci, &rc_buf.staged, &rc_buf.staged_cap, len)) return 1;
+  }
+  if (nl > 1) makeCurrent(li, false);
   std::vector<Pending> waits;
   int rc = 0;
-  for (uint64_t off = 0; off < len;) {
+  int chunk_i = 0;
+  for (uint64_t off = 0; off < len; chunk_i++) {
     const uint64_t n = std::min(chunk_bytes_, len - off);
+    const int ci = chunkLane(li, chunk_i);
+    Lane& cl = *lanes_[ci];
+    if (ci != li && !makeCurrent(ci, false)) {
+      rc = 1;
+      break;
+    }
     auto t0 = Clock::now();
     if (!check("round-trip cuMemcpyHtoDAsync",
-               api_.cuMemcpyHtoDAsync(rb.staged + off, buf + off, n,
-                                      lane.h2d))) {
+               api_.cuMemcpyHtoDAsync(rankBufs(worker_rank, ci).staged + off,
+                                      buf + off, n, cl.h2d))) {
       rc = 1;
       break;
     }
     Pending p;
-    attachCompletion(p, li, lane.h2d, li, t0);
+    attachCompletion(p, ci, cl.h2d, ci, t0);
     waits.push_back(p);
     off += n;
   }
+  if (nl > 1) makeCurrent(li, false);
   for (Pending& p : waits)
     if (awaitRelease(p)) rc = 1;
   if (rc) return 1;
   rb.staged_len = len;
-  lane.bytes_to_hbm.fetch_add(len, std::memory_order_relaxed);
+  lanes_[li]->bytes_to_hbm.fetch_add(len, std::memory_order_relaxed);
   return 0;
 }
 
@@ -829,30 +905,39 @@ int CudaPath::serveD2H(int worker_rank, int device_idx, char* buf,
   // round-trip mode: serve back the block this rank just staged; never
   // deferred (verify writes are a correctness mode)
   const int li = laneIndex(device_idx);
-  Lane& lane = *lanes_[li];
   RankBufs& rb = rankBufs(worker_rank, li);
   if (len && rb.staged_len == len) {
     std::vector<Pending> fetches;
     int rc = 0;
-    for (uint64_t off = 0; off < len;) {
+    int chunk_i = 0;
+    for (uint64_t off = 0; off < len; chunk_i++) {
       const uint64_t n = std::min(chunk_bytes_, len - off);
+      const int ci = chunkLane(li, chunk_i);
+      Lane& cl = *lanes_[ci];
+      if (ci != li && !makeCurrent(ci, false)) {
+        rc = 1;
+        break;
+      }
       auto t0 = Clock::now();
       if (!check("round-trip cuMemcpyDtoHAsync",
-                 api_.cuMemcpyDtoHAsync(buf + off, rb.staged + off, n,
-                                        lane.d2h))) {
+                 api_.cuMemcpyDtoHAsync(
+                     buf + off, rankBufs(worker_rank, ci).staged + off, n,
+                     cl.d2h))) {
         rc = 1;
         break;
       }
       Pending p;
       p.d2h = true;
-      attachCompletion(p, li, lane.d2h, li, t0);
+      // latency attributed to the serving rank's lane, as in the original
+      attachCompletion(p, ci, cl.d2h, li, t0);
       fetches.push_back(p);
       off += n;
     }
+    if (stripe_ && lanes_.size() > 1) makeCurrent(li, false);
     for (Pending& p : fetches)
       if (awaitRelease(p)) rc = 1;
     if (rc) return 1;
-    lane.bytes_from_hbm.fetch_add(len, std::memory_order_relaxed);
+    lanes_[li]->bytes_from_hbm.fetch_add(len, std::memory_order_relaxed);
     return 0;
   }
   return fetchDeviceSource(worker_rank, device_idx, buf, len, deferred);
@@ -922,18 +1007,59 @@ int CudaPath::copy(int worker_rank, int device_idx, int direction, void* buf,
   if (!ok()) return 1;
   // the kernel entries are set without a lock, which is safe only because
   // every enable precedes the first data transfer: data directions seal
+  // (the stripe and checkpoint plans are sealed by the same store: both are
+  // read lock-free below; barriers 8/10 and the shard begin 9 do not seal)
   if (direction == 0 || direction == 1 || direction == 3)
     sealed_.store(true, std::memory_order_release);
+  // the stripe planner owns direction-0 block->lane placement, decided
+  // before the lane counters below so they follow the lane the bytes target
+  bool striped = false;
+  if (direction == 0 && stripe_policy_.load(std::memory_order_acquire) != 0) {
+    device_idx = stripeDeviceFor(file_offset);
+    striped = true;
+  }
   const int li = laneIndex(device_idx);
   if (!makeCurrent(li, false)) return 1;
   if (direction == 0 || direction == 1 || direction == 3)
     lanes_[li]->submits.fetch_add(1, std::memory_order_relaxed);
   switch (direction) {
-    case 0:
-      if (verify_on_)
-        return submitH2DVerified(worker_rank, li, (const char*)buf, len,
-                                 file_offset);
-      return submitH2D(li, (const char*)buf, len);
+    case 0: {
+      // checkpoint restore: the engine owns placement (device_idx is the
+      // shard's manifest lane); the ledger tags this worker's blocks with
+      // the shard it registered via direction 9
+      const int64_t cs = ckpt_active_.load(std::memory_order_acquire)
+                             ? ckptShardFor(worker_rank)
+                             : -1;
+      if (verify_on_) {
+        // a synchronous correctness mode: placement still honours the
+        // stripe plan (the block is checked on the lane that received it),
+        // but no deferred units exist to count; the checkpoint ledger
+        // accounts the block inline
+        const int vrc = submitH2DVerified(worker_rank, li, (const char*)buf,
+                                          len, file_offset);
+        if (cs >= 0 && ckpt_sub_bytes_) {
+          ckpt_sub_bytes_[cs].fetch_add(len, std::memory_order_relaxed);
+          if (vrc == 0) {
+            ckpt_res_bytes_[cs].fetch_add(len, std::memory_order_relaxed);
+            ckpt_dev_bytes_[(size_t)li % ckpt_dev_bytes_.size()]->fetch_add(
+                len, std::memory_order_relaxed);
+          } else {
+            latchCkptError(li, cs, firstTransferError());
+          }
+        }
+        return vrc;
+      }
+      const int64_t su =
+          striped ? (int64_t)(file_offset / block_size_) : -1;
+      const int src_rc = submitH2D(li, (const char*)buf, len, su, cs);
+      // a submit-time failure never reaches a barrier's settle, so the
+      // per-device attribution is latched here
+      if (src_rc != 0 && striped)
+        latchStripeError(li, su, firstTransferError());
+      if (src_rc != 0 && cs >= 0)
+        latchCkptError(li, cs, firstTransferError());
+      return src_rc;
+    }
     case 1:
       return serveD2H(worker_rank, li, (char*)buf, len, file_offset);
     case 2:
@@ -958,10 +1084,19 @@ int CudaPath::copy(int worker_rank, int device_idx, int direction, void* buf,
       return 0;
     case 7:
       return settle(buf, li, /*d2h_barrier=*/true);
+    case 8:
+      // the stripe tier's slice-wide gather barrier
+      return stripeBarrier();
+    case 9:
+      // checkpoint shard begin: len carries the manifest shard index
+      return ckptBeginShard(worker_rank, (int64_t)len);
+    case 10:
+      // checkpoint all-resident barrier (the restore's measured seal)
+      return ckptBarrier();
     default:
       latchXferError("device-copy direction " + std::to_string(direction) +
-                     " (stripe/checkpoint/ingest/reshard/rotation) is not "
-                     "ported to the CUDA engine");
+                     " (ingest/reshard/rotation) is not ported to the CUDA "
+                     "engine");
       return 1;
   }
 }
@@ -1022,9 +1157,13 @@ void CudaPath::d2hStats(uint64_t out[3]) const {
   out[2] = d2h_overlap_bytes_.load(std::memory_order_relaxed);
 }
 
-void CudaPath::drainAll() {
+int CudaPath::settleAllShards() {
   // per shard: move the queues out under the shard lock, await outside it,
-  // then release the draining spans (the barriers' discipline)
+  // then release the draining spans (the barriers' discipline): a
+  // per-buffer barrier that finds its queue gone waits out these holds
+  // before the engine reuses the buffer. Failure attribution lands per
+  // pending via settleStripe/settleCkpt inside awaitRelease.
+  int rc = 0;
   for (auto& shard : shards_) {
     std::unordered_map<uint64_t, std::vector<Pending>> all;
     std::unordered_map<uint64_t, uint64_t> spans;
@@ -1039,7 +1178,8 @@ void CudaPath::drainAll() {
       }
     }
     for (auto& kv : all)
-      for (Pending& p : kv.second) awaitRelease(p);
+      for (Pending& p : kv.second)
+        if (awaitRelease(p)) rc = 1;
     MutexLock lk(shard->m);
     for (auto& kv : spans) {
       auto it = shard->draining.find(kv.first);
@@ -1049,6 +1189,209 @@ void CudaPath::drainAll() {
     }
     shard->cv.notify_all();
   }
+  return rc;
+}
+
+// ---------------------------------------------------------------- stripe tier
+
+void CudaPath::settleStripe(const Pending& p, int rc) {
+  if (p.stripe_unit >= 0)
+    stripe_units_awaited_.fetch_add(1, std::memory_order_relaxed);
+  // only planner-routed copies attribute to a device (a d2h fetch failing
+  // while a plan is active is not a stripe failure)
+  if (rc == 0 || !p.stripe) return;
+  latchStripeError(p.lane, p.stripe_unit, firstTransferError());
+}
+
+void CudaPath::latchStripeError(int device, int64_t unit,
+                                const std::string& cause) {
+  std::string msg = "device " + std::to_string(device);
+  if (unit >= 0) msg += " unit " + std::to_string(unit);
+  msg += ": " + (cause.empty() ? std::string("transfer failed") : cause);
+  MutexLock lk(stripe_mutex_);
+  if (stripe_error_.empty()) stripe_error_ = msg;
+}
+
+std::string CudaPath::stripeError() const {
+  MutexLock lk(stripe_mutex_);
+  return stripe_error_;
+}
+
+int CudaPath::setStripePlan(int policy, uint64_t total_blocks,
+                            uint64_t unit_blocks) {
+  if (!ok() || policy < 0 || policy > 2) return 1;
+  if (sealed_.load(std::memory_order_acquire)) return 1;
+  if (policy != 0 && (total_blocks == 0 || unit_blocks == 0 || !block_size_))
+    return 1;
+  stripe_unit_blocks_ = unit_blocks ? unit_blocks : 1;
+  const uint64_t units =
+      (total_blocks + stripe_unit_blocks_ - 1) / stripe_unit_blocks_;
+  const uint64_t nlanes = lanes_.size();
+  stripe_units_per_dev_ = (units + nlanes - 1) / nlanes;
+  stripe_policy_.store(policy, std::memory_order_release);
+  return 0;
+}
+
+int CudaPath::stripeDeviceFor(uint64_t file_offset) const {
+  // acquire pairs with setStripePlan's release: a reader that sees the
+  // policy also sees the geometry
+  const int policy = stripe_policy_.load(std::memory_order_acquire);
+  if (policy == 0) return -1;
+  const uint64_t block = block_size_ ? file_offset / block_size_ : 0;
+  const uint64_t unit = block / stripe_unit_blocks_;
+  const uint64_t nlanes = lanes_.size();
+  if (policy == 1) return (int)(unit % nlanes);
+  // contiguous runs: lane d owns units [d*per_dev, (d+1)*per_dev); the
+  // tail clamps to the last lane
+  const uint64_t d = stripe_units_per_dev_ ? unit / stripe_units_per_dev_ : 0;
+  return (int)std::min<uint64_t>(d, nlanes - 1);
+}
+
+CudaPath::StripeStats CudaPath::stripeStats() const {
+  StripeStats s;
+  s.units_submitted = stripe_units_submitted_.load(std::memory_order_relaxed);
+  s.units_awaited = stripe_units_awaited_.load(std::memory_order_relaxed);
+  s.barrier_wait_ns = stripe_barrier_wait_ns_.load(std::memory_order_relaxed);
+  s.barriers = stripe_barriers_.load(std::memory_order_relaxed);
+  return s;
+}
+
+int CudaPath::stripeBarrier() {
+  auto t0 = Clock::now();
+  const int rc = settleAllShards();
+  stripe_barrier_wait_ns_.fetch_add(
+      (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(
+          Clock::now() - t0)
+          .count(),
+      std::memory_order_relaxed);
+  stripe_barriers_.fetch_add(1, std::memory_order_relaxed);
+  return rc;
+}
+
+// ---------------------------------------------------------------- checkpoint
+
+void CudaPath::settleCkpt(const Pending& p, int rc) {
+  if (p.ckpt_shard < 0 || !ckpt_sub_bytes_) return;
+  if (rc == 0) {
+    if (p.bytes) {
+      ckpt_res_bytes_[p.ckpt_shard].fetch_add(p.bytes,
+                                              std::memory_order_relaxed);
+      ckpt_dev_bytes_[(size_t)(p.lane < 0 ? 0 : p.lane) %
+                      ckpt_dev_bytes_.size()]
+          ->fetch_add(p.bytes, std::memory_order_relaxed);
+    }
+    return;
+  }
+  latchCkptError(p.lane, p.ckpt_shard, firstTransferError());
+}
+
+void CudaPath::latchCkptError(int device, int64_t shard,
+                              const std::string& cause) {
+  std::string msg = "device " + std::to_string(device);
+  if (shard >= 0) msg += " shard " + std::to_string(shard);
+  msg += ": " +
+         (cause.empty() ? std::string("restore transfer failed") : cause);
+  MutexLock lk(ckpt_mutex_);
+  if (ckpt_error_.empty()) ckpt_error_ = msg;
+}
+
+std::string CudaPath::ckptError() const {
+  MutexLock lk(ckpt_mutex_);
+  return ckpt_error_;
+}
+
+int CudaPath::setCkptPlan(int nshards, const std::vector<int>& entry_shard,
+                          const std::vector<int>& entry_device,
+                          const std::vector<uint64_t>& entry_bytes) {
+  if (!ok() || nshards <= 0) return 1;
+  if (sealed_.load(std::memory_order_acquire)) return 1;
+  if (entry_shard.empty() || entry_shard.size() != entry_device.size() ||
+      entry_shard.size() != entry_bytes.size())
+    return 1;
+  std::vector<uint64_t> expected((size_t)nshards, 0);
+  for (size_t i = 0; i < entry_shard.size(); i++) {
+    const int s = entry_shard[i];
+    const int d = entry_device[i];
+    if (s < 0 || s >= nshards || d < 0 || d >= (int)lanes_.size() ||
+        entry_bytes[i] == 0)
+      return 1;
+    expected[(size_t)s] += entry_bytes[i];
+  }
+  ckpt_nshards_ = (uint64_t)nshards;
+  ckpt_expected_bytes_ = std::move(expected);
+  ckpt_sub_bytes_.reset(new std::atomic<uint64_t>[(size_t)nshards]);
+  ckpt_res_bytes_.reset(new std::atomic<uint64_t>[(size_t)nshards]);
+  for (int s = 0; s < nshards; s++) {
+    ckpt_sub_bytes_[s].store(0, std::memory_order_relaxed);
+    ckpt_res_bytes_[s].store(0, std::memory_order_relaxed);
+  }
+  ckpt_dev_bytes_.clear();
+  for (size_t d = 0; d < lanes_.size(); d++)
+    ckpt_dev_bytes_.emplace_back(new std::atomic<uint64_t>(0));
+  ckpt_active_.store(1, std::memory_order_release);
+  return 0;
+}
+
+int CudaPath::ckptBeginShard(int worker_rank, int64_t shard) {
+  if (!ckpt_active_.load(std::memory_order_acquire)) return 1;
+  if (shard < 0 || (uint64_t)shard >= ckpt_nshards_) return 1;
+  // a begin marks a fresh restore of this shard: re-arm its counters so
+  // repeated restore phases reconcile the latest one (the previous phase's
+  // all-resident barrier settled everything it had in flight)
+  ckpt_sub_bytes_[shard].store(0, std::memory_order_relaxed);
+  ckpt_res_bytes_[shard].store(0, std::memory_order_relaxed);
+  MutexLock lk(ckpt_mutex_);
+  ckpt_cur_shard_[worker_rank] = shard;
+  return 0;
+}
+
+int64_t CudaPath::ckptShardFor(int worker_rank) const {
+  MutexLock lk(ckpt_mutex_);
+  auto it = ckpt_cur_shard_.find(worker_rank);
+  return it == ckpt_cur_shard_.end() ? -1 : it->second;
+}
+
+CudaPath::CkptStats CudaPath::ckptStats() const {
+  CkptStats s;
+  s.shards_total = ckpt_nshards_;
+  for (uint64_t i = 0; i < ckpt_nshards_; i++)
+    if (ckpt_expected_bytes_[i] &&
+        ckpt_res_bytes_[i].load(std::memory_order_relaxed) ==
+            ckpt_expected_bytes_[i])
+      s.shards_resident++;
+  s.resident_wait_ns = ckpt_resident_wait_ns_.load(std::memory_order_relaxed);
+  s.barriers = ckpt_barriers_.load(std::memory_order_relaxed);
+  return s;
+}
+
+void CudaPath::ckptByteTotals(uint64_t* out) const {
+  out[0] = out[1] = 0;
+  for (uint64_t i = 0; i < ckpt_nshards_; i++) {
+    out[0] += ckpt_sub_bytes_[i].load(std::memory_order_relaxed);
+    out[1] += ckpt_res_bytes_[i].load(std::memory_order_relaxed);
+  }
+}
+
+std::vector<uint64_t> CudaPath::ckptDevBytes() const {
+  std::vector<uint64_t> out;
+  out.reserve(ckpt_dev_bytes_.size());
+  for (const auto& a : ckpt_dev_bytes_)
+    out.push_back(a->load(std::memory_order_relaxed));
+  return out;
+}
+
+int CudaPath::ckptBarrier() {
+  // run by each restore worker after its last shard, inside the measured
+  // phase: the phase clock is time-to-all-devices-resident
+  auto t0 = Clock::now();
+  const int rc = settleAllShards();
+  ckpt_resident_wait_ns_.fetch_add(
+      (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(
+          Clock::now() - t0)
+          .count(),
+      std::memory_order_relaxed);
+  ckpt_barriers_.fetch_add(1, std::memory_order_relaxed);
+  return rc;
 }
 
 // ---------------------------------------------------------------- registration
@@ -1068,6 +1411,7 @@ int CudaPath::hostRegister(void* buf, uint64_t len, bool window,
     std::string msg = cu::errorText(api_, "cuMemHostRegister", rc);
     MutexLock lk(reg_mutex_);
     in_transit_.erase((uintptr_t)buf);
+    reg_cv_.notify_all();
     if (reserved) {  // return the caller's budget reservation
       window_bytes_ -= len;
       pinned_bytes_ -= len;
@@ -1083,6 +1427,7 @@ int CudaPath::hostRegister(void* buf, uint64_t len, bool window,
   int uring_idx = UringReg::instance().claim(buf, len, /*dma_shared=*/true);
   MutexLock lk(reg_mutex_);
   in_transit_.erase((uintptr_t)buf);
+  reg_cv_.notify_all();
   RegEntry& e = registered_[(uintptr_t)buf];
   e.len = len;
   e.lru_seq = ++lru_clock_;
@@ -1145,6 +1490,7 @@ int CudaPath::deregisterBuffer(void* buf) {
   hostUnregister(buf);
   MutexLock lk(reg_mutex_);
   in_transit_.erase((uintptr_t)buf);
+  reg_cv_.notify_all();
   return 0;
 }
 
@@ -1266,12 +1612,7 @@ int CudaPath::registerWindow(void* buf, uint64_t len) {
       in_transit_[p] = len;
     }
   }
-  for (auto& [v, uidx] : victims) {
-    hostUnregister((void*)v);
-    UringReg::instance().release(uidx);
-    MutexLock lk(reg_mutex_);
-    in_transit_.erase(v);
-  }
+  unpinVictims(victims);
   if (!fits) return 1;
   return hostRegister(buf, len, /*window=*/true, /*reserved=*/true);
 }
@@ -1293,11 +1634,26 @@ void CudaPath::deregisterRange(void* buf, uint64_t len) {
       }
     }
   }
-  for (auto& [v, uidx] : victims) {
+  unpinVictims(victims);
+}
+
+void CudaPath::unpinVictims(
+    const std::vector<std::pair<uintptr_t, int>>& victims) {
+  if (victims.empty()) return;
+  // A fence first: every copy enqueued on any lane before the victims left
+  // the cache has completed before their pages are unpinned, whatever the
+  // in-flight ledger saw (copies issued after that see the ranges in
+  // transit and wait, holdForCopy).
+  for (size_t l = 0; l < lanes_.size(); l++) {
+    if (!makeCurrent((int)l, false)) continue;
+    syncStream((int)l, lanes_[l]->h2d);
+  }
+  for (const auto& [v, uidx] : victims) {
     hostUnregister((void*)v);
     UringReg::instance().release(uidx);
     MutexLock lk(reg_mutex_);
     in_transit_.erase(v);
+    reg_cv_.notify_all();
   }
 }
 

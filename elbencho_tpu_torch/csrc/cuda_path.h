@@ -4,9 +4,13 @@
  *
  * CudaPath ports the part of the original package's PjrtPath
  * (core/include/ebt/pjrt_path.h, core/src/pjrt_path.cpp) that the read and
- * write legs run, with no Python on the hot path. DevCopyFn directions:
+ * write legs, the stripe tier and checkpoint restore run, with no Python on
+ * the hot path. DevCopyFn directions:
  *   0   host buffer -> device, chunked cuMemcpyHtoDAsync on the lane's H2D
  *       stream; completion deferred to the pre-reuse barrier (direction 2).
+ *       Under a stripe plan the planner picks the block's lane; under a
+ *       checkpoint plan every chunk is tagged with the worker's shard; with
+ *       --tpustripe the block's chunks rotate over the lanes.
  *       With --verify the block is checked on the device instead: its chunks
  *       land in one device block buffer and the verify kernel (csrc/verify.cu)
  *       is launched once per block, synchronously.
@@ -21,8 +25,21 @@
  *       the same lifetime pins and --regwindow LRU window cache, sharing the
  *       engine's UringReg slot authority.
  *   2/7 the pre-reuse and pre-write barriers.
- * Every other direction (stripe, checkpoint, ingest, reshard, rotation) is
- * not ported: it returns 1 with a latched cause.
+ *   8   the stripe tier's slice-wide gather barrier (settleAllShards).
+ *   9   checkpoint shard begin: tag the worker's following blocks.
+ *   10  checkpoint all-resident barrier (settleAllShards).
+ * Directions 11-17 (ingest, reshard, rotation) are not ported: they return 1
+ * with a latched cause.
+ *
+ * Stripe and checkpoint ledgers. A stripe plan (--stripe rr|contig) maps
+ * each read block's file offset onto a lane; a checkpoint plan (--checkpoint)
+ * supplies per-shard submitted/resident byte reconciliation, per-lane
+ * resident bytes and "device N shard S: cause" attribution. Both are read
+ * lock-free on the hot path, so they must be installed before the first
+ * data copy. A pending carries its tags to its settle, where awaitRelease
+ * counts it (settleStripe, settleCkpt). As in the original, a settled
+ * device copy is not retained: "resident" means the bytes arrived and the
+ * ledger counted them.
  *
  * Tiers. A copy from registered (pinned) host memory is an asynchronous DMA:
  * that is the "zero-copy" tier, under the original's field names
@@ -51,7 +68,8 @@
  * runs, so the trampoline takes one leaf lock and calls no driver API.
  *
  * Lock hierarchy (as in PjrtPath): reg_mutex_ > QueueShard::m > {err_mutex_,
- * src_mutex_, rank_mutex_, Lane::histo_m, Tracker::m}.
+ * src_mutex_, rank_mutex_, Lane::histo_m, Tracker::m}; stripe_mutex_ and
+ * ckpt_mutex_ are leaves that never nest with err_mutex_.
  */
 #pragma once
 
@@ -76,8 +94,10 @@ class CudaPath {
  public:
   // Never throws: check ok()/error() after construction. device_ids selects
   // CUDA device ordinals (--gpuids); empty = every device the driver sees.
+  // stripe: --tpustripe, a block's chunks rotate over the lanes
   CudaPath(const std::string& driver_path, uint64_t chunk_bytes,
-           uint64_t block_size, const std::vector<int>& device_ids);
+           uint64_t block_size, bool stripe,
+           const std::vector<int>& device_ids);
   ~CudaPath();
   CudaPath(const CudaPath&) = delete;
   CudaPath& operator=(const CudaPath&) = delete;
@@ -148,7 +168,55 @@ class CudaPath {
   // out[2] = bytes whose fetch had completed before its barrier started
   void d2hStats(uint64_t out[3]) const;
 
-  void drainAll();
+  // ---- stripe tier (--stripe): the block-range planner ----
+  // policy 0 = off, 1 = round-robin over units, 2 = contiguous runs; a unit
+  // is unit_blocks consecutive blocks. 0 ok, 1 on a bad plan or a sealed
+  // path.
+  int setStripePlan(int policy, uint64_t total_blocks, uint64_t unit_blocks);
+  // the lane of the block at file_offset, -1 when no plan is active
+  int stripeDeviceFor(uint64_t file_offset) const;
+  struct StripeStats {
+    uint64_t units_submitted = 0;  // planner-routed blocks enqueued
+    uint64_t units_awaited = 0;    // of those, settled
+    uint64_t barrier_wait_ns = 0;  // direction-8 barriers' await time
+    uint64_t barriers = 0;         // direction-8 invocations
+  };
+  StripeStats stripeStats() const;
+  // direction 8: settle every pending transfer; 0 ok, 1 = a unit failed
+  // ("device N unit U: cause" in stripeError())
+  int stripeBarrier();
+  std::string stripeError() const EBT_EXCLUDES(stripe_mutex_);
+
+  // ---- checkpoint-restore ledger (--checkpoint) ----
+  // one entry per (shard, lane) placement pair; 0 ok, 1 on a sealed path
+  // or an entry naming an out-of-range shard or lane or zero bytes
+  int setCkptPlan(int nshards, const std::vector<int>& entry_shard,
+                  const std::vector<int>& entry_device,
+                  const std::vector<uint64_t>& entry_bytes);
+  // direction 9: tag worker_rank's following direction-0 blocks with
+  // `shard` and re-arm its reconciliation; 1 = shard outside the plan
+  int ckptBeginShard(int worker_rank, int64_t shard) EBT_EXCLUDES(ckpt_mutex_);
+  int64_t ckptShardFor(int worker_rank) const EBT_EXCLUDES(ckpt_mutex_);
+  struct CkptStats {
+    uint64_t shards_total = 0;
+    uint64_t shards_resident = 0;  // resident bytes == bytes x replicas
+    uint64_t resident_wait_ns = 0;  // direction-10 barriers' await time
+    uint64_t barriers = 0;          // direction-10 invocations
+  };
+  CkptStats ckptStats() const;
+  // out[0] = bytes submitted under a shard tag, out[1] = bytes resident
+  void ckptByteTotals(uint64_t* out) const;
+  std::vector<uint64_t> ckptDevBytes() const;  // resident bytes per lane
+  // direction 10: settle every pending transfer; 0 ok, 1 = a restore
+  // transfer failed ("device N shard S: cause" in ckptError())
+  int ckptBarrier();
+  std::string ckptError() const EBT_EXCLUDES(ckpt_mutex_);
+
+  // the slice-wide settle sweep shared by directions 8 and 10 and by
+  // teardown: every pending transfer of every buffer is awaited, under the
+  // barriers' draining holds; 1 if any failed
+  int settleAllShards();
+  void drainAll() { settleAllShards(); }
 
  private:
   using Clock = std::chrono::steady_clock;
@@ -173,6 +241,11 @@ class CudaPath {
     uint64_t bytes = 0;  // counted at enqueue; undone on a failed settle
     bool d2h = false;
     bool ready_failed = false;  // completion could not be attached
+    // a planner-routed block's chunk (failure attribution); the block's
+    // first chunk also carries its unit, which units_awaited counts
+    bool stripe = false;
+    int64_t stripe_unit = -1;
+    int64_t ckpt_shard = -1;  // every chunk of a restore block
   };
   struct QueueShard {
     mutable Mutex m;
@@ -229,6 +302,11 @@ class CudaPath {
   Lane& laneFor(int device_idx) const {
     return *lanes_[(size_t)laneIndex(device_idx)];
   }
+  // the lane of a block's chunk_i-th chunk: the block's own lane, or under
+  // --tpustripe the lanes in turn from it
+  int chunkLane(int li, int chunk_i) const {
+    return stripe_ ? (li + chunk_i) % (int)lanes_.size() : li;
+  }
 
   // Make lane `lane`'s primary context current on the calling thread (worker
   // threads, the thread that prepares, Python's calling threads).
@@ -243,13 +321,35 @@ class CudaPath {
                         int device_idx, Clock::time_point t0);
   int awaitRelease(Pending& p);
   int syncStream(int lane, cu::CUstream stream);  // all work enqueued so far
-  void enqueue(void* buf, std::vector<Pending>& ps) EBT_EXCLUDES(reg_mutex_);
+  // stripe_unit / ckpt_shard >= 0 tag the pendings as they enqueue
+  void enqueue(void* buf, std::vector<Pending>& ps, int64_t stripe_unit = -1,
+               int64_t ckpt_shard = -1) EBT_EXCLUDES(reg_mutex_);
+  // ledger bookkeeping at a pending's settle (awaitRelease); the cause is
+  // read out of err_mutex_ before the ledger's leaf lock is taken
+  void settleStripe(const Pending& p, int rc) EBT_EXCLUDES(stripe_mutex_);
+  void latchStripeError(int device, int64_t unit, const std::string& cause)
+      EBT_EXCLUDES(stripe_mutex_);
+  void settleCkpt(const Pending& p, int rc) EBT_EXCLUDES(ckpt_mutex_);
+  void latchCkptError(int device, int64_t shard, const std::string& cause)
+      EBT_EXCLUDES(ckpt_mutex_);
 
   RankBufs& rankBufs(int worker_rank, int lane) EBT_EXCLUDES(rank_mutex_);
   bool ensureBuffer(int lane, cu::CUdeviceptr* p, uint64_t* cap,
                     uint64_t len);
 
-  int submitH2D(int device_idx, const char* buf, uint64_t len);
+  int submitH2D(int device_idx, const char* buf, uint64_t len,
+                int64_t stripe_unit = -1, int64_t ckpt_shard = -1);
+  // before copies from [buf, buf + len): wait out a registration change on
+  // the range, then report whether it is registered and, if so, hold it in
+  // the shard's draining ledger against eviction until releaseHold
+  bool holdForCopy(const char* buf, uint64_t len, Lane& lane,
+                   QueueShard& shard) EBT_EXCLUDES(reg_mutex_);
+  void releaseHold(const char* buf, uint64_t len, Lane& lane,
+                   QueueShard& shard);
+  // unpin ranges that left the registration cache (in_transit_), behind a
+  // fence on every lane's H2D stream
+  void unpinVictims(const std::vector<std::pair<uintptr_t, int>>& victims)
+      EBT_EXCLUDES(reg_mutex_);
   int submitH2DVerified(int worker_rank, int device_idx, const char* buf,
                         uint64_t len, uint64_t file_off);
   int roundTripH2D(int worker_rank, int device_idx, const char* buf,
@@ -283,6 +383,7 @@ class CudaPath {
   std::vector<std::unique_ptr<Lane>> lanes_;
   std::vector<std::unique_ptr<QueueShard>> shards_;
   bool single_lane_ = false;
+  bool stripe_ = false;  // --tpustripe
   bool no_ready_diag_ = false;
   bool no_latency_diag_ = false;
   bool dma_ok_ = false;
@@ -306,6 +407,34 @@ class CudaPath {
   mutable Mutex err_mutex_;
   std::string xfer_error_ EBT_GUARDED_BY(err_mutex_);
 
+  // stripe plan: the policy is read lock-free per block; the geometry is
+  // written once by setStripePlan before the path is sealed
+  std::atomic<int> stripe_policy_{0};
+  uint64_t stripe_unit_blocks_ = 1;
+  uint64_t stripe_units_per_dev_ = 0;  // contiguous runs: ceil(units / lanes)
+  std::atomic<uint64_t> stripe_units_submitted_{0};
+  std::atomic<uint64_t> stripe_units_awaited_{0};
+  std::atomic<uint64_t> stripe_barrier_wait_ns_{0};
+  std::atomic<uint64_t> stripe_barriers_{0};
+  // leaf lock: the first "device N unit U: cause", set once
+  mutable Mutex stripe_mutex_;
+  std::string stripe_error_ EBT_GUARDED_BY(stripe_mutex_);
+
+  // checkpoint plan: written once by setCkptPlan before the path is sealed;
+  // the per-shard atomics are sized by it, so the hot path needs no lock
+  std::atomic<int> ckpt_active_{0};
+  uint64_t ckpt_nshards_ = 0;
+  std::vector<uint64_t> ckpt_expected_bytes_;  // bytes x replica lanes
+  std::unique_ptr<std::atomic<uint64_t>[]> ckpt_sub_bytes_;
+  std::unique_ptr<std::atomic<uint64_t>[]> ckpt_res_bytes_;
+  std::vector<std::unique_ptr<std::atomic<uint64_t>>> ckpt_dev_bytes_;
+  std::atomic<uint64_t> ckpt_resident_wait_ns_{0};
+  std::atomic<uint64_t> ckpt_barriers_{0};
+  // leaf lock: the per-worker current shard and the first failure
+  mutable Mutex ckpt_mutex_;
+  std::unordered_map<int, int64_t> ckpt_cur_shard_ EBT_GUARDED_BY(ckpt_mutex_);
+  std::string ckpt_error_ EBT_GUARDED_BY(ckpt_mutex_);
+
   mutable Mutex rank_mutex_;
   std::map<std::pair<int, int>, std::unique_ptr<RankBufs>> rank_bufs_
       EBT_GUARDED_BY(rank_mutex_);
@@ -320,6 +449,8 @@ class CudaPath {
   std::map<uintptr_t, RegEntry> registered_ EBT_GUARDED_BY(reg_mutex_);
   std::unordered_map<uintptr_t, uint64_t> in_transit_
       EBT_GUARDED_BY(reg_mutex_);
+  // signalled whenever a registration change leaves in_transit_
+  std::condition_variable reg_cv_;
   uint64_t reg_window_bytes_ EBT_GUARDED_BY(reg_mutex_) = 0;
   uint64_t window_bytes_ EBT_GUARDED_BY(reg_mutex_) = 0;
   uint64_t pinned_bytes_ EBT_GUARDED_BY(reg_mutex_) = 0;

@@ -18,7 +18,8 @@
 //
 // Bound: a launch. The rows are a few hundred bytes (one row of 5 counters
 // per device, or 4 fields per rank); the kernel's time is its launch and
-// one memory round trip.
+// one memory round trip. ebt_launch_floor launches an empty kernel of the
+// same block shape, so that floor can be timed beside it.
 //
 // The C entry launches on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError().
@@ -48,6 +49,8 @@ sum_rows_kernel(const u64* __restrict__ rows, u64 n_rows, u64 k,
     if (lane == 0) out[col] = s;
 }
 
+__global__ void __launch_bounds__(kThreads) launch_floor_kernel() {}
+
 }  // namespace
 
 // rows: device pointer to row-major u64[n_rows][k] (int64 storage).
@@ -60,5 +63,12 @@ extern "C" int ebt_sum_rows_u64(const void* rows, uint64_t n_rows,
     if (grid > 0x7fffffffull) return (int)cudaErrorInvalidValue;
     sum_rows_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
         (const u64*)rows, n_rows, k, (u64*)out);
+    return (int)cudaGetLastError();
+}
+
+// One launch of an empty kernel with sum_rows_kernel's block shape on the
+// caller's stream: the floor under any launch of this card.
+extern "C" int ebt_launch_floor(void* stream) {
+    launch_floor_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>();
     return (int)cudaGetLastError();
 }

@@ -4,9 +4,9 @@
 C++ transfer engine (csrc/cuda_path.cpp), which drives the card through the
 CUDA driver API with no Python on the hot path. The flag keeps the original
 package's name for CLI and result-tree parity; this module is the port's
-counterpart of the original's tpu/native.py (NativePjrtPath), without its
-stripe, checkpoint, ingest, reshard, rotation, fault-policy,
-transfer-manager and raw-ceiling parts.
+counterpart of the original's tpu/native.py (NativePjrtPath) with its
+stripe-tier and checkpoint-restore ledgers, without its ingest, reshard,
+rotation, fault-policy, transfer-manager and raw-ceiling parts.
 
 This module resolves WHICH driver library the engine loads, makes sure the
 kernel library is built when on-device verify or write generation is on,
@@ -83,8 +83,8 @@ class NativeCudaPath:
         ids = (ctypes.c_int * max(1, nids))(*cfg.tpu_ids)
         err = ctypes.create_string_buffer(1024)
         self._h = self._lib.ebt_cuda_create(
-            self.so_path.encode(), _chunk_bytes(), cfg.block_size, ids, nids,
-            err, len(err))
+            self.so_path.encode(), _chunk_bytes(), cfg.block_size,
+            1 if cfg.tpu_stripe else 0, ids, nids, err, len(err))
         if not self._h:
             raise ProgException(
                 f"CUDA driver init failed ({self.so_path}): "
@@ -188,6 +188,125 @@ class NativeCudaPath:
         self._lib.ebt_cuda_d2h_stats(self._h, out)
         return {"deferred_count": out[0], "await_wait_ns": out[1],
                 "overlap_bytes": out[2]}
+
+    # ---- stripe tier (--stripe) ----
+    #
+    # The engine's stripe planner maps each read block's file offset onto a
+    # lane (round-robin or contiguous runs over stripe units), the lanes
+    # copy the blocks concurrently, and the engine's direction-8 gather
+    # barrier awaits every lane's pending units at the end of the read
+    # phase: one file's block range fills every selected device.
+
+    # the policy names of the config and their codes in the native plan
+    STRIPE_POLICIES = {"rr": 1, "contig": 2}
+
+    def set_stripe_plan(self, policy: str, total_blocks: int,
+                        unit_blocks: int) -> None:
+        """Install the stripe plan (before any transfer: the plan is read
+        lock-free on the hot path). unit_blocks is the placement
+        granularity in blocks, sized by the config so a unit never splits
+        a --regwindow registration span."""
+        code = self.STRIPE_POLICIES.get(policy)
+        if code is None:
+            raise ProgException(f"unknown stripe policy: {policy!r}")
+        rc = self._lib.ebt_cuda_set_stripe_plan(
+            self._h, code, int(total_blocks), int(unit_blocks))
+        if rc != 0:
+            raise ProgException(
+                f"stripe plan rejected (policy={policy}, "
+                f"blocks={total_blocks}, unit={unit_blocks}): the plan "
+                "must precede the first transfer and cover >= 1 block")
+
+    def stripe_device_for(self, file_offset: int) -> int:
+        """The planner's lane for the block at file_offset, -1 when no
+        stripe plan is active."""
+        return self._lib.ebt_cuda_stripe_device_for(self._h,
+                                                    int(file_offset))
+
+    def stripe_stats(self) -> dict[str, int]:
+        """Planner-routed block submissions, settled units, the gather
+        barriers' await time and their count. Session-cumulative; per-lane
+        fill bytes ride lane_stats() to_hbm."""
+        out = (ctypes.c_uint64 * 4)()
+        self._lib.ebt_cuda_stripe_stats(self._h, out)
+        return {"units_submitted": out[0], "units_awaited": out[1],
+                "barrier_wait_ns": out[2], "barriers": out[3]}
+
+    def stripe_barrier(self) -> bool:
+        """Run the gather barrier explicitly (the engine's read workers run
+        it as direction 8). False = a unit failed; cause in
+        stripe_error()."""
+        return self._lib.ebt_cuda_stripe_barrier(self._h) == 0
+
+    def stripe_error(self) -> str:
+        """First failed unit with its lane ("device N unit U: cause");
+        empty when none."""
+        buf = ctypes.create_string_buffer(1024)
+        self._lib.ebt_cuda_stripe_error(self._h, buf, len(buf))
+        return buf.value.decode()
+
+    # ---- checkpoint-restore ledger (--checkpoint) ----
+    #
+    # The engine owns shard->device placement (it submits each shard's
+    # blocks to the manifest lanes); this ledger supplies the evidence:
+    # per-shard submitted/resident byte reconciliation at the direction-10
+    # all-resident barrier, shards_resident, resident bytes per lane and
+    # "device N shard S: cause" attribution.
+
+    def set_ckpt_plan(self, shards) -> None:
+        """Install the restore plan before any transfer. `shards` is the
+        config's CheckpointShard list (devices resolved, bytes known); a
+        replicated shard contributes one entry per replica lane."""
+        entries = [(i, d, s.bytes)
+                   for i, s in enumerate(shards) for d in s.devices]
+        n = len(entries)
+        sh = (ctypes.c_int * n)(*[e[0] for e in entries])
+        dv = (ctypes.c_int * n)(*[e[1] for e in entries])
+        by = (ctypes.c_uint64 * n)(*[e[2] for e in entries])
+        rc = self._lib.ebt_cuda_set_ckpt_plan(self._h, len(shards), sh, dv,
+                                              by, n)
+        if rc != 0:
+            raise ProgException(
+                f"checkpoint plan rejected ({len(shards)} shards, {n} "
+                "placement entries): the plan must precede the first "
+                "transfer and every entry must name an in-range shard/"
+                "device with nonzero bytes")
+
+    def ckpt_stats(self) -> dict[str, int]:
+        """Manifest shard count, shards whose resident bytes equal the
+        plan's (x replicas), the all-resident barriers' await time and
+        their count. Session-cumulative."""
+        out = (ctypes.c_uint64 * 4)()
+        self._lib.ebt_cuda_ckpt_stats(self._h, out)
+        return {"shards_total": out[0], "shards_resident": out[1],
+                "resident_wait_ns": out[2], "barriers": out[3]}
+
+    def ckpt_byte_totals(self) -> tuple[int, int]:
+        """(submitted, resident) restore bytes; equal once every
+        all-resident barrier returned clean."""
+        out = (ctypes.c_uint64 * 2)()
+        self._lib.ebt_cuda_ckpt_byte_totals(self._h, out)
+        return out[0], out[1]
+
+    def ckpt_dev_bytes(self) -> list[int]:
+        """Resident checkpoint bytes per lane (selected-device order)."""
+        n = self.num_devices
+        out = (ctypes.c_uint64 * max(1, n))()
+        got = self._lib.ebt_cuda_ckpt_dev_bytes(self._h, out, n)
+        return [out[i] for i in range(min(n, got))]
+
+    def ckpt_barrier(self) -> bool:
+        """Run the all-resident barrier explicitly (the engine's restore
+        workers run it as direction 10). False = a restore copy failed;
+        cause in ckpt_error()."""
+        return self._lib.ebt_cuda_ckpt_barrier(self._h) == 0
+
+    def ckpt_error(self) -> str:
+        """First failed restore copy with lane and shard ("device N shard
+        S: cause"); empty when none."""
+        buf = ctypes.create_string_buffer(1024)
+        self._lib.ebt_cuda_ckpt_error(self._h, buf, len(buf))
+        return buf.value.decode()
 
     # ---- per-device lanes and latency ----
 

@@ -525,8 +525,8 @@ def _declare_cuda(lib: ctypes.CDLL) -> None:
                        ctypes.c_char_p)
     u64p = ctypes.POINTER(ctypes.c_uint64)
     for name, args, res in (
-            ("create", [s, u64, u64, ctypes.POINTER(ctypes.c_int), i32, s,
-                        i32], vp),
+            ("create", [s, u64, u64, i32, ctypes.POINTER(ctypes.c_int), i32,
+                        s, i32], vp),
             ("destroy", [vp], None),
             ("copy_fn", [], vp),
             ("num_devices", [vp], i32),
@@ -553,7 +553,21 @@ def _declare_cuda(lib: ctypes.CDLL) -> None:
             ("enable_verify", [vp, u64, s, s, i32], i32),
             ("enable_write_gen", [vp, u64, s, s, i32], i32),
             ("kernel_launches", [u64p], None),
-            ("reset_kernel_launches", [], None)):
+            ("reset_kernel_launches", [], None),
+            # the stripe tier and the checkpoint-restore ledger, with the
+            # ebt_pjrt_* twins' signatures
+            ("set_stripe_plan", [vp, i32, u64, u64], i32),
+            ("stripe_device_for", [vp, u64], i32),
+            ("stripe_stats", [vp, u64p], None),
+            ("stripe_barrier", [vp], i32),
+            ("stripe_error", [vp, s, i32], None),
+            ("set_ckpt_plan", [vp, i32, ctypes.POINTER(ctypes.c_int),
+                               ctypes.POINTER(ctypes.c_int), u64p, i32], i32),
+            ("ckpt_stats", [vp, u64p], None),
+            ("ckpt_byte_totals", [vp, u64p], None),
+            ("ckpt_dev_bytes", [vp, u64p, i32], i32),
+            ("ckpt_barrier", [vp], i32),
+            ("ckpt_error", [vp, s, i32], None)):
         fn = getattr(lib, f"ebt_cuda_{name}")
         fn.argtypes = args
         fn.restype = res

@@ -8,10 +8,11 @@ Everything rides the WorkerGroup accessor surface (workers/base.py), so the
 exported numbers are exactly the counter families the result tree is built
 from, under the original's names.
 
-The original's families of the striped fill, checkpoint restore, ingest,
-reshard and serving-rotation subsystems are left out with those
-subsystems, which the port refuses at config validation: its worker groups
-have no such counters to read. METRIC_FAMILIES lists what the port emits.
+The original's families of the ingest, reshard and serving-rotation
+subsystems are left out with those subsystems, which the port refuses at
+config validation: its worker groups have no such counters to read. The
+stripe and checkpoint families are carried. METRIC_FAMILIES lists what the
+port emits.
 
 Consistency rules (the scrape-during-phase-transition contract):
   - each counter family is read through ONE accessor call, so the samples
@@ -96,6 +97,14 @@ METRIC_FAMILIES = (
     ("ebt_backlog_gauge", "gauge",
      "Max per-class backlog peak over the group (due-but-unissued "
      "arrivals) — the saturation gauge for open-loop soaks."),
+    ("ebt_stripe_units_total", "counter",
+     "Mesh-striped fill units by state (submitted/awaited); the two "
+     "states reconcile exactly at the gather barrier."),
+    ("ebt_ckpt_shards_total", "gauge",
+     "Checkpoint-restore shards in the manifest plan."),
+    ("ebt_ckpt_shards_resident", "gauge",
+     "Shards whose resident bytes reconciled at the all-resident "
+     "barrier."),
     ("ebt_serving_sched_rate", "gauge",
      "CURRENT scheduled offered rate (arrivals/s per worker) per tenant "
      "class — the --arrival trace schedule's instantaneous rate, or the "
@@ -285,6 +294,23 @@ def render_metrics(workers, cfg=None, phase: BenchPhase = BenchPhase.IDLE,
             o.sample("ebt_reactor_wakeups_total", {"cause": cause},
                      rs.get(f"reactor_wakeups_{cause}", 0))
 
+    def stripe_block(o: _Renderer) -> None:
+        st = workers.stripe_stats()
+        if not st:
+            return
+        o.sample("ebt_stripe_units_total", {"state": "submitted"},
+                 st.get("units_submitted", 0))
+        o.sample("ebt_stripe_units_total", {"state": "awaited"},
+                 st.get("units_awaited", 0))
+
+    def ckpt_block(o: _Renderer) -> None:
+        cs = workers.ckpt_stats()
+        if not cs:
+            return
+        o.sample("ebt_ckpt_shards_total", None, cs.get("shards_total", 0))
+        o.sample("ebt_ckpt_shards_resident", None,
+                 cs.get("shards_resident", 0))
+
     def serving_block(o: _Renderer) -> None:
         # scheduled-rate + SLO-goodput gauges ride the tenant classes
         # (open-loop only)
@@ -320,8 +346,8 @@ def render_metrics(workers, cfg=None, phase: BenchPhase = BenchPhase.IDLE,
                  len(workers.degraded_hosts()))
 
     for block in (phase_block, workers_block, totals_block, tenants_block,
-                  device_block, faults_block, reactor_block, serving_block,
-                  pod_block):
+                  device_block, faults_block, reactor_block, stripe_block,
+                  ckpt_block, serving_block, pod_block):
         family(block)
     return out.text()
 

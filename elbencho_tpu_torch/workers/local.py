@@ -8,11 +8,11 @@ backend, and reads back live counters and results.
 
 The port carries the staged/direct callback backend, the hostsim backend,
 and the native pjrt path (`--tpubackend pjrt`: the C++ CUDA transfer engine
-of csrc/cuda_path.cpp, installed as a C function pointer). The scenarios
-the original builds on the native path (striping, checkpoint restore,
-reshard, ingest, serving rotation, the device fault policy) are refused at
-config validation, so the counter families only they produce stay at the
-WorkerGroup defaults (None).
+of csrc/cuda_path.cpp, installed as a C function pointer) with its stripe
+planner and checkpoint restore. The scenarios the original builds on the
+native path beyond those (reshard, ingest, serving rotation, the device
+fault policy) are refused at config validation, so the counter families
+only they produce stay at the WorkerGroup defaults (None).
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ class LocalWorkerGroup(WorkerGroup):
         # engagement-confirmed tiers and the phase's counter base
         self._engaged_tier: str | None = None
         self._engaged_d2h_tier: str | None = None
+        self._engaged_stripe_tier: str | None = None
         self._tier_base: dict = {}
 
     # ------------------------------------------------------------- lifecycle
@@ -213,6 +214,41 @@ class LocalWorkerGroup(WorkerGroup):
         np_.set_d2h_depth(d2h_depth)
         e.set("d2h_depth", d2h_depth)
         self._d2h_depth = d2h_depth
+        if cfg.ckpt_shards:
+            # checkpoint restore: resolve the generated shards' deferred
+            # i % ndev placement against the lanes the native path actually
+            # selected, re-check every explicit placement against them,
+            # install the plan in the restore ledger and hand the engine
+            # the manifest (it owns the per-shard routing and the
+            # direction-9/10 protocol)
+            from ..checkpoint import (resolve_generated_placement,
+                                      validate_placement)
+
+            resolve_generated_placement(cfg.ckpt_shards, np_.num_devices)
+            validate_placement(
+                cfg.ckpt_shards, np_.num_devices,
+                cfg.checkpoint_manifest or "--checkpoint-shards")
+            np_.set_ckpt_plan(cfg.ckpt_shards)
+            for shard in cfg.ckpt_shards:
+                e.add_ckpt_shard(shard.path, shard.bytes, shard.devices)
+            e.set("dev_ckpt", 1)
+            LOGGER.info(
+                f"checkpoint restore: {len(cfg.ckpt_shards)} "
+                f"shard(s) over {np_.num_devices} device(s), "
+                f"{cfg.ckpt_total_bytes() >> 20} MiB total")
+        if cfg.stripe_policy:
+            # the stripe tier: install the block->lane plan (the planner
+            # owns direction-0 placement from here on) and have the engine
+            # run the direction-8 gather barrier at the end of each
+            # read-phase block loop. Units cover whole registration spans
+            # when the span grid will engage, one block otherwise.
+            unit = cfg.stripe_unit_blocks(spans_active=np_.dma_supported)
+            np_.set_stripe_plan(cfg.stripe_policy, cfg.stripe_total_blocks(),
+                                unit)
+            e.set("dev_stripe", 1)
+            LOGGER.info(
+                f"mesh-striped fill: policy={cfg.stripe_policy} over "
+                f"{np_.num_devices} device(s), unit={unit} block(s)")
         if np_.dma_supported:
             # registered-buffer tier: the engine registers its I/O buffers
             # at prepare and mmap windows per mapping (directions 4/5/6);
@@ -229,10 +265,19 @@ class LocalWorkerGroup(WorkerGroup):
     def prepare(self) -> None:
         if self._prepared:
             return
+        if self.cfg.ckpt_shards and self.cfg.run_create_files:
+            # generated --checkpoint-shards manifest with -w: create/size
+            # the shard files up front (set-up, never measured)
+            from ..checkpoint import write_generated_shards
+
+            write_generated_shards(self.cfg.ckpt_shards)
         self.engine = self._build_engine()
-        if self.cfg.path_type != BenchPathType.DIR and (
+        if not self.cfg.ckpt_shards and \
+                self.cfg.path_type != BenchPathType.DIR and (
                 self.cfg.run_create_files or self.cfg.path_type ==
                 BenchPathType.BLOCKDEV):
+            # (checkpoint mode prepares its shard files above; its PATH is
+            # the shard directory, not a file to create)
             self.engine.prepare_paths()
         self.engine.prepare()
         self._prepared = True
@@ -282,6 +327,7 @@ class LocalWorkerGroup(WorkerGroup):
         self._prepared = False
         self._engaged_tier = None  # a fresh session must re-confirm
         self._engaged_d2h_tier = None
+        self._engaged_stripe_tier = None
         self._tier_base = {}
 
     # ----------------------------------------------------------------- stats
@@ -433,7 +479,11 @@ class LocalWorkerGroup(WorkerGroup):
         return {"zero_copy": np_.zero_copy_count,
                 "to_hbm": to_hbm,
                 "from_hbm": from_hbm,
-                "d2h_deferred": np_.d2h_stats()["deferred_count"]}
+                "d2h_deferred": np_.d2h_stats()["deferred_count"],
+                "stripe_units": np_.stripe_stats()["units_submitted"],
+                # per-lane h2d byte totals: the stripe tier is confirmed
+                # only when units actually landed on >= 2 lanes
+                "lanes_to_hbm": [ln["to_hbm"] for ln in np_.lane_stats()]}
 
     def confirm_engaged_tier(self,
                              base: dict[str, int] | None = None) -> str | None:
@@ -482,6 +532,75 @@ class LocalWorkerGroup(WorkerGroup):
                         f"{self._engaged_d2h_tier} -> {tier}")
         self._engaged_d2h_tier = tier
         return tier
+
+    def confirm_stripe_tier(self,
+                            base: dict[str, int] | None = None) -> str | None:
+        """Stripe twin of confirm_engaged_tier: "striped" when
+        planner-routed units ran since `base` AND their bytes landed on
+        >= 2 lanes, "single" when a stripe plan routed units onto one lane
+        (the one-device case, byte-identical to the run without a plan).
+        Confirmed from counter deltas, never from the configured policy.
+        Returns the previous confirmation when the window moved no stripe
+        units."""
+        np_ = self._native_path
+        if np_ is None or not self.cfg.stripe_policy:
+            return None
+        base = self._tier_base if base is None else base
+        now = self.tier_counter_snapshot()
+        if now["stripe_units"] - base.get("stripe_units", 0) <= 0:
+            return self._engaged_stripe_tier
+        lanes_base = base.get("lanes_to_hbm", [])
+        active = sum(
+            1 for i, v in enumerate(now["lanes_to_hbm"])
+            if v - (lanes_base[i] if i < len(lanes_base) else 0) > 0)
+        tier = "striped" if active >= 2 else "single"
+        if (self._engaged_stripe_tier is not None
+                and tier != self._engaged_stripe_tier):
+            LOGGER.info(f"striped-fill tier engagement changed: "
+                        f"{self._engaged_stripe_tier} -> {tier}")
+        self._engaged_stripe_tier = tier
+        return tier
+
+    def stripe_tier(self) -> str | None:
+        """The engagement-confirmed stripe tier ("striped"/"single"), or
+        None before any planner-routed traffic (or without a plan / off
+        the native path)."""
+        return self._engaged_stripe_tier
+
+    def stripe_stats(self) -> dict[str, int] | None:
+        """Stripe counters (units submitted/awaited, gather-barrier wait,
+        barrier count — cumulative), or None off the native path."""
+        if self._native_path is None:
+            return None
+        return self._native_path.stripe_stats()
+
+    def stripe_error(self) -> str | None:
+        """First failed stripe unit with its lane, or None off the native
+        path."""
+        if self._native_path is None:
+            return None
+        return self._native_path.stripe_error()
+
+    def ckpt_stats(self) -> dict[str, int] | None:
+        """Checkpoint-restore evidence (shards_total/shards_resident/
+        resident_wait_ns/barriers — cumulative), or None without a restore
+        plan / off the native path."""
+        if self._native_path is None or not self.cfg.ckpt_shards:
+            return None
+        return self._native_path.ckpt_stats()
+
+    def ckpt_dev_bytes(self) -> list[int] | None:
+        """Resident checkpoint bytes per device, or None without a restore
+        plan / off the native path."""
+        if self._native_path is None or not self.cfg.ckpt_shards:
+            return None
+        return self._native_path.ckpt_dev_bytes()
+
+    def ckpt_error(self) -> str | None:
+        """First restore failure ("device N shard S: cause"), or None."""
+        if self._native_path is None or not self.cfg.ckpt_shards:
+            return None
+        return self._native_path.ckpt_error()
 
     def plugin_caps(self) -> dict | None:
         """Capability probes of the session's driver library: registration
@@ -584,6 +703,7 @@ class LocalWorkerGroup(WorkerGroup):
         if self._native_path is not None:
             self.confirm_engaged_tier()
             self.confirm_d2h_tier()
+            self.confirm_stripe_tier()
         out = []
         cpu_sw = self.engine.cpu_stonewall_pct()
         staging = self._staging_path()
@@ -599,7 +719,16 @@ class LocalWorkerGroup(WorkerGroup):
                     err = verr
             if err and self._native_path is not None:
                 # surface the driver's root cause behind the engine's
-                # generic "device copy failed (rc=N)" message
+                # generic "device copy failed (rc=N)" message; a striped
+                # fill adds the per-device attribution ("device N unit U:
+                # cause"), a checkpoint restore its "device N shard S:
+                # cause"
+                serr = self._native_path.stripe_error()
+                if serr and serr not in err:
+                    err = f"{err}: {serr}"
+                cerr = self._native_path.ckpt_error()
+                if cerr and cerr not in err:
+                    err = f"{err}: {cerr}"
                 nerr = self._native_path.last_error()
                 if nerr and nerr not in err:
                     err = f"{err}: {nerr}"

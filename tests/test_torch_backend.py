@@ -5,6 +5,8 @@ port's copy function monkeypatched. Byte-level results are held to the
 original package on CPU jax with exact equality.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -49,11 +51,30 @@ def _pattern_bytes(n, off, salt):
 
 
 def test_threaded_submitters_refused(bench_dir, monkeypatch):
-    """The original's threaded-submitter mode is not ported: refused with
-    its name, never run as the inline path."""
+    """EBT_TPU_SUBMITTERS>0 runs the original's threaded mode, never the
+    inline path: the copy is made by a submitter thread and waited for at
+    the pre-reuse barrier."""
     monkeypatch.setenv("EBT_TPU_SUBMITTERS", "1")
-    with pytest.raises(ProgException, match="not yet ported"):
-        TorchStagingPath(_cfg(bench_dir / "x"))
+    sp = TorchStagingPath(_cfg(bench_dir / "x"))
+    try:
+        assert sp.num_submitters == 1 and not sp.inline_submit
+        threads = []
+        real = sp._copy_to_device
+
+        def put(view, dev_idx, dst=None):
+            threads.append(threading.current_thread().name)
+            return real(view, dev_idx, dst)
+
+        monkeypatch.setattr(sp, "_copy_to_device", put)
+        buf = np.arange(64 << 10, dtype=np.uint64).astype(np.uint8)
+        assert sp.copy(0, 0, 0, buf.ctypes.data, buf.nbytes, 0) == 0
+        assert sp.copy(0, 0, 2, buf.ctypes.data, buf.nbytes, 0) == 0
+        assert threads == ["ebt-gpu-submit-0"]
+        assert sp.transferred_bytes[0] == buf.nbytes
+        assert np.array_equal(
+            torch.cat(sp.last_staged_arrays(0)).numpy(), buf)
+    finally:
+        sp.close()
 
 
 def test_direct_inline_partial_failure_registers_chunks(bench_dir,

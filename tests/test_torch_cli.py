@@ -144,11 +144,18 @@ def test_file_written_by_one_package_verifies_under_the_other(
     (["--chaos", "seed=1", "-r", "-s", "1M", "PATH"], "--chaos"),
     (["--rotate", "1", "-r", "-s", "1M", "PATH"], "--rotate"),
     (["--reshard", "2", "-r", "PATH"], "--reshard"),
-    (["--stripe", "rr", "--gpuids", "0", "-r", "-s", "1M", "PATH"],
-     "--stripe"),
-    (["--tpustripe", "--gpuids", "0", "-r", "-s", "1M", "PATH"],
-     "--tpustripe"),
-    (["--checkpoint-shards", "2", "-r", "PATH"], "--checkpoint-shards"),
+    # the checkpoint scenario is ported; a flag it composes with that is
+    # not is refused first, by name
+    (["--checkpoint-shards", "2", "-w", "-s", "1M", "--tpubackend", "pjrt",
+      "--rotate", "1", "PATH"], "--rotate"),
+    (["--checkpoint-shards", "2", "-w", "-s", "1M", "--tpubackend", "pjrt",
+      "--reshard", "2", "PATH"], "--reshard"),
+    # the stripe tier is ported; fault injection over it is not
+    (["--stripe", "rr", "--tpubackend", "pjrt", "--chaos", "seed=1", "-r",
+      "-s", "1M", "PATH"], "--chaos"),
+    (["--maxerrors", "2", "--tpubackend", "pjrt", "-r", "-s", "1M", "PATH"],
+     "--maxerrors with --tpubackend pjrt"),
+    (["--ingest", "PATH", "-r"], "--ingest"),
     (["--ingestshards", "2", "-r", "PATH"], "--ingestshards"),
 ])
 def test_unported_flags_refused(bench_dir, capfd, args, flag):

@@ -249,11 +249,12 @@ def test_unported_flag_refused_by_the_service_framed_by_host(
     capfd.readouterr()
     rc = jax_main(["--hosts", _hosts_arg(two_services[:1]), "-r", "-t", "1",
                    "-s", "1M", "-b", "256k", "--gpuids", "0",
-                   "--tpubackend", "staged", "--tpustripe", "--nolive", p])
+                   "--tpubackend", "pjrt", "--retry", "2", "--nolive", p])
     out = capfd.readouterr()
     assert rc == 1
     assert (f"service 127.0.0.1:{two_services[0]}" in out.err and
-            "--tpustripe: not yet ported (see ROADMAP.md)" in out.err), out
+            "--retry with --tpubackend pjrt: not yet ported (see ROADMAP.md)"
+            in out.err), out
 
 
 def test_master_unreachable_service(bench_dir, capsys):

@@ -50,7 +50,8 @@ def test_no_jax_or_original_package_import(path):
 
 
 # modules later slices added (the native CUDA engine; distributed mode, the
-# mesh tier and the graft entry), which must be among the scanned
+# mesh tier and the graft entry; checkpoint restore), which must be among
+# the scanned
 NATIVE_MODULES = ("elbencho_tpu_torch/cuda/native.py",
                   "elbencho_tpu_torch/ops/fill_kernel.py",
                   "elbencho_tpu_torch/ops/kernel_build.py",
@@ -59,7 +60,8 @@ NATIVE_MODULES = ("elbencho_tpu_torch/cuda/native.py",
                   "elbencho_tpu_torch/graft_entry.py",
                   "elbencho_tpu_torch/service.py",
                   "elbencho_tpu_torch/metrics.py",
-                  "elbencho_tpu_torch/workers/remote.py")
+                  "elbencho_tpu_torch/workers/remote.py",
+                  "elbencho_tpu_torch/checkpoint.py")
 # the kernel sources, which must be among the native sources scanned
 KERNEL_SOURCES = ("verify.cu", "fill.cu", "ingest.cu", "mesh_reduce.cu")
 

@@ -65,14 +65,66 @@ def _get(url, timeout=10):
 
 def test_registry_names_are_the_originals():
     """Every family the port can emit carries the original's name, type
-    and help; what is missing belongs to subsystems the port refuses."""
+    and help; what is missing belongs to subsystems the port refuses. The
+    stripe and checkpoint families are carried."""
     original = {f[0]: f for f in jax_metrics.METRIC_FAMILIES}
     for fam in METRIC_FAMILIES:
         assert original[fam[0]] == fam
-    left_out = set(original) - {f[0] for f in METRIC_FAMILIES}
-    assert all(name.startswith(("ebt_stripe", "ebt_ckpt", "ebt_ingest",
-                                "ebt_reshard", "ebt_rotation"))
+    names = {f[0] for f in METRIC_FAMILIES}
+    assert {"ebt_stripe_units_total", "ebt_ckpt_shards_total",
+            "ebt_ckpt_shards_resident"} <= names
+    left_out = set(original) - names
+    assert all(name.startswith(("ebt_ingest", "ebt_reshard", "ebt_rotation"))
                for name in left_out), left_out
+
+
+@pytest.mark.parametrize("scenario", ["stripe", "checkpoint"])
+def test_stripe_and_ckpt_families_match_the_original(mock2, tmp_path,
+                                                     monkeypatch, scenario):
+    """A striped read and a checkpoint restore emit the stripe and
+    checkpoint families with the samples the original emits on the same
+    inputs (its mock plugin at the same 2 devices)."""
+    from elbencho_tpu.common import BenchPhase as JaxPhase
+    from elbencho_tpu.config import config_from_args as jax_cfa
+    from elbencho_tpu.workers.local import LocalWorkerGroup as JaxGroup
+
+    jax_mock = os.path.join(REPO, "elbencho_tpu", "libebtpjrtmock.so")
+    if not os.path.exists(jax_mock):
+        subprocess.run(["make", "core"], cwd=REPO, check=True,
+                       capture_output=True)
+    monkeypatch.setenv("EBT_PJRT_PLUGIN", jax_mock)
+    monkeypatch.setenv("EBT_MOCK_PJRT_DEVICES", "2")
+    path, nblocks = _make_file(tmp_path)
+    if scenario == "stripe":
+        args = ["-r", "-t", "2", "-s", str(nblocks * BLK), "-b", str(BLK),
+                "--tpubackend", "pjrt", "--stripe", "rr", "--regwindow",
+                str(2 * BLK), "--nolive", path]
+        fams = ("ebt_stripe_units_total",)
+    else:
+        (tmp_path / "ck").mkdir()
+        args = ["--checkpoint-shards", "4", "-w", "-s", str(BLK), "-b",
+                str(BLK), "--tpubackend", "pjrt", "--nolive",
+                str(tmp_path / "ck")]
+        fams = ("ebt_ckpt_shards_total", "ebt_ckpt_shards_resident")
+    got = []
+    for cfa, Group, Phase, render in (
+            (jax_cfa, JaxGroup, JaxPhase, jax_metrics.render_metrics),
+            (config_from_args, LocalWorkerGroup, BenchPhase,
+             render_metrics)):
+        cfg = cfa(args)
+        group = Group(cfg)
+        group.prepare()
+        try:
+            phase = Phase.READFILES if scenario == "stripe" else \
+                Phase.CHECKPOINT
+            _run_phase(group, phase)
+            assert group.first_error() == ""
+            samples = parse_prometheus_text(render(group, cfg, phase))
+            got.append(sorted((key, v) for key, v in samples.items()
+                              if key[0] in fams))
+        finally:
+            group.teardown()
+    assert got[1] and got[1] == got[0]
 
 
 @pytest.mark.parametrize("text", [

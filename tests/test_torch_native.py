@@ -793,7 +793,7 @@ def test_cli_end_to_end(pkgs, tmp_path, capfd):
 @pytest.mark.parametrize("args,env,flag", [
     (["--maxerrors", "3"], {}, "--maxerrors with --tpubackend pjrt"),
     ([], {"EBT_PJRT_XFER_MGR": "1"}, "EBT_PJRT_XFER_MGR"),
-    (["--tpustripe"], {}, "--tpustripe"),
+    (["--retry", "2"], {}, "--retry with --tpubackend pjrt"),
 ])
 def test_unported_pjrt_parts_refused(tmp_path, monkeypatch, args, env, flag):
     """What the native engine does not carry yet is refused by name."""

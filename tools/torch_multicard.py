@@ -10,7 +10,11 @@ device and one reduction per step), then two port services and a port
 master on a 1 GiB file with --gpuids over all cards, staged --verify
 --lat: every service ships SliceOps reduced over all its devices (the
 master checks them against its fan-in), with one latency row per host and
-device. Prints the card's name and power limit and the GiB/s it measured.
+device. Then the native engine's stripe tier over all cards (--stripe rr
+and contig on a 4 GiB file, each card's bytes as the planner places them)
+and a checkpoint restore of meta-llama/Llama-3.1-8B's four shard sizes
+(16.1 GB) with shard i on card i mod n. Prints the card's name and power
+limit and the GiB/s it measured.
 """
 
 from __future__ import annotations
@@ -75,8 +79,26 @@ def main() -> int:
     chip_smoke.build_all(engine, kernel_build, (ik,))
     chip_smoke.check_reduce(mesh)
     chip_smoke.slice_main_path(ik, integ, mesh, graft_entry)
-    with chip_smoke.scratch_dir(4 << 30) as d:
+    shards = chip_smoke.LLAMA_8B_SHARDS
+    with chip_smoke.scratch_dir(2 * (4 << 30) + sum(shards)) as d:
         slice_tier(cli, d, n)
+        gpuids = ",".join(str(i) for i in range(n))
+        path = os.path.join(d, "mc4g")
+        rc, _, _ = chip_smoke.run_cli(cli, [
+            "-w", "-s", "4G", *chip_smoke.STRIPE_READ, "--gpuids", gpuids,
+            path])
+        if rc != 0:
+            raise AssertionError(f"4 GiB native write: rc {rc}")
+        chip_smoke.native_stripe(path, 4 << 30, gpuids)
+        os.remove(path)
+        paths = chip_smoke.write_shards(d, shards)
+        man = chip_smoke.write_manifest(d, "man.json", paths,
+                                        [[i % n] for i in range(len(paths))])
+        want = [sum(b for i, b in enumerate(shards) if i % n == dev)
+                for dev in range(n)]
+        chip_smoke.restore(["-t", str(len(paths)), "--tpubackend", "pjrt",
+                            "--checkpoint", man, "--lat", "--nolive"],
+                           f"one shard per card over {n} cards", want)
     print("torch_multicard: ok", flush=True)
     return 0
 
