@@ -42,7 +42,7 @@ Phases, each reported on its own line:
      launch the fill kernel once per block written and the verify kernel
      once per block read, the file must hold the pattern, and a planted
      corrupt byte must be reported at its exact offset;
- 10. direct and native reads of the 4 GiB file in turns, three pairs,
+ 10. direct and native reads of the 4 GiB file in turns, one pair,
      printed as measurements (nothing asserted or claimed);
  11. hold the ingest kernel (B4, fused verify + checksum) against its plain
      version (a clean 64 KiB block, corrupt first, last and random words, a
@@ -84,7 +84,21 @@ Phases, each reported on its own line:
      (four files, 16.1 GB, written to /dev/shm from a seeded generator):
      every shard on device 0, then over --gpuids 0,0 with one shard
      replicated, then a generated 8 x 256 MiB checkpoint; every shard
-     resident, bytes per device as the manifest places them.
+     resident, bytes per device as the manifest places them;
+ 19. device faults on two lanes of the card (runs right after phase 15):
+     the 4 GiB file read with --stripe rr over --gpuids 0,0 three times,
+     clean, clean with --retry 1 --maxerrors 5%, and with lane 1
+     force-ejected after the first quarter of the blocks: one ejection with
+     its cause, replanned units, the stripe ledger reconciled, no bytes on
+     lane 1 after the ejection, the lanes' bytes adding up to the file;
+     GiB/s of the three passes; no kernel launched;
+ 20. the N->M reshard (runs inside phase 18, on its shard files): the
+     Llama-3.1-8B layout with shard i on lane i mod 2 of --gpuids 0,0,
+     resharded onto one lane (--reshard 1), device to device and then with
+     EBT_D2D_DISABLE=1 through the host bounce: tier d2d then bounce,
+     d2d_submitted == d2d_resident == the plan's move bytes, the pair
+     matrix equal to the plan's moves; RESHARD GiB/s and the time until all
+     is resharded.
 
 The second-to-last line is a JSON object describing each kernel of the path;
 the last line is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -678,9 +692,12 @@ def native_verify_run(cli, native, d: str) -> dict:
     return launches
 
 
-def read_pairs(cli, path: str, d: str) -> None:
-    """Phase 10: direct and native reads of the same file in turns."""
-    for i in range(3):
+def read_pairs(cli, path: str, d: str, pairs: int = 1) -> None:
+    """Phase 10: direct and native reads of the same file in turns (one
+    pair: cut from three so that the script keeps its time with the faults
+    and reshard phases, whose three native reads of the file stand beside
+    it)."""
+    for i in range(pairs):
         direct = cli_read_gibs(cli, path, "direct", d)
         nat = cli_read_gibs(cli, path, "pjrt", d)
         phase("pairs", f"pair {i}: READ direct {direct:.3f} GiB/s, native "
@@ -1151,6 +1168,115 @@ def native_stripe(path: str, size: int, gpuids: str = "0,0") -> None:
             group.teardown()
 
 
+def faults_pass(path: str, size: int, policy: bool,
+                eject_at: float | None) -> dict:
+    """One native read of the 4 GiB file over two lanes of the card with the
+    stripe planner; `policy` arms --retry 1 --maxerrors 5%, `eject_at`
+    force-ejects lane 1 from a second thread once that share of the file
+    has been read. Returns what the phase checks and prints."""
+    import threading
+
+    from elbencho_tpu_torch.common import BenchPhase
+    from elbencho_tpu_torch.config import config_from_args
+    from elbencho_tpu_torch.workers.local import LocalWorkerGroup
+
+    cfg = config_from_args(["-r", "-s", str(size), *STRIPE_READ, "--gpuids",
+                            "0,0", "--stripe", "rr",
+                            *(["--retry", "1", "--maxerrors", "5%"]
+                              if policy else []), path])
+    group = LocalWorkerGroup(cfg)
+    group.prepare()
+    out: dict = {}
+    try:
+        np_ = group._native_path
+        lanes0 = [ln["to_hbm"] for ln in np_.lane_stats()]
+        stop = threading.Event()
+
+        def ejector() -> None:
+            # the first quarter of the blocks read, then the forced
+            # ejection; lane 1's bytes are read again 100 ms later, past
+            # any block routed to it before the mask changed
+            while not stop.is_set():
+                done = sum(ln["to_hbm"] for ln in np_.lane_stats()) - \
+                    sum(lanes0)
+                if done >= eject_at * size:
+                    out["ejected_ok"] = np_.eject_device(
+                        1, "chip_smoke forced")
+                    out["at_bytes"] = done
+                    time.sleep(0.1)
+                    out["lane1_after"] = \
+                        np_.lane_stats()[1]["to_hbm"] - lanes0[1]
+                    return
+                time.sleep(0.0005)
+
+        th = threading.Thread(target=ejector) if eject_at else None
+        if th:
+            th.start()
+        try:
+            res, secs = drive(group, BenchPhase.READFILES,
+                              f"faults policy={policy} eject={eject_at}")
+        finally:
+            stop.set()
+            if th:
+                th.join()
+        out.update(
+            secs=secs, moved=sum(r.ops.bytes for r in res),
+            fault=group.fault_stats(), ejected=group.ejected_devices(),
+            stripe=group.stripe_stats(),
+            lanes=[ln["to_hbm"] - b for ln, b in zip(np_.lane_stats(),
+                                                     lanes0)],
+            lat=lane_rows(group))
+    finally:
+        group.teardown()
+    return out
+
+
+def native_faults(path: str, size: int) -> dict:
+    """The faults phase: the 4 GiB file read three times over --gpuids 0,0
+    with --stripe rr (-t 4 -b 8M --iodepth 4 --lat): clean without a fault
+    policy, clean with --retry 1 --maxerrors 5%, and with the policy and
+    lane 1 force-ejected after the first quarter of the blocks. On a card
+    a real asynchronous fault is sticky for the device's whole context, so
+    it would take down both lanes of --gpuids 0,0: the phase ejects through
+    the force seam. The third pass must end clean with one ejection, its
+    cause, replanned units, the stripe ledger reconciled, no bytes on lane 1
+    after the ejection and the lanes' bytes adding up to the file."""
+    t0 = time.perf_counter()
+    clean = faults_pass(path, size, False, None)
+    armed = faults_pass(path, size, True, None)
+    ejected = faults_pass(path, size, True, 0.25)
+    for label, r in (("clean", clean), ("armed", armed)):
+        if (r["moved"] != size or any(r["fault"].values())
+                or r["ejected"] != ""
+                or r["stripe"]["units_awaited"] !=
+                r["stripe"]["units_submitted"]):
+            raise AssertionError(f"faults {label}: {r}")
+    fs, st, lanes = ejected["fault"], ejected["stripe"], ejected["lanes"]
+    if (not ejected.get("ejected_ok") or ejected["moved"] != size
+            or fs["ejected_devices"] != 1 or fs["replanned_units"] <= 0
+            or ejected["ejected"] != "device 1: chip_smoke forced"
+            or st["units_awaited"] != st["units_submitted"]
+            or lanes[1] != ejected["lane1_after"] or sum(lanes) != size):
+        raise AssertionError(f"faults ejected pass: {ejected}")
+    gibs = {k: size / r["secs"] / (1 << 30)
+            for k, r in (("clean", clean), ("armed", armed),
+                         ("ejected", ejected))}
+    phase("faults", f"{size >> 20} MiB --stripe rr --gpuids 0,0 READ: clean "
+                    f"{gibs['clean']:.3f} GiB/s; --retry 1 --maxerrors 5% "
+                    f"{gibs['armed']:.3f} GiB/s (armed/clean "
+                    f"{gibs['armed'] / gibs['clean']:.3f}); lane 1 "
+                    f"force-ejected at {ejected['at_bytes'] >> 20} MiB: "
+                    f"{gibs['ejected']:.3f} GiB/s")
+    phase("faults", f"ejected pass: FaultStats {fs}; EjectedDevices "
+                    f"'{ejected['ejected']}'; stripe {st['units_awaited']}/"
+                    f"{st['units_submitted']} units settled; lane bytes "
+                    f"{lanes} (lane 1 {ejected['lane1_after']} 100 ms after "
+                    f"the ejection, {lanes[1]} at the end); "
+                    f"{ejected['lat']}; faults phase took "
+                    f"{time.perf_counter() - t0:.1f}s")
+    return gibs
+
+
 def native_stripe_verify(cli, native, d: str,
                          size: int = 1 << 30) -> tuple[str, dict]:
     """Phase 16: 1 GiB native --verify write + read with --stripe rr over
@@ -1400,6 +1526,88 @@ def restore(args: list[str], label: str, want_dev: list[int]) -> float:
     return secs
 
 
+def reshard(args: list[str], label: str, want_tier: str) -> dict:
+    """One --reshard run through the worker group: the plan's move units
+    staged at prepare, then the RESHARD phase. The confirmed tier must be
+    want_tier, d2d_submitted == d2d_resident == the plan's move bytes,
+    every move unit resident and the pair matrix the plan's moves (one
+    chunk move per 2 MiB of each moved shard). Returns the numbers
+    printed."""
+    from elbencho_tpu_torch.checkpoint import reshard_plan_summary
+    from elbencho_tpu_torch.common import BenchPhase
+    from elbencho_tpu_torch.config import config_from_args
+    from elbencho_tpu_torch.workers.local import LocalWorkerGroup
+
+    cfg = config_from_args(args)
+    group = LocalWorkerGroup(cfg)
+    t0 = time.perf_counter()
+    group.prepare()
+    prep = time.perf_counter() - t0
+    try:
+        res, secs = drive(group, BenchPhase.RESHARD, label)
+        st, tier = group.reshard_stats(), group.reshard_tier()
+        pairs = sorted((p["src"], p["dst"], p["moves"], p["bytes"])
+                       for p in group.reshard_pairs())
+        plan = reshard_plan_summary(cfg.reshard_units)
+        chunk = int(os.environ.get("EBT_TPU_CHUNK_BYTES", 0) or CHUNK)
+        want_pairs: dict = {}
+        for u in cfg.reshard_units:
+            if u.action == "move":
+                m, b = want_pairs.get((u.src_dev, u.dst_dev), (0, 0))
+                want_pairs[(u.src_dev, u.dst_dev)] = (
+                    m + -(-u.bytes // chunk), b + u.bytes)
+        want = sorted((s_, d_, m, b) for (s_, d_), (m, b) in
+                      want_pairs.items())
+        move_bytes = plan["move_bytes"]
+        err = group.reshard_error()
+        if (tier != want_tier or err or pairs != want
+                or st["d2d_submitted_bytes"] != move_bytes
+                or st["d2d_resident_bytes"] != move_bytes
+                or st["units_moved"] != plan["move"]
+                or st["unit_bytes_submitted"] != st["unit_bytes_resident"]):
+            raise AssertionError(f"{label}: tier {tier}, {st}, pairs {pairs}"
+                                 f" (want {want}), error '{err}'")
+        enabled, npairs = group._native_path.peer_access()
+        phase("reshard", f"{label}: tier {tier}, {plan['move']} of "
+                         f"{plan['units']} units moved, d2d_submitted == "
+                         f"d2d_resident == {move_bytes} bytes, pairs {pairs}, "
+                         f"{st['d2d_moves']} device-to-device and "
+                         f"{st['bounce_moves']} bounce chunk moves; RESHARD "
+                         f"{move_bytes / secs / (1 << 30):.3f} GiB/s, all "
+                         f"resharded after {secs:.3f} s (barriers "
+                         f"{st['resident_wait_ns'] / 1e9:.3f} s); preload "
+                         f"{prep:.1f} s; peer access on for {enabled} of "
+                         f"{npairs} device pairs; {lane_rows(group)}")
+    finally:
+        group.teardown()
+    return {"tier": tier, "gibs": move_bytes / secs / (1 << 30),
+            "secs": secs, "move_bytes": move_bytes}
+
+
+def native_reshard(d: str, paths) -> None:
+    """The reshard phase: the Llama-3.1-8B shard layout placed two shards
+    per lane on --gpuids 0,0 (shard i on lane i mod 2) and resharded onto
+    one lane (--reshard 1): the shards of lane 1 move device to device
+    (cuMemcpyDtoDAsync between two lanes of one card), then the same plan
+    with EBT_D2D_DISABLE=1 through the host bounce (the control)."""
+    man = write_manifest(d, "man_rs.json", paths,
+                         [[i % 2] for i in range(len(paths))])
+    args = ["-t", "4", "--gpuids", "0,0", "--tpubackend", "pjrt",
+            "--checkpoint", man, "--reshard", "1", "--lat", "--nolive"]
+    native = reshard(args, "--gpuids 0,0 -> 1 lane, device to device",
+                     "d2d")
+    os.environ["EBT_D2D_DISABLE"] = "1"
+    try:
+        bounce = reshard(args, "--gpuids 0,0 -> 1 lane, EBT_D2D_DISABLE=1",
+                         "bounce")
+    finally:
+        del os.environ["EBT_D2D_DISABLE"]
+    phase("reshard", f"device to device {native['gibs']:.3f} GiB/s "
+                     f"({native['secs']:.3f} s), bounce {bounce['gibs']:.3f} "
+                     f"GiB/s ({bounce['secs']:.3f} s) for "
+                     f"{native['move_bytes']} bytes moved")
+
+
 def write_manifest(d: str, name: str, paths, devices) -> str:
     man = os.path.join(d, name)
     with open(man, "w") as f:
@@ -1428,6 +1636,7 @@ def checkpoint_restore(d: str, shard_sizes=LLAMA_8B_SHARDS,
              "--checkpoint", man2, "--lat", "--nolive"],
             "--gpuids 0,0, shards 0 and 2 on lane 0, 1 on lane 1, 3 on both",
             [s[0] + s[2] + s[3], s[1] + s[3]])
+    native_reshard(d, paths)
     for p in paths:
         os.remove(p)
     gen = os.path.join(d, "gen")
@@ -1495,6 +1704,10 @@ def main() -> int:
                                  "path; the engine launches from C++")
         read_pairs(cli, path, d)
         native_stripe(path, 4 << 30)
+        native.reset_kernel_launches()
+        native_faults(path, 4 << 30)
+        if any(native.kernel_launches().values()):
+            raise AssertionError("the faults phase launched a kernel")
         os.remove(path)
         path, stripe_launches = native_stripe_verify(cli, native, d)
         staged_tiers(path, 1 << 30)

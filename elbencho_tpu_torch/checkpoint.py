@@ -1,9 +1,8 @@
 """Checkpoint-restore manifest: parsing, validation and generation.
 
 The port's copy of the parts of the original package's checkpoint.py that
-the restore scenario uses (the manifest, placement checks, generated shards
-and page-cache eviction); the N->M reshard planner comes with the reshard
-scenario (ROADMAP.md A10(e)).
+the restore and reshard scenarios use (the manifest, placement checks,
+generated shards, the N->M reshard planner and page-cache eviction).
 
 The `--checkpoint` scenario models the serving cold-start pattern (PAPERS.md
 arxiv 2605.25645 makes time-to-serve the headline metric; 2204.06514 fixes
@@ -227,6 +226,95 @@ def write_generated_shards(shards: list[CheckpointShard],
                 n = min(len(blk), shard.bytes - written)
                 f.write(blk[:n])
                 written += n
+
+
+# ------------------------------------------------ N->M reshard planner
+#
+# Topology-shift restore (--reshard M, docs/RESHARD.md): the manifest
+# describes where shards were resident on the slice shape the checkpoint
+# was last restored onto (N devices); the target is the first M devices
+# of the live selection. Resharding IS replanning with data motion (the
+# stripe planner / survivor-map lineage): the planner diffs the two
+# placements and emits one unit per (shard, target-device) pair —
+#
+#   "resident": the target already holds the shard; no motion.
+#   "move":     a live device holds the shard; its bytes move
+#               device->device through HBM (the D2D tier).
+#   "read":     no live device holds it (the checkpoint's slice was
+#               wider than this one, N > live devices) — restore from
+#               storage.
+#
+# Target placement is shard i -> device i % M, the same deterministic
+# round-robin rule generated manifests use — so an N==M reshard of a
+# generated manifest is the identity plan (every unit "resident", zero
+# moves, byte-identical to a plain restore by construction).
+
+
+@dataclass
+class ReshardUnit:
+    """One reshard plan unit: how shard `shard` becomes resident on
+    target device `dst_dev` (actions: "resident" / "move" / "read")."""
+
+    shard: int
+    action: str
+    src_dev: int  # resident source lane (moves; -1 otherwise)
+    dst_dev: int  # target lane
+    bytes: int
+    path: str  # shard file (reads + move fallbacks)
+
+
+def plan_reshard(shards: list[CheckpointShard], num_devices: int,
+                 target_devices: int) -> list[ReshardUnit]:
+    """Diff the manifest's placement against the `target_devices`-wide
+    target selection and emit the N->M reshard plan: one unit per
+    (shard, target) pair, every shard's bytes placed exactly once.
+
+    `num_devices` is the LIVE selected-device count — both the move
+    sources and every target lane must be live, so target_devices must
+    be <= num_devices (the session models the union of the old and new
+    slice shapes; consolidation M < N drains the evicted lanes, growth
+    M > N spreads onto lanes the manifest never placed onto)."""
+    if target_devices < 1:
+        raise ProgException("--reshard must target >= 1 device")
+    if target_devices > num_devices:
+        raise ProgException(
+            f"--reshard {target_devices} targets more devices than the "
+            f"live selection has ({num_devices}); the reshard session "
+            "needs every target lane live (select more devices, or a "
+            "smaller target)")
+    units: list[ReshardUnit] = []
+    for i, shard in enumerate(shards):
+        dst = i % target_devices
+        live_sources = [d for d in shard.devices if d < num_devices]
+        if dst in live_sources:
+            units.append(ReshardUnit(shard=i, action="resident", src_dev=dst,
+                                     dst_dev=dst, bytes=shard.bytes,
+                                     path=shard.path))
+        elif live_sources:
+            # nearest live replica: deterministic pick, lowest lane index
+            src = min(live_sources)
+            units.append(ReshardUnit(shard=i, action="move", src_dev=src,
+                                     dst_dev=dst, bytes=shard.bytes,
+                                     path=shard.path))
+        else:
+            units.append(ReshardUnit(shard=i, action="read", src_dev=-1,
+                                     dst_dev=dst, bytes=shard.bytes,
+                                     path=shard.path))
+    return units
+
+
+def reshard_plan_summary(units: list[ReshardUnit]) -> dict[str, int]:
+    """Plan-shape counts (units by action + bytes in motion) for logs and
+    the bench record."""
+    out = {"units": len(units), "resident": 0, "move": 0, "read": 0,
+           "move_bytes": 0, "read_bytes": 0}
+    for u in units:
+        out[u.action] += 1
+        if u.action == "move":
+            out["move_bytes"] += u.bytes
+        elif u.action == "read":
+            out["read_bytes"] += u.bytes
+    return out
 
 
 _DROPCACHES_WARNED = False

@@ -21,12 +21,12 @@ completion, and the docs from drifting apart.
 
 PyTorch/CUDA port: --gpuids selects CUDA device indices and --tpubackend
 staged|direct|pjrt moves blocks into GPU memory; --stripe, --tpustripe,
---checkpoint and --checkpoint-shards place blocks across the devices. Flags
-whose subsystem the port does not carry yet (reshard, ingest, serving
-rotation, fault injection, the native engine's device fault policy) are
-refused by Config._refuse_unported with the flag's name, never run as
-something else — also when they reach a service over the wire
-(apply_wire -> check_args).
+--checkpoint, --checkpoint-shards and --reshard place blocks across the
+devices, and --retry/--maxerrors arm the native engine's device fault
+policy. Flags whose subsystem the port does not carry yet (ingest, serving
+rotation, fault injection, the transfer-manager tier) are refused by
+Config._refuse_unported with the flag's name, never run as something else —
+also when they reach a service over the wire (apply_wire -> check_args).
 """
 
 from __future__ import annotations
@@ -619,7 +619,11 @@ class Config:
         if self.checkpoint_manifest or self.checkpoint_shards:
             # the checkpoint scenario is its own ordered sequence: shard
             # creation (generated mode with -w) happens at prepare, and the
-            # only measured phase is the restore
+            # only measured phase is the restore — or, with --reshard M,
+            # the topology-shift RESHARD (the N->M plan executed against
+            # the preloaded N-device pre-state)
+            if self.reshard_devices:
+                return [BenchPhase.RESHARD]
             return [BenchPhase.CHECKPOINT]
         phases: list[BenchPhase] = []
         if self.run_sync:
@@ -645,15 +649,10 @@ class Config:
         from the original package yet (ROADMAP.md lists them in order)."""
         pjrt = self.tpu_backend_name == "pjrt"
         unported = (
-            # the native engine's device-side fault policy (lane ejection,
-            # recovery resubmits) and its transfer-manager tier
-            ("--retry with --tpubackend pjrt", pjrt and bool(self.retry_max)),
-            ("--maxerrors with --tpubackend pjrt",
-             pjrt and (self.max_errors_spec or "0").strip() != "0"),
+            # the native engine's transfer-manager tier
             ("EBT_PJRT_XFER_MGR",
              pjrt and os.environ.get("EBT_PJRT_XFER_MGR") is not None),
             ("--rotate", bool(self.rotate_period_s)),
-            ("--reshard", bool(self.reshard_devices)),
             ("--ingest", bool(self.ingest_manifest)),
             ("--ingestshards", bool(self.ingest_shards)),
             ("--chaos", bool(self.chaos_spec)),
@@ -688,6 +687,13 @@ class Config:
                     "--interrupt/--quit require --hosts to know whom to signal")
             return
 
+        if self.reshard_devices and not (self.checkpoint_manifest or
+                                         self.checkpoint_shards):
+            # the reshard plan diffs the manifest's placement — without
+            # one there is no N-device pre-state to reshard
+            raise ProgException(
+                "--reshard requires a --checkpoint/--checkpoint-shards "
+                "manifest (the N-device placement being resharded)")
         if self.record_size or self.shuffle_window or \
                 self.shuffle_seed != 1 or self.ingest_epochs or \
                 self.prefetch_batches:
@@ -967,10 +973,24 @@ class Config:
             self.ckpt_shards = generated_shards(
                 self.paths[0], self.checkpoint_shards, self.file_size,
                 ndev, must_exist=not self.run_create_files)
-        if ndev:
+        if ndev and not self.reshard_devices:
+            # under --reshard a manifest placing shards beyond the live
+            # selection is the topology-shift input (the checkpoint's
+            # slice was wider than this one): plan_reshard classifies
+            # those sourceless shards as storage-read units
             validate_placement(
                 self.ckpt_shards, ndev,
                 self.checkpoint_manifest or "--checkpoint-shards")
+        if self.reshard_devices:
+            # structural --reshard checks at config time; the N->M plan is
+            # diffed at prepare against the lanes the native path resolves
+            if self.reshard_devices < 1:
+                raise ProgException("--reshard must target >= 1 device")
+            if ndev and self.reshard_devices > ndev:
+                raise ProgException(
+                    f"--reshard {self.reshard_devices} targets more "
+                    f"devices than --gpuids selects ({ndev}); every "
+                    "target lane must be live")
         self.path_type = BenchPathType.FILE
         if not self.block_size:
             raise ProgException("block size must be > 0 for --checkpoint")

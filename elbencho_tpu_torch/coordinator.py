@@ -10,9 +10,9 @@ unwinding (Coordinator.cpp:66-104).
 
 The port's coordinator serves local workers, the --hosts master
 (workers/remote.py), service mode (service.py) and the --metricsport
-listener, and runs the checkpoint-restore scenario's RESTORE phase; the
-reshard and ingest scenarios are refused at config validation (not yet
-ported, see ROADMAP.md).
+listener, and runs the checkpoint-restore scenario's RESTORE phase and the
+reshard scenario's RESHARD phase; the ingest scenario is refused at config
+validation (not yet ported, see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -187,7 +187,8 @@ class Coordinator:
         cfg = self.cfg
         phases = cfg.selected_phases()
         data_phases = {BenchPhase.CREATEFILES, BenchPhase.READFILES,
-                       BenchPhase.STATFILES, BenchPhase.CHECKPOINT}
+                       BenchPhase.STATFILES, BenchPhase.CHECKPOINT,
+                       BenchPhase.RESHARD}
         if not phases and (cfg.run_sync or cfg.run_drop_caches):
             # standalone sync / dropcaches run
             self._run_sync_and_drop_caches()
@@ -306,6 +307,20 @@ class Coordinator:
             # reads — replicated placements re-read nothing)
             exp.entries = len(cfg.ckpt_shards)
             exp.bytes = cfg.ckpt_total_bytes()
+            return exp
+        if phase == BenchPhase.RESHARD:
+            # the whole plan executes once per phase (units partitioned
+            # across ranks; entries = plan units, bytes = the data in
+            # motion: moved bytes + storage-read bytes — already-resident
+            # units move nothing). The plan is diffed at prepare, so
+            # before it exists no expectation is set.
+            from .checkpoint import reshard_plan_summary
+
+            if not cfg.reshard_units:
+                return None
+            plan = reshard_plan_summary(cfg.reshard_units)
+            exp.entries = plan["units"]
+            exp.bytes = plan["move_bytes"] + plan["read_bytes"]
             return exp
         if cfg.path_type == BenchPathType.DIR:
             files_per_rank = cfg.num_dirs * cfg.num_files

@@ -55,6 +55,20 @@ bool loadApi(const std::string& path, Api* api, std::string* err) {
       return false;
     }
   }
+  const struct {
+    const char* name;
+    void** slot;
+  } d2d_entries[] = {
+      {"cuMemcpyPeerAsync", (void**)&api->cuMemcpyPeerAsync},
+      {"cuMemcpyDtoDAsync_v2", (void**)&api->cuMemcpyDtoDAsync},
+      {"cuDeviceCanAccessPeer", (void**)&api->cuDeviceCanAccessPeer},
+      {"cuCtxEnablePeerAccess", (void**)&api->cuCtxEnablePeerAccess},
+  };
+  api->d2d = true;
+  for (const auto& e : d2d_entries) {
+    *e.slot = dlsym(dl, e.name);
+    if (!*e.slot) api->d2d = false;
+  }
   return true;
 }
 

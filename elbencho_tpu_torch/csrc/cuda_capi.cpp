@@ -220,6 +220,119 @@ void ebt_cuda_ckpt_error(void* p, char* buf, int len) {
   copyOut(P(p)->ckptError(), buf, len);
 }
 
+// ---- device faults (--retry/--maxerrors), the twins of the
+// ebt_pjrt_* fault exports
+
+// budget failures eject a lane (0 disables the policy), retry_max bounds the
+// resubmits beyond one walk over the survivors, backoff_ms is the
+// exponential backoff base
+void ebt_cuda_set_fault_policy(void* p, int device_error_budget,
+                               int retry_max, uint64_t backoff_ms) {
+  P(p)->setFaultPolicy(device_error_budget, retry_max, backoff_ms);
+}
+
+// out[6] = {dev_retry_attempts, dev_retry_success, dev_retry_backoff_ns,
+// dev_errors, ejected_devices, replanned_units}; session-cumulative
+void ebt_cuda_fault_stats(void* p, uint64_t* out) {
+  CudaPath::FaultStats s = P(p)->faultStats();
+  out[0] = s.dev_retry_attempts;
+  out[1] = s.dev_retry_success;
+  out[2] = s.dev_retry_backoff_ns;
+  out[3] = s.dev_errors;
+  out[4] = s.ejected_devices;
+  out[5] = s.replanned_units;
+}
+
+// "device N: cause" of every ejection, '\n'-joined (empty when none)
+void ebt_cuda_ejected(void* p, char* buf, int len) {
+  copyOut(P(p)->ejectedDevices(), buf, len);
+}
+
+// bit i = lane i ejected
+uint64_t ebt_cuda_ejected_mask(void* p) { return P(p)->ejectedMask(); }
+
+// force-eject a lane: 0 ok, 1 = out of range, already ejected, or the last
+// healthy lane
+int ebt_cuda_eject_device(void* p, int device, const char* cause) {
+  return P(p)->ejectDevice(device, cause ? std::string(cause) : std::string());
+}
+
+// the engine's interrupt flag (ebt_engine_interrupt_flag): recovery backoff
+// waits wake when it is set
+void ebt_cuda_set_interrupt_flag(void* p, const void* flag) {
+  P(p)->setInterruptFlag(static_cast<const std::atomic<bool>*>(flag));
+}
+
+// ---- N->M reshard (--reshard), the twins of the ebt_pjrt_reshard_*
+// exports
+
+// parallel arrays of nunits (action 0 resident / 1 move / 2 read, src lane,
+// dst lane, bytes); before the first data copy. 0 ok.
+int ebt_cuda_set_reshard_plan(void* p, const int* actions, const int* srcs,
+                              const int* dsts, const uint64_t* bytes,
+                              int nunits) {
+  if (nunits <= 0 || !actions || !srcs || !dsts || !bytes) return 1;
+  return P(p)->setReshardPlan(std::vector<int>(actions, actions + nunits),
+                              std::vector<int>(srcs, srcs + nunits),
+                              std::vector<int>(dsts, dsts + nunits),
+                              std::vector<uint64_t>(bytes, bytes + nunits));
+}
+
+// stage the move units' sources on their src lanes (untimed set-up,
+// idempotent). 0 ok.
+int ebt_cuda_reshard_preload(void* p) { return P(p)->reshardPreload(); }
+
+// out[13] = {units_total, units_resident, units_moved, units_read,
+// d2d_submitted_bytes, d2d_resident_bytes, d2d_moves, bounce_moves,
+// move_recovered, move_fallback_reads, reshard_read_bytes,
+// resident_wait_ns, barriers}
+void ebt_cuda_reshard_stats(void* p, uint64_t* out) {
+  CudaPath::ReshardStats s = P(p)->reshardStats();
+  out[0] = s.units_total;
+  out[1] = s.units_resident;
+  out[2] = s.units_moved;
+  out[3] = s.units_read;
+  out[4] = s.d2d_submitted_bytes;
+  out[5] = s.d2d_resident_bytes;
+  out[6] = s.d2d_moves;
+  out[7] = s.bounce_moves;
+  out[8] = s.move_recovered;
+  out[9] = s.move_fallback_reads;
+  out[10] = s.reshard_read_bytes;
+  out[11] = s.resident_wait_ns;
+  out[12] = s.barriers;
+}
+
+// out[2] = {bytes submitted under unit tags, bytes resident}
+void ebt_cuda_reshard_byte_totals(void* p, uint64_t* out) {
+  P(p)->reshardByteTotals(out);
+}
+
+// the src->dst pair matrix, row-major: out[i*2] = settled chunk moves and
+// out[i*2+1] = their bytes for pair i = src*ndev + dst < npairs; returns
+// ndev
+int ebt_cuda_reshard_pair_matrix(void* p, uint64_t* out, int npairs) {
+  return P(p)->reshardPairMatrix(out, npairs);
+}
+
+// the direction-15 barrier, run explicitly; 0 ok
+int ebt_cuda_reshard_barrier(void* p) { return P(p)->reshardBarrier(); }
+
+// "unit U src A dst B: cause" of the first failure; empty if none
+void ebt_cuda_reshard_error(void* p, char* buf, int len) {
+  copyOut(P(p)->reshardError(), buf, len);
+}
+
+// 1 when the driver has the device-to-device entries and EBT_D2D_DISABLE
+// is off
+int ebt_cuda_d2d_supported(void* p) { return P(p)->d2dSupported() ? 1 : 0; }
+
+// out[2] = {ordered pairs of distinct selected devices with peer access
+// enabled, all such pairs}
+void ebt_cuda_peer_access(void* p, int* out) {
+  P(p)->peerAccess(&out[0], &out[1]);
+}
+
 // ---- write leg and kernels
 
 void ebt_cuda_set_d2h_depth(void* p, int depth) { P(p)->setD2HDepth(depth); }

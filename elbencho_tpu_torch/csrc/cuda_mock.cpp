@@ -45,11 +45,30 @@
  *   EBT_MOCK_CUDA_UNREGISTER_US  cuMemHostUnregister takes N us, during
  *                             which the range still counts as registered,
  *                             as the driver's unpin does
+ *   EBT_MOCK_CUDA_D2D_US      service time of a device-to-device copy
+ *                             (cuMemcpyPeerAsync, cuMemcpyDtoDAsync) on its
+ *                             (src, dst) pair's channel: moves on distinct
+ *                             pairs overlap, one pair's moves queue (default
+ *                             EBT_MOCK_CUDA_XFER_US; the original mock's
+ *                             EBT_MOCK_D2D_US)
+ *   EBT_MOCK_CUDA_D2D_FAIL_AT  the Nth device-to-device copy (1-based)
+ *                             fails in flight: the call succeeds, nothing
+ *                             lands, and the completion enqueued right
+ *                             behind it on its stream is dropped and
+ *                             reported as the fault once, by the next
+ *                             query, synchronise or event wait on the
+ *                             stream; later work runs (the original mock's
+ *                             EBT_MOCK_D2D_FAIL_AT)
+ *   EBT_MOCK_CUDA_NO_D2D      the device-to-device copies return
+ *                             CUDA_ERROR_NOT_SUPPORTED (a driver that
+ *                             refuses them; the original's
+ *                             EBT_MOCK_PJRT_NO_D2D)
  * A read-only mapping registered without CU_MEMHOSTREGISTER_READ_ONLY is
  * refused, as the real driver refuses it.
  *
  * Test helpers: ebt_mock_total_bytes / ebt_mock_checksum (bytes landed on
- * the devices by host-to-device copies and their additive checksum),
+ * the devices by host-to-device and device-to-device copies and their
+ * additive checksum), ebt_mock_d2d_count (device-to-device copy calls),
  * ebt_mock_exec_count(dev) (kernel launches per device),
  * ebt_mock_dev_h2d_count(dev) (host-to-device copies per device),
  * ebt_mock_hostreg_active (registered ranges), ebt_mock_live_buffers
@@ -111,6 +130,7 @@ std::atomic<uint64_t> g_checksum{0};
 std::atomic<uint64_t> g_h2d_calls{0};
 std::atomic<uint64_t> g_d2h_calls{0};
 std::atomic<uint64_t> g_completion_calls{0};
+std::atomic<uint64_t> g_d2d_calls{0};
 std::atomic<uint64_t> g_hostreg_calls{0};
 std::atomic<uint64_t> g_exec[kMaxDevices];
 std::atomic<uint64_t> g_dev_h2d[kMaxDevices];
@@ -169,6 +189,17 @@ struct Channel {
 };
 Channel g_channels[kMaxDevices];
 
+// per (src, dst) pair channels of device-to-device copies
+Channel g_pair_channels[kMaxDevices * kMaxDevices];
+
+Clock::time_point reserve_on(Channel& ch, int us) {
+  std::lock_guard<std::mutex> lk(ch.m);
+  auto now = Clock::now();
+  auto start = ch.busy_until > now ? ch.busy_until : now;
+  ch.busy_until = start + std::chrono::microseconds(us);
+  return ch.busy_until;
+}
+
 Clock::time_point reserve_service(int dev, int us) {
   Channel& ch = g_channels[dev % kMaxDevices];
   std::lock_guard<std::mutex> lk(ch.m);
@@ -182,7 +213,12 @@ struct Op {
   std::function<void()> fn;
   Clock::time_point not_before{};
   int service_us = 0;
+  int pair_src = -1;  // a device-to-device copy: served on the pair channel
   std::string fault;  // EBT_MOCK_CUDA_DEV_FAIL_AT: puts the stream in error
+  // EBT_MOCK_CUDA_D2D_FAIL_AT: this copy fails and drops the completion
+  // behind it
+  std::string transient;
+  bool completion = false;  // a host function or event record
 };
 
 struct Stream {
@@ -194,6 +230,8 @@ struct Stream {
   bool busy = false;
   bool stop = false;
   std::string fault;  // non-empty: the stream is in error, work is dropped
+  std::string drop_next;  // a failed copy's fault: drop the next completion
+  std::string transient;  // reported once by the next query or wait
   std::thread worker;
 
   void run() {
@@ -206,15 +244,31 @@ struct Stream {
       busy = true;
       const bool dropped = !fault.empty();
       lk.unlock();
-      if (!dropped) {
+      bool drop_this = false;
+      if (!dropped && op.completion) {
+        lk.lock();
+        if (!drop_next.empty()) {
+          transient = drop_next;
+          drop_next.clear();
+          drop_this = true;
+        }
+        lk.unlock();
+      }
+      if (!dropped && !drop_this) {
         if (op.not_before > Clock::now())
           std::this_thread::sleep_until(op.not_before);
         if (op.service_us > 0)
           std::this_thread::sleep_until(
-              reserve_service(device, op.service_us));
-        if (op.fault.empty()) op.fn();
+              op.pair_src >= 0
+                  ? reserve_on(g_pair_channels[(op.pair_src % kMaxDevices) *
+                                                   kMaxDevices +
+                                               device % kMaxDevices],
+                               op.service_us)
+                  : reserve_service(device, op.service_us));
+        if (op.fault.empty() && op.transient.empty()) op.fn();
       }
       lk.lock();
+      if (!dropped && !op.transient.empty()) drop_next = op.transient;
       if (!dropped && !op.fault.empty()) fault = op.fault;
       busy = false;
       if (q.empty()) idle_cv.notify_all();
@@ -233,9 +287,13 @@ struct Stream {
     std::lock_guard<std::mutex> lk(m);
     return q.empty() && !busy;
   }
+  // the sticky fault, else a pending transient one (reported once)
   std::string error() {
     std::lock_guard<std::mutex> lk(m);
-    return fault;
+    if (!fault.empty()) return fault;
+    std::string t;
+    t.swap(transient);
+    return t;
   }
 };
 
@@ -415,6 +473,7 @@ CUresult cuEventRecord(void* event, void* stream) {
     e->stream = static_cast<Stream*>(stream);
   }
   Op op;
+  op.completion = true;
   op.fn = [e, gen] {
     std::lock_guard<std::mutex> lk(e->m);
     e->completed = gen;
@@ -442,6 +501,7 @@ CUresult cuLaunchHostFunc(void* stream, void (*fn)(void*), void* arg) {
   if (env_int("EBT_MOCK_CUDA_FAIL_READY_AT") == (long long)n)
     return inject("mock completion failure (EBT_MOCK_CUDA_FAIL_READY_AT)");
   Op op;
+  op.completion = true;
   op.fn = [fn, arg] { fn(arg); };
   static_cast<Stream*>(stream)->push(std::move(op));
   return kOk;
@@ -525,6 +585,52 @@ CUresult cuMemcpyDtoHAsync_v2(void* dst, unsigned long long src, size_t bytes,
   }
   return kOk;
 }
+
+// device-to-device copies (the reshard move tier): the pair (src device,
+// dst stream's device) owns a service channel
+static CUresult d2d_copy(unsigned long long dst, unsigned long long src,
+                         size_t bytes, int src_dev, void* stream) {
+  if (env_int("EBT_MOCK_CUDA_NO_D2D")) return kNotSupported;
+  const uint64_t n = ++g_d2d_calls;
+  auto* st = static_cast<Stream*>(stream);
+  char* d = (char*)(uintptr_t)dst;
+  const char* s = (const char*)(uintptr_t)src;
+  Op op;
+  op.fn = [d, s, bytes] {
+    std::memmove(d, s, bytes);
+    land(d, bytes);
+  };
+  int delay = env_int("EBT_MOCK_CUDA_DELAY_US");
+  if (delay > 0)
+    op.not_before = Clock::now() + std::chrono::microseconds(delay);
+  int us = env_int("EBT_MOCK_CUDA_D2D_US");
+  op.service_us = us > 0 ? us : env_int("EBT_MOCK_CUDA_XFER_US");
+  op.pair_src = src_dev;
+  if (env_int("EBT_MOCK_CUDA_D2D_FAIL_AT") == (long long)n)
+    op.transient = "mock d2d move failure (EBT_MOCK_CUDA_D2D_FAIL_AT)";
+  st->push(std::move(op));
+  return kOk;
+}
+
+CUresult cuMemcpyPeerAsync(unsigned long long dst, void*,
+                           unsigned long long src, void* src_ctx, size_t bytes,
+                           void* stream) {
+  return d2d_copy(dst, src, bytes,
+                  src_ctx ? static_cast<Ctx*>(src_ctx)->device : 0, stream);
+}
+
+CUresult cuMemcpyDtoDAsync_v2(unsigned long long dst, unsigned long long src,
+                              size_t bytes, void* stream) {
+  return d2d_copy(dst, src, bytes, static_cast<Stream*>(stream)->device,
+                  stream);
+}
+
+CUresult cuDeviceCanAccessPeer(int* can, int dev, int peer) {
+  *can = dev != peer ? 1 : 0;
+  return kOk;
+}
+
+CUresult cuCtxEnablePeerAccess(void*, unsigned) { return kOk; }
 
 CUresult cuMemsetD8Async(unsigned long long dst, unsigned char value,
                          size_t bytes, void* stream) {
@@ -639,6 +745,7 @@ uint64_t ebt_mock_hostreg_active() {
 int64_t ebt_mock_live_buffers() { return g_live_buffers; }
 uint64_t ebt_mock_h2d_count() { return g_h2d_calls; }
 uint64_t ebt_mock_completion_count() { return g_completion_calls; }
+uint64_t ebt_mock_d2d_count() { return g_d2d_calls; }
 
 // zero the counters; the live-buffer and registration gauges stay, so a
 // test can reset after prepare and still check the teardown balance
@@ -648,6 +755,7 @@ void ebt_mock_reset() {
   g_h2d_calls = 0;
   g_d2h_calls = 0;
   g_completion_calls = 0;
+  g_d2d_calls = 0;
   g_hostreg_calls = 0;
   for (auto& e : g_exec) e = 0;
   for (auto& e : g_dev_h2d) e = 0;

@@ -3,8 +3,10 @@
 #include "cuda_path.h"
 
 #include <algorithm>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <set>
 
 #include "ebt/engine.h"   // fillVerifyPattern / checkVerifyPattern
 #include "ebt/rand.h"     // rank-seeded random write sources
@@ -188,6 +190,35 @@ CudaPath::CudaPath(const std::string& driver_path, uint64_t chunk_bytes,
     }
   }
 
+  // device-to-device tier (the reshard moves): the driver's entries, and
+  // EBT_D2D_DISABLE off (value-parsed: "=0" keeps the tier), as in the
+  // original. Peer access is enabled once here between every two distinct
+  // selected devices that allow it; a peer copy works without it too (the
+  // driver stages it), so its state is reported, not required.
+  {
+    const char* d2d_env = getenv("EBT_D2D_DISABLE");
+    const bool d2d_off =
+        d2d_env && *d2d_env && std::strcmp(d2d_env, "0") != 0;
+    d2d_ok_ = api_.d2d && !d2d_off;
+  }
+  if (api_.d2d) {
+    std::set<std::pair<cu::CUdevice, cu::CUdevice>> seen;
+    for (size_t i = 0; i < lanes_.size(); i++) {
+      for (size_t j = 0; j < lanes_.size(); j++) {
+        const cu::CUdevice a = lanes_[i]->dev, b = lanes_[j]->dev;
+        if (a == b || !seen.insert({a, b}).second) continue;
+        peer_pairs_++;
+        int can = 0;
+        if (api_.cuDeviceCanAccessPeer(&can, a, b) || !can) continue;
+        if (!makeCurrent((int)i, false)) continue;
+        cu::CUresult prc = api_.cuCtxEnablePeerAccess(lanes_[j]->ctx, 0);
+        if (prc == cu::CUDA_SUCCESS ||
+            prc == cu::CUDA_ERROR_PEER_ACCESS_ALREADY_ENABLED)
+          peer_enabled_++;
+      }
+    }
+  }
+
   // warm-up transfer per lane at construction (preparation), so the
   // measured phase starts hot; a driver that cannot move it fails init
   std::vector<char> probe(std::min<uint64_t>(chunk_bytes_, 1u << 20), 0);
@@ -244,6 +275,17 @@ CudaPath::~CudaPath() {
       api_.cuMemFree(kv.second.second);
     }
     dev_src_.clear();
+  }
+  {
+    MutexLock lk(reshard_mutex_);
+    for (auto& kv : reshard_src_bufs_) {
+      makeCurrent(kv.second.lane, true);
+      api_.cuMemFree(kv.second.ptr);
+    }
+    reshard_src_bufs_.clear();
+    for (char* p : scratch_all_) api_.cuMemFreeHost(p);
+    scratch_all_.clear();
+    scratch_free_.clear();
   }
   for (size_t d = 0; d < lanes_.size(); d++) {
     Lane& l = *lanes_[d];
@@ -340,6 +382,7 @@ int CudaPath::awaitRelease(Pending& p) {
   if (p.tracker) {
     Tracker* t = p.tracker;
     cu::CUresult q = cu::CUDA_SUCCESS;
+    bool dropped = false;
     {
       CondLock lk(t->m);
       while (!t->done) {
@@ -352,10 +395,21 @@ int CudaPath::awaitRelease(Pending& p) {
         makeCurrent(p.lane, false);
         q = api_.cuStreamQuery(p.stream);
         if (q != cu::CUDA_SUCCESS && q != cu::CUDA_ERROR_NOT_READY) break;
+        // an idle stream has run every host function enqueued on it: a
+        // tracker still not done was dropped with a failed copy (the fault
+        // was reported to another waiter), so it never will be
+        if (q == cu::CUDA_SUCCESS && !t->done) {
+          dropped = true;
+          break;
+        }
         q = cu::CUDA_SUCCESS;
       }
     }
-    if (q != cu::CUDA_SUCCESS) {
+    if (dropped) {
+      latchXferError("transfer completion: the copy's completion was "
+                     "dropped by a stream fault");
+      rc = 1;  // the tracker leaks with its dropped host function
+    } else if (q != cu::CUDA_SUCCESS) {
       // the tracker stays with the stream, which may still run it
       latchXferError(cu::errorText(api_, "transfer completion", q));
       rc = 1;
@@ -384,25 +438,42 @@ int CudaPath::awaitRelease(Pending& p) {
     p.ready_failed = false;
     rc = 1;
   }
-  if (rc && p.bytes) {
-    // undo the count made at enqueue
+  // a device-to-device move that failed in flight is moved again through
+  // the host bounce from its still-resident source: the tier's clean
+  // fallback, always on (not fault-policy machinery)
+  if (rc && p.d2d && !p.no_recover && recoverMovePending(p) == 0) rc = 0;
+  // settle-time recovery (--maxerrors): resubmit the chunk's host source to
+  // a survivor lane; a recovered settle counts rc 0 with its bytes on the
+  // survivor, so the stripe and checkpoint ledgers stay exact
+  if (rc && !p.d2d && !p.no_recover && faultPolicyActive() &&
+      recoverPending(p) == 0)
+    rc = 0;
+  if (rc && p.bytes && !p.d2d) {
+    // undo the count made at enqueue (moves never enter the lane counters)
     Lane& lane = laneFor(p.lane);
     (p.d2h ? lane.bytes_from_hbm : lane.bytes_to_hbm)
         .fetch_sub(p.bytes, std::memory_order_relaxed);
   }
+  if (p.owned_src) {
+    releaseScratch(p.owned_src);
+    p.owned_src = nullptr;
+  }
   settleStripe(p, rc);
   settleCkpt(p, rc);
+  settleReshard(p, rc);
   return rc;
 }
 
 int CudaPath::syncStream(int lane, cu::CUstream stream) {
   Pending p;
+  p.no_recover = true;  // a bare quiesce, not a copy: nothing to charge
   attachCompletion(p, lane, stream, -1, {});
   return awaitRelease(p);
 }
 
 void CudaPath::enqueue(void* buf, std::vector<Pending>& ps,
-                       int64_t stripe_unit, int64_t ckpt_shard) {
+                       int64_t stripe_unit, int64_t ckpt_shard,
+                       int64_t reshard_unit) {
   if (ps.empty()) return;
   QueueShard& shard = shardFor(buf);
   TimedMutexLock lk(shard.m, laneFor(ps.front().lane).lock_wait_ns);
@@ -424,6 +495,14 @@ void CudaPath::enqueue(void* buf, std::vector<Pending>& ps,
     if (ckpt_shard >= 0 && p.bytes && ckpt_sub_bytes_)
       ckpt_sub_bytes_[ckpt_shard].fetch_add(p.bytes,
                                             std::memory_order_relaxed);
+    // reshard storage reads: bytes count as submitted per plan unit
+    p.reshard_unit = reshard_unit;
+    if (reshard_unit >= 0 && reshard_unit_gen_)
+      p.reshard_gen =
+          reshard_unit_gen_[reshard_unit].load(std::memory_order_acquire);
+    if (reshard_unit >= 0 && p.bytes && reshard_sub_bytes_)
+      reshard_sub_bytes_[reshard_unit].fetch_add(p.bytes,
+                                                 std::memory_order_relaxed);
     Lane& lane = laneFor(p.lane);
     (p.d2h ? lane.bytes_from_hbm : lane.bytes_to_hbm)
         .fetch_add(p.bytes, std::memory_order_relaxed);
@@ -532,10 +611,11 @@ bool CudaPath::ensureBuffer(int lane, cu::CUdeviceptr* p, uint64_t* cap,
 // ---------------------------------------------------------------- read leg
 
 int CudaPath::submitH2D(int device_idx, const char* buf, uint64_t len,
-                        int64_t stripe_unit, int64_t ckpt_shard) {
+                        int64_t stripe_unit, int64_t ckpt_shard,
+                        int64_t reshard_unit) {
   // One range lookup per block: every chunk shares the answer; the hold
   // (holdForCopy) sits in the shard's draining ledger until the enqueued
-  // pendings take over.
+  // pendings take over, and it also covers the submit-time retries below.
   const int li = laneIndex(device_idx);
   Lane& lane = *lanes_[li];
   QueueShard& shard = shardFor(buf);
@@ -545,33 +625,50 @@ int CudaPath::submitH2D(int device_idx, const char* buf, uint64_t len,
   int chunk_i = 0;
   for (uint64_t off = 0; off < len; chunk_i++) {
     const uint64_t n = std::min(chunk_bytes_, len - off);
-    // --tpustripe: the block's chunks rotate over the lanes
-    const int ci = chunkLane(li, chunk_i);
-    Lane& cl = *lanes_[ci];
-    if (ci != li && !makeCurrent(ci, false)) {
-      rc = 1;
-      break;
-    }
     // the block's chunks land at their offsets in the lane's landing buffer
     const uint64_t dst = off + n <= landing_cap_ ? off : 0;
-    auto t0 = Clock::now();
-    if (!check("cuMemcpyHtoDAsync",
-               api_.cuMemcpyHtoDAsync(cl.landing + dst, buf + off, n,
-                                      cl.h2d))) {
+    auto submitChunk = [&](int ci, Pending* out) -> bool {
+      Lane& cl = *lanes_[ci];
+      if (!makeCurrent(ci, false)) return false;
+      auto t0 = Clock::now();
+      if (!check("cuMemcpyHtoDAsync",
+                 api_.cuMemcpyHtoDAsync(cl.landing + dst, buf + off, n,
+                                        cl.h2d)))
+        return false;
+      if (zc) zero_copy_count_.fetch_add(1, std::memory_order_relaxed);
+      Pending p;
+      p.bytes = n;
+      p.src = buf + off;  // the settle-time recovery's source
+      attachCompletion(p, ci, cl.h2d, ci, t0);
+      *out = p;
+      return true;
+    };
+    // --tpustripe: the block's chunks rotate over the lanes; an ejection
+    // that landed after copy()'s routing still moves the chunk to a
+    // survivor
+    int ci = chunkLane(li, chunk_i);
+    if (faultPolicyActive()) ci = survivorFor(ci);
+    Pending p;
+    bool ok = submitChunk(ci, &p);
+    if (!ok && faultPolicyActive()) {
+      // submit-time recovery: charge the lane (which may eject it), then
+      // walk the survivors, the twin of recoverPending's walk
+      recordDeviceError(ci, firstTransferError());
+      ok = walkSurvivors(ci, [&](int cand) {
+             return submitChunk(cand, &p);
+           }) >= 0;
+    }
+    if (!ok) {
       rc = 1;
       break;
     }
-    if (zc) zero_copy_count_.fetch_add(1, std::memory_order_relaxed);
-    Pending p;
-    p.bytes = n;
-    attachCompletion(p, ci, cl.h2d, ci, t0);
     submitted.push_back(p);
     off += n;
   }
-  if (stripe_ && lanes_.size() > 1) makeCurrent(li, false);
+  if (lanes_.size() > 1) makeCurrent(li, false);
   // chunks copied before a failure may still be reading the buffer: they
   // are enqueued either way so the barrier waits them out
-  enqueue((void*)buf, submitted, stripe_unit, ckpt_shard);
+  enqueue((void*)buf, submitted, stripe_unit, ckpt_shard, reshard_unit);
   if (zc) releaseHold(buf, len, lane, shard);
   return rc;
 }
@@ -1007,9 +1104,10 @@ int CudaPath::copy(int worker_rank, int device_idx, int direction, void* buf,
   if (!ok()) return 1;
   // the kernel entries are set without a lock, which is safe only because
   // every enable precedes the first data transfer: data directions seal
-  // (the stripe and checkpoint plans are sealed by the same store: both are
-  // read lock-free below; barriers 8/10 and the shard begin 9 do not seal)
-  if (direction == 0 || direction == 1 || direction == 3)
+  // (the stripe, checkpoint and reshard plans are sealed by the same
+  // store: they are read lock-free below; barriers 8/10/15 and the begins
+  // 9/13 do not seal, the reshard move 14 does)
+  if (direction == 0 || direction == 1 || direction == 3 || direction == 14)
     sealed_.store(true, std::memory_order_release);
   // the stripe planner owns direction-0 block->lane placement, decided
   // before the lane counters below so they follow the lane the bytes target
@@ -1017,6 +1115,16 @@ int CudaPath::copy(int worker_rank, int device_idx, int direction, void* buf,
   if (direction == 0 && stripe_policy_.load(std::memory_order_acquire) != 0) {
     device_idx = stripeDeviceFor(file_offset);
     striped = true;
+  }
+  // live replanning (fault policy on): a direction-0 placement on an
+  // ejected lane, whether from the stripe planner, the checkpoint manifest
+  // or the rank routing, moves to a fixed survivor; replanned_units counts
+  // each such block
+  if (direction == 0 && faultPolicyActive()) {
+    const int planned = laneIndex(device_idx);
+    device_idx = survivorFor(planned);
+    if (device_idx != planned)
+      replanned_units_.fetch_add(1, std::memory_order_relaxed);
   }
   const int li = laneIndex(device_idx);
   if (!makeCurrent(li, false)) return 1;
@@ -1029,6 +1137,11 @@ int CudaPath::copy(int worker_rank, int device_idx, int direction, void* buf,
       // the shard it registered via direction 9
       const int64_t cs = ckpt_active_.load(std::memory_order_acquire)
                              ? ckptShardFor(worker_rank)
+                             : -1;
+      // reshard: storage reads (read units, failed-move fallbacks) are
+      // tagged with the unit the worker registered via direction 13
+      const int64_t ru = reshard_active_.load(std::memory_order_acquire)
+                             ? reshardUnitFor(worker_rank)
                              : -1;
       if (verify_on_) {
         // a synchronous correctness mode: placement still honours the
@@ -1047,17 +1160,30 @@ int CudaPath::copy(int worker_rank, int device_idx, int direction, void* buf,
             latchCkptError(li, cs, firstTransferError());
           }
         }
+        // the config refuses --verify with --reshard; the unit ledger still
+        // accounts the block for any caller composition
+        if (ru >= 0 && reshard_sub_bytes_) {
+          reshard_sub_bytes_[ru].fetch_add(len, std::memory_order_relaxed);
+          if (vrc == 0) {
+            reshard_res_bytes_[ru].fetch_add(len, std::memory_order_relaxed);
+            reshard_read_bytes_.fetch_add(len, std::memory_order_relaxed);
+          } else {
+            latchReshardError(ru, -1, li, firstTransferError());
+          }
+        }
         return vrc;
       }
       const int64_t su =
           striped ? (int64_t)(file_offset / block_size_) : -1;
-      const int src_rc = submitH2D(li, (const char*)buf, len, su, cs);
+      const int src_rc = submitH2D(li, (const char*)buf, len, su, cs, ru);
       // a submit-time failure never reaches a barrier's settle, so the
       // per-device attribution is latched here
       if (src_rc != 0 && striped)
         latchStripeError(li, su, firstTransferError());
       if (src_rc != 0 && cs >= 0)
         latchCkptError(li, cs, firstTransferError());
+      if (src_rc != 0 && ru >= 0)
+        latchReshardError(ru, -1, li, firstTransferError());
       return src_rc;
     }
     case 1:
@@ -1093,10 +1219,19 @@ int CudaPath::copy(int worker_rank, int device_idx, int direction, void* buf,
     case 10:
       // checkpoint all-resident barrier (the restore's measured seal)
       return ckptBarrier();
+    case 13:
+      // reshard unit begin: len carries the plan unit
+      return reshardBeginUnit(worker_rank, (int64_t)len);
+    case 14:
+      // reshard move: len carries the plan unit, which names src, dst and
+      // bytes
+      return reshardMove(worker_rank, (int64_t)len);
+    case 15:
+      // the all-resharded barrier (the RESHARD phase's measured seal)
+      return reshardBarrier();
     default:
       latchXferError("device-copy direction " + std::to_string(direction) +
-                     " (ingest/reshard/rotation) is not ported to the CUDA "
-                     "engine");
+                     " (ingest/rotation) is not ported to the CUDA engine");
       return 1;
   }
 }
@@ -1155,6 +1290,16 @@ void CudaPath::d2hStats(uint64_t out[3]) const {
   out[0] = d2h_deferred_count_.load(std::memory_order_relaxed);
   out[1] = d2h_await_wait_ns_.load(std::memory_order_relaxed);
   out[2] = d2h_overlap_bytes_.load(std::memory_order_relaxed);
+}
+
+void CudaPath::drainAll() {
+  std::vector<Pending> moves;
+  {
+    MutexLock lk(reshard_mutex_);
+    moves.swap(reshard_pending_);
+  }
+  for (Pending& p : moves) awaitRelease(p);
+  settleAllShards();
 }
 
 int CudaPath::settleAllShards() {
@@ -1392,6 +1537,657 @@ int CudaPath::ckptBarrier() {
       std::memory_order_relaxed);
   ckpt_barriers_.fetch_add(1, std::memory_order_relaxed);
   return rc;
+}
+
+// ---------------------------------------------------------------- faults
+
+void CudaPath::setFaultPolicy(int device_error_budget, int retry_max,
+                              uint64_t backoff_ms) {
+  fault_device_budget_.store(device_error_budget < 0 ? 0 : device_error_budget,
+                             std::memory_order_relaxed);
+  fault_retry_max_.store(retry_max < 0 ? 0 : retry_max,
+                         std::memory_order_relaxed);
+  fault_backoff_ms_.store(backoff_ms, std::memory_order_relaxed);
+}
+
+CudaPath::FaultStats CudaPath::faultStats() const {
+  FaultStats s;
+  s.dev_retry_attempts = dev_retry_attempts_.load(std::memory_order_relaxed);
+  s.dev_retry_success = dev_retry_success_.load(std::memory_order_relaxed);
+  s.dev_retry_backoff_ns =
+      dev_retry_backoff_ns_.load(std::memory_order_relaxed);
+  s.dev_errors = dev_errors_.load(std::memory_order_relaxed);
+  s.ejected_devices = ejected_devices_.load(std::memory_order_relaxed);
+  s.replanned_units = replanned_units_.load(std::memory_order_relaxed);
+  return s;
+}
+
+std::string CudaPath::ejectedDevices() const {
+  MutexLock lk(fault_mutex_);
+  return ejected_error_;
+}
+
+int CudaPath::survivorFor(int device_idx) const {
+  const uint64_t mask = ejected_mask_.load(std::memory_order_acquire);
+  const int ndev = (int)lanes_.size();
+  const int idx = (device_idx < 0 ? 0 : device_idx) % ndev;
+  if (!mask || !laneEjected(idx)) return idx;
+  // the same planned lane always lands on the same survivor, so the
+  // barriers reconcile against a stable post-ejection plan
+  int nsurv = 0;
+  for (int i = 0; i < ndev && i < 64; i++)
+    if (!(mask >> i & 1)) nsurv++;
+  if (!nsurv) return idx;  // everything ejected: let the submit fail
+  const int want = idx % nsurv;
+  for (int i = 0, seen = 0; i < ndev && i < 64; i++) {
+    if (mask >> i & 1) continue;
+    if (seen++ == want) return i;
+  }
+  return idx;
+}
+
+int CudaPath::ejectDevice(int device_idx, const std::string& cause) {
+  const int ndev = (int)lanes_.size();
+  if (device_idx < 0 || device_idx >= ndev || device_idx >= 64) return 1;
+  const uint64_t bit = 1ull << device_idx;
+  const uint64_t all = ndev >= 64 ? ~0ull : ((1ull << ndev) - 1);
+  uint64_t mask = ejected_mask_.load(std::memory_order_acquire);
+  for (;;) {
+    if (mask & bit) return 1;  // already ejected
+    // never eject the last healthy lane: the engine's error budget decides
+    // the phase then
+    if (((~mask & all) & ~bit) == 0) return 1;
+    if (ejected_mask_.compare_exchange_weak(mask, mask | bit,
+                                            std::memory_order_acq_rel))
+      break;
+  }
+  ejected_devices_.fetch_add(1, std::memory_order_relaxed);
+  const std::string msg =
+      "device " + std::to_string(device_idx) + ": " +
+      (cause.empty() ? std::string("transfer failed") : cause);
+  {
+    MutexLock lk(fault_mutex_);
+    if (!ejected_error_.empty()) ejected_error_ += "\n";
+    ejected_error_ += msg;
+  }
+  fprintf(stderr,
+          "[ebt] ejecting %s; replanning remaining work onto survivors\n",
+          msg.c_str());
+  return 0;
+}
+
+void CudaPath::recordDeviceError(int device_idx, const std::string& cause) {
+  if (!faultPolicyActive()) return;
+  const int ndev = (int)lanes_.size();
+  const int idx = (device_idx < 0 ? 0 : device_idx) % ndev;
+  dev_errors_.fetch_add(1, std::memory_order_relaxed);
+  const uint64_t budget =
+      (uint64_t)fault_device_budget_.load(std::memory_order_relaxed);
+  bool eject = false;
+  {
+    MutexLock lk(fault_mutex_);
+    if (lane_errors_.size() < (size_t)ndev) lane_errors_.resize(ndev, 0);
+    if (++lane_errors_[idx] >= budget && !laneEjected(idx)) eject = true;
+  }
+  if (eject) ejectDevice(idx, cause);  // takes fault_mutex_ itself
+}
+
+bool CudaPath::faultBackoffWait(int attempt) {
+  const uint64_t base = fault_backoff_ms_.load(std::memory_order_relaxed);
+  if (!base) return true;
+  const int shift = attempt > 10 ? 10 : attempt - 1;
+  const uint64_t wait_ms = std::min<uint64_t>(base << shift, 2000);
+  const auto t0 = Clock::now();
+  const auto deadline = t0 + std::chrono::milliseconds(wait_ms);
+  bool ok = true;
+  // bounded sleeps polling the engine's interrupt flag (a thread with a
+  // reactor sleeps on its interrupt eventfd): an interrupted phase wakes
+  // the recovery promptly; it holds no lock and no registration hold here
+  for (;;) {
+    const std::atomic<bool>* flag =
+        interrupt_flag_.load(std::memory_order_acquire);
+    if (flag && flag->load(std::memory_order_relaxed)) {
+      ok = false;
+      break;
+    }
+    const auto now = Clock::now();
+    if (now >= deadline) break;
+    reactorhub::interruptibleSleepNs(std::min<uint64_t>(
+        (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(
+            deadline - now)
+            .count(),
+        500'000'000ull));
+  }
+  dev_retry_backoff_ns_.fetch_add(
+      (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(
+          Clock::now() - t0)
+          .count(),
+      std::memory_order_relaxed);
+  return ok;
+}
+
+// Settle-time recovery. The failed copy's lane is charged first (which may
+// eject it), then its host source is copied again, synchronously, onto the
+// survivors in turn. The source is valid: the engine does not reuse the
+// buffer before this settle returns. On a card, an asynchronous fault is
+// sticky for the device's primary context, so every lane of the faulted
+// device fails from then on and a recovery can land only on a lane of
+// another device; the mock's per-stream fault (EBT_MOCK_CUDA_DEV_FAIL_AT)
+// takes down one lane only.
+int CudaPath::recoverPending(Pending& p) {
+  if (!faultPolicyActive()) return 1;
+  recordDeviceError(p.lane, firstTransferError());
+  if (!p.src || p.d2h || !p.bytes) return 1;  // not recoverable
+  // the resubmits read the source in place: wait out a registration change
+  // on its range and hold it against eviction until they are awaited, as a
+  // first submit does
+  Lane& failed = laneFor(p.lane);
+  QueueShard& shard = shardFor(p.src);
+  const bool held = holdForCopy(p.src, p.bytes, failed, shard);
+  std::string cause;
+  const int winner = walkSurvivors(
+      p.lane,
+      [&](int cand) -> bool {
+        cause.clear();
+        if (!makeCurrent(cand, false)) return false;
+        Lane& cl = *lanes_[cand];
+        const auto t0 = Clock::now();
+        const cu::CUresult rc =
+            api_.cuMemcpyHtoDAsync(cl.landing, p.src, p.bytes, cl.h2d);
+        if (rc) {
+          // a diagnostic, not a fresh root cause: not latched
+          cause = cu::errorText(api_, "recovery cuMemcpyHtoDAsync", rc);
+          return false;
+        }
+        Pending wait;
+        wait.no_recover = true;  // the resubmit's settle must not recurse
+        attachCompletion(wait, cand, cl.h2d, cand, t0);
+        return awaitRelease(wait) == 0;
+      },
+      &cause);
+  if (held) releaseHold(p.src, p.bytes, failed, shard);
+  if (winner < 0) return 1;
+  // the bytes move from the failed lane to the survivor, so per-lane sums
+  // and the checkpoint per-lane evidence stay exact
+  failed.bytes_to_hbm.fetch_sub(p.bytes, std::memory_order_relaxed);
+  lanes_[winner]->bytes_to_hbm.fetch_add(p.bytes, std::memory_order_relaxed);
+  p.lane = winner;
+  return 0;
+}
+
+// ---------------------------------------------------------------- reshard
+
+void CudaPath::settleReshard(const Pending& p, int rc) {
+  if (p.reshard_unit < 0 || !reshard_sub_bytes_ ||
+      (uint64_t)p.reshard_unit >= reshard_nunits_)
+    return;
+  if (rc == 0) {
+    if (!p.bytes) return;
+    {
+      // the credit and a re-arm's zero plus generation bump exclude each
+      // other: a chunk of a superseded move attempt does not credit the
+      // unit its storage fallback reconciles from zero
+      MutexLock lk(reshard_mutex_);
+      if (p.reshard_gen ==
+          reshard_unit_gen_[p.reshard_unit].load(std::memory_order_relaxed))
+        reshard_res_bytes_[p.reshard_unit].fetch_add(
+            p.bytes, std::memory_order_relaxed);
+    }
+    if (p.d2d) {
+      d2d_resident_bytes_.fetch_add(p.bytes, std::memory_order_relaxed);
+      (p.d2d_bounce ? bounce_moves_ : d2d_moves_)
+          .fetch_add(1, std::memory_order_relaxed);
+      const int ndev = (int)lanes_.size();
+      const int s = p.src_lane >= 0 ? p.src_lane % ndev : 0;
+      const int d = p.lane >= 0 ? p.lane % ndev : 0;
+      const size_t idx = (size_t)s * (size_t)ndev + (size_t)d;
+      if (idx < reshard_pairs_n_) {
+        reshard_pair_moves_[idx].fetch_add(1, std::memory_order_relaxed);
+        reshard_pair_bytes_[idx].fetch_add(p.bytes,
+                                           std::memory_order_relaxed);
+      }
+    } else {
+      reshard_read_bytes_.fetch_add(p.bytes, std::memory_order_relaxed);
+    }
+    return;
+  }
+  // a failed move is charged to its destination lane (where the bytes did
+  // not land); the cause is read out of err_mutex_ first
+  const std::string cause = firstTransferError();
+  if (p.d2d && faultPolicyActive()) recordDeviceError(p.lane, cause);
+  latchReshardError(p.reshard_unit, p.d2d ? p.src_lane : -1, p.lane, cause);
+}
+
+void CudaPath::latchReshardError(int64_t unit, int src, int dst,
+                                 const std::string& cause) {
+  std::string msg = "unit " + std::to_string(unit);
+  if (src >= 0) msg += " src " + std::to_string(src);
+  msg += " dst " + std::to_string(dst);
+  msg += ": " +
+         (cause.empty() ? std::string("reshard transfer failed") : cause);
+  MutexLock lk(reshard_mutex_);
+  if (reshard_error_.empty()) reshard_error_ = msg;
+}
+
+std::string CudaPath::reshardError() const {
+  MutexLock lk(reshard_mutex_);
+  return reshard_error_;
+}
+
+int CudaPath::setReshardPlan(const std::vector<int>& unit_action,
+                             const std::vector<int>& unit_src,
+                             const std::vector<int>& unit_dst,
+                             const std::vector<uint64_t>& unit_bytes) {
+  if (!ok()) return 1;
+  if (sealed_.load(std::memory_order_acquire)) return 1;
+  const size_t n = unit_action.size();
+  if (!n || unit_src.size() != n || unit_dst.size() != n ||
+      unit_bytes.size() != n)
+    return 1;
+  const int ndev = (int)lanes_.size();
+  for (size_t i = 0; i < n; i++) {
+    if (unit_action[i] < 0 || unit_action[i] > 2) return 1;
+    if (unit_dst[i] < 0 || unit_dst[i] >= ndev) return 1;
+    if (unit_action[i] == 1 && (unit_src[i] < 0 || unit_src[i] >= ndev))
+      return 1;
+    if (unit_bytes[i] == 0) return 1;
+  }
+  reshard_nunits_ = (uint64_t)n;
+  reshard_action_ = unit_action;
+  reshard_src_ = unit_src;
+  reshard_dst_ = unit_dst;
+  reshard_unit_bytes_ = unit_bytes;
+  reshard_sub_bytes_.reset(new std::atomic<uint64_t>[n]);
+  reshard_res_bytes_.reset(new std::atomic<uint64_t>[n]);
+  reshard_unit_gen_.reset(new std::atomic<uint32_t>[n]);
+  for (size_t i = 0; i < n; i++) {
+    reshard_sub_bytes_[i].store(0, std::memory_order_relaxed);
+    reshard_res_bytes_[i].store(0, std::memory_order_relaxed);
+    reshard_unit_gen_[i].store(0, std::memory_order_relaxed);
+  }
+  reshard_pairs_n_ = (size_t)ndev * (size_t)ndev;
+  reshard_pair_moves_.reset(new std::atomic<uint64_t>[reshard_pairs_n_]);
+  reshard_pair_bytes_.reset(new std::atomic<uint64_t>[reshard_pairs_n_]);
+  for (size_t i = 0; i < reshard_pairs_n_; i++) {
+    reshard_pair_moves_[i].store(0, std::memory_order_relaxed);
+    reshard_pair_bytes_[i].store(0, std::memory_order_relaxed);
+  }
+  reshard_active_.store(1, std::memory_order_release);
+  return 0;
+}
+
+int CudaPath::reshardPreload() {
+  // The pre-state "the checkpoint was restored onto N lanes": every move
+  // unit's bytes in one device buffer on its src lane, with the
+  // deterministic offset+salt pattern (salt 0xD2D) the original stages, so
+  // both tiers and both packages move identical bytes. Untimed set-up at
+  // prepare; the buffers and the bounce scratch pool live until teardown.
+  if (!reshard_active_.load(std::memory_order_acquire)) return 1;
+  {
+    MutexLock lk(reshard_mutex_);
+    if (!reshard_src_bufs_.empty() || !scratch_all_.empty()) return 0;
+  }
+  std::map<int64_t, SrcBuf> staged;
+  std::vector<char*> scratch;
+  auto release = [&] {
+    for (auto& kv : staged) {
+      makeCurrent(kv.second.lane, false);
+      api_.cuMemFree(kv.second.ptr);
+    }
+    for (char* p : scratch) api_.cuMemFreeHost(p);
+  };
+  bool any_move = false;
+  for (uint64_t u = 0; u < reshard_nunits_; u++)
+    any_move = any_move || reshard_action_[u] == 1;
+  if (!any_move) return 0;
+  // the pinned scratch pool: the preload's host staging, then the bounce
+  // tier's (a chunk each; never allocated on the hot path)
+  constexpr int kBounceScratch = 8;
+  for (int i = 0; i < kBounceScratch; i++) {
+    void* h = nullptr;
+    makeCurrent(0, false);
+    if (!check("reshard scratch cuMemHostAlloc",
+               api_.cuMemHostAlloc(&h, chunk_bytes_, 0))) {
+      release();
+      return 1;
+    }
+    scratch.push_back((char*)h);
+  }
+  char* host = scratch[0];
+  for (uint64_t u = 0; u < reshard_nunits_; u++) {
+    if (reshard_action_[u] != 1) continue;
+    const int lane = reshard_src_[u];
+    const uint64_t len = reshard_unit_bytes_[u];
+    if (!makeCurrent(lane, false)) {
+      release();
+      return 1;
+    }
+    SrcBuf sb;
+    sb.lane = lane;
+    sb.bytes = len;
+    if (!check("reshard preload cuMemAlloc", api_.cuMemAlloc(&sb.ptr, len))) {
+      release();
+      return 1;
+    }
+    staged[(int64_t)u] = sb;
+    Lane& l = *lanes_[lane];
+    for (uint64_t off = 0; off < len;) {
+      const uint64_t n = std::min(chunk_bytes_, len - off);
+      fillVerifyPattern(host, n, u * len + off, 0xD2D);
+      if (!check("reshard preload cuMemcpyHtoDAsync",
+                 api_.cuMemcpyHtoDAsync(sb.ptr + off, host, n, l.h2d)) ||
+          syncStream(lane, l.h2d)) {
+        syncStream(lane, l.h2d);
+        release();
+        return 1;
+      }
+      off += n;
+    }
+  }
+  MutexLock lk(reshard_mutex_);
+  reshard_src_bufs_.swap(staged);
+  scratch_all_ = scratch;
+  scratch_free_ = scratch;
+  return 0;
+}
+
+int CudaPath::reshardBeginUnit(int worker_rank, int64_t unit) {
+  if (!reshard_active_.load(std::memory_order_acquire)) return 1;
+  if (unit < 0 || (uint64_t)unit >= reshard_nunits_) return 1;
+  // a begin on a move unit: the engine reads it from storage after the
+  // move tier failed
+  if (reshard_action_[unit] == 1)
+    move_fallback_reads_.fetch_add(1, std::memory_order_relaxed);
+  // a fresh placement attempt re-arms the unit's reconciliation
+  reshard_sub_bytes_[unit].store(0, std::memory_order_relaxed);
+  reshard_res_bytes_[unit].store(0, std::memory_order_relaxed);
+  MutexLock lk(reshard_mutex_);
+  reshard_cur_unit_[worker_rank] = unit;
+  return 0;
+}
+
+int64_t CudaPath::reshardUnitFor(int worker_rank) const {
+  MutexLock lk(reshard_mutex_);
+  auto it = reshard_cur_unit_.find(worker_rank);
+  return it == reshard_cur_unit_.end() ? -1 : it->second;
+}
+
+void CudaPath::settleReshardUnit(int64_t unit) {
+  std::vector<Pending> mine;
+  {
+    MutexLock lk(reshard_mutex_);
+    for (auto it = reshard_pending_.begin(); it != reshard_pending_.end();) {
+      if (it->reshard_unit == unit) {
+        mine.push_back(*it);
+        it = reshard_pending_.erase(it);
+      } else {
+        ++it;
+      }
+    }
+  }
+  for (Pending& p : mine) awaitRelease(p);
+}
+
+char* CudaPath::acquireScratch() {
+  for (;;) {
+    Pending oldest;
+    {
+      MutexLock lk(reshard_mutex_);
+      if (!scratch_free_.empty()) {
+        char* p = scratch_free_.back();
+        scratch_free_.pop_back();
+        return p;
+      }
+      auto it = std::find_if(reshard_pending_.begin(), reshard_pending_.end(),
+                             [](const Pending& q) { return q.owned_src; });
+      if (it == reshard_pending_.end()) break;
+      oldest = *it;
+      reshard_pending_.erase(it);
+    }
+    awaitRelease(oldest);  // its settle returns the scratch to the pool
+  }
+  // every scratch is held by a bounce leg in progress on another thread:
+  // one more for the pool
+  void* h = nullptr;
+  if (!check("bounce scratch cuMemHostAlloc",
+             api_.cuMemHostAlloc(&h, chunk_bytes_, 0)))
+    return nullptr;
+  MutexLock lk(reshard_mutex_);
+  scratch_all_.push_back((char*)h);
+  return (char*)h;
+}
+
+void CudaPath::releaseScratch(char* p) {
+  MutexLock lk(reshard_mutex_);
+  scratch_free_.push_back(p);
+}
+
+cu::CUresult CudaPath::d2dCopy(int src_lane, cu::CUdeviceptr src, int dst,
+                               uint64_t dst_off, uint64_t n) {
+  Lane& dl = *lanes_[dst];
+  const Lane& sl = *lanes_[src_lane];
+  // two lanes of one device share its primary context: a device-local copy
+  if (sl.dev == dl.dev)
+    return api_.cuMemcpyDtoDAsync(dl.landing + dst_off, src, n, dl.h2d);
+  return api_.cuMemcpyPeerAsync(dl.landing + dst_off, dl.ctx, src, sl.ctx, n,
+                                dl.h2d);
+}
+
+int CudaPath::bounceLegs(int src_lane, cu::CUdeviceptr src, char* scratch,
+                         uint64_t len, int dst, uint64_t dst_off,
+                         const char* what, Pending& out) {
+  if (!makeCurrent(src_lane, false)) return 1;
+  Lane& sl = *lanes_[src_lane];
+  if (!check((std::string(what) + " cuMemcpyDtoHAsync").c_str(),
+             api_.cuMemcpyDtoHAsync(scratch, src, len, sl.d2h)) ||
+      syncStream(src_lane, sl.d2h))
+    return 1;
+  if (!makeCurrent(dst, false)) return 1;
+  Lane& dl = *lanes_[dst];
+  if (!check((std::string(what) + " cuMemcpyHtoDAsync").c_str(),
+             api_.cuMemcpyHtoDAsync(dl.landing + dst_off, scratch, len,
+                                    dl.h2d)))
+    return 1;
+  out.bytes = len;
+  out.lane = dst;
+  return 0;
+}
+
+int CudaPath::bounceMoveChunk(int src_lane, cu::CUdeviceptr src, uint64_t len,
+                              int dst, uint64_t dst_off, int64_t unit) {
+  char* scratch = acquireScratch();
+  if (!scratch) return 1;
+  const auto t0 = Clock::now();  // the bounce's whole cost
+  Pending p;
+  if (bounceLegs(src_lane, src, scratch, len, dst, dst_off, "bounce move",
+                 p)) {
+    releaseScratch(scratch);
+    return 1;
+  }
+  p.d2d = true;
+  p.d2d_bounce = true;
+  p.src_lane = src_lane;
+  p.reshard_unit = unit;
+  p.reshard_gen = reshard_unit_gen_[unit].load(std::memory_order_acquire);
+  p.owned_src = scratch;  // the H2D leg reads it until the settle
+  attachCompletion(p, dst, lanes_[dst]->h2d, dst, t0);
+  MutexLock lk(reshard_mutex_);
+  reshard_pending_.push_back(p);
+  return 0;
+}
+
+int CudaPath::recoverMovePending(Pending& p) {
+  // the source is the preloaded unit buffer, alive for the path's
+  // lifetime, so a failed move is copied again through the bounce
+  if (!p.d2d || p.d2d_bounce || !p.d2d_src || !p.bytes) return 1;
+  char* scratch = acquireScratch();
+  if (!scratch) return 1;
+  const int dst = laneIndex(p.lane);
+  Pending wait;
+  int rc = bounceLegs(p.src_lane, p.d2d_src, scratch, p.bytes, dst, 0,
+                      "move recovery", wait);
+  if (rc == 0) {
+    // a bare wait: the original pending carries the accounting
+    wait.bytes = 0;
+    wait.no_recover = true;
+    attachCompletion(wait, dst, lanes_[dst]->h2d, -1, {});
+    rc = awaitRelease(wait);
+  }
+  releaseScratch(scratch);
+  if (rc) return 1;
+  p.d2d_bounce = true;  // settleReshard counts it as a bounce move
+  move_recovered_.fetch_add(1, std::memory_order_relaxed);
+  return 0;
+}
+
+int CudaPath::reshardMove(int worker_rank, int64_t unit) {
+  (void)worker_rank;
+  if (!reshard_active_.load(std::memory_order_acquire)) return 1;
+  if (unit < 0 || (uint64_t)unit >= reshard_nunits_) return 1;
+  if (reshard_action_[unit] != 1) return 1;
+  SrcBuf sb;
+  {
+    MutexLock lk(reshard_mutex_);
+    auto it = reshard_src_bufs_.find(unit);
+    // no staged source (the preload was skipped or failed): the engine
+    // reads the unit from storage
+    if (it == reshard_src_bufs_.end()) return 1;
+    sb = it->second;
+  }
+  const int src = reshard_src_[unit];
+  int dst = reshard_dst_[unit];
+  // live replanning: a move onto an ejected destination goes to a survivor
+  if (faultPolicyActive()) {
+    const int planned = dst;
+    dst = survivorFor(dst);
+    if (dst != planned)
+      replanned_units_.fetch_add(1, std::memory_order_relaxed);
+  }
+  Lane& dl = *lanes_[dst];
+  dl.submits.fetch_add(1, std::memory_order_relaxed);
+  int rc = 0;
+  for (uint64_t off = 0; off < sb.bytes;) {
+    const uint64_t n = std::min(chunk_bytes_, sb.bytes - off);
+    const uint64_t dst_off = landingOffset(off, n);
+    // one submit per chunk before the tier is chosen: a chunk that falls
+    // back to the bounce still reconciles d2d_submitted == d2d_resident
+    reshard_sub_bytes_[unit].fetch_add(n, std::memory_order_relaxed);
+    d2d_submitted_bytes_.fetch_add(n, std::memory_order_relaxed);
+    bool moved = false;
+    if (d2d_ok_ && makeCurrent(dst, false)) {
+      const auto t0 = Clock::now();
+      const cu::CUresult crc = d2dCopy(src, sb.ptr + off, dst, dst_off, n);
+      if (crc) {
+        // refused at submit: this chunk falls back to the bounce below
+        latchXferError(cu::errorText(
+            api_,
+            lanes_[src]->dev == dl.dev ? "cuMemcpyDtoDAsync"
+                                       : "cuMemcpyPeerAsync",
+            crc));
+        if (faultPolicyActive()) recordDeviceError(dst, firstTransferError());
+      } else {
+        Pending p;
+        p.bytes = n;
+        p.d2d = true;
+        p.src_lane = src;
+        p.d2d_src = sb.ptr + off;
+        p.reshard_unit = unit;
+        p.reshard_gen =
+            reshard_unit_gen_[unit].load(std::memory_order_acquire);
+        attachCompletion(p, dst, dl.h2d, dst, t0);
+        MutexLock lk(reshard_mutex_);
+        reshard_pending_.push_back(p);
+        moved = true;
+      }
+    }
+    if (!moved &&
+        bounceMoveChunk(src, sb.ptr + off, n, dst, dst_off, unit) == 0)
+      moved = true;
+    if (!moved) {
+      rc = 1;
+      break;
+    }
+    off += n;
+  }
+  if (rc) {
+    // quiesce the unit's enqueued chunks, then zero its ledger so the
+    // engine's storage fallback reconciles it from a clean slate; the
+    // generation bump makes a late settle of this attempt credit nothing
+    settleReshardUnit(unit);
+    MutexLock lk(reshard_mutex_);
+    reshard_unit_gen_[unit].fetch_add(1, std::memory_order_relaxed);
+    reshard_sub_bytes_[unit].store(0, std::memory_order_relaxed);
+    reshard_res_bytes_[unit].store(0, std::memory_order_relaxed);
+  }
+  return rc;
+}
+
+int CudaPath::reshardBarrier() {
+  // every deferred move and every pending storage read: the phase clock is
+  // the time until all is resharded
+  const auto t0 = Clock::now();
+  std::vector<Pending> moves;
+  {
+    MutexLock lk(reshard_mutex_);
+    moves.swap(reshard_pending_);
+  }
+  int rc = 0;
+  for (Pending& p : moves)
+    if (awaitRelease(p)) rc = 1;
+  if (settleAllShards()) rc = 1;
+  reshard_resident_wait_ns_.fetch_add(
+      (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(
+          Clock::now() - t0)
+          .count(),
+      std::memory_order_relaxed);
+  reshard_barriers_.fetch_add(1, std::memory_order_relaxed);
+  return rc;
+}
+
+CudaPath::ReshardStats CudaPath::reshardStats() const {
+  ReshardStats s;
+  s.units_total = reshard_nunits_;
+  for (uint64_t u = 0; u < reshard_nunits_; u++) {
+    const bool full = reshard_res_bytes_[u].load(std::memory_order_relaxed) ==
+                      reshard_unit_bytes_[u];
+    if (reshard_action_[u] == 0)
+      s.units_resident++;
+    else if (reshard_action_[u] == 1 && full)
+      s.units_moved++;
+    else if (reshard_action_[u] == 2 && full)
+      s.units_read++;
+  }
+  s.d2d_submitted_bytes = d2d_submitted_bytes_.load(std::memory_order_relaxed);
+  s.d2d_resident_bytes = d2d_resident_bytes_.load(std::memory_order_relaxed);
+  s.d2d_moves = d2d_moves_.load(std::memory_order_relaxed);
+  s.bounce_moves = bounce_moves_.load(std::memory_order_relaxed);
+  s.move_recovered = move_recovered_.load(std::memory_order_relaxed);
+  s.move_fallback_reads = move_fallback_reads_.load(std::memory_order_relaxed);
+  s.reshard_read_bytes = reshard_read_bytes_.load(std::memory_order_relaxed);
+  s.resident_wait_ns =
+      reshard_resident_wait_ns_.load(std::memory_order_relaxed);
+  s.barriers = reshard_barriers_.load(std::memory_order_relaxed);
+  return s;
+}
+
+void CudaPath::reshardByteTotals(uint64_t* out) const {
+  out[0] = out[1] = 0;
+  for (uint64_t u = 0; u < reshard_nunits_; u++) {
+    out[0] += reshard_sub_bytes_[u].load(std::memory_order_relaxed);
+    out[1] += reshard_res_bytes_[u].load(std::memory_order_relaxed);
+  }
+}
+
+int CudaPath::reshardPairMatrix(uint64_t* out, int n) const {
+  const int ndev = (int)lanes_.size();
+  for (int i = 0; i < n && i < ndev * ndev; i++) {
+    const bool have = (size_t)i < reshard_pairs_n_;
+    out[(size_t)i * 2] =
+        have ? reshard_pair_moves_[i].load(std::memory_order_relaxed) : 0;
+    out[(size_t)i * 2 + 1] =
+        have ? reshard_pair_bytes_[i].load(std::memory_order_relaxed) : 0;
+  }
+  return ndev;
 }
 
 // ---------------------------------------------------------------- registration

@@ -4,8 +4,9 @@
  *
  * CudaPath ports the part of the original package's PjrtPath
  * (core/include/ebt/pjrt_path.h, core/src/pjrt_path.cpp) that the read and
- * write legs, the stripe tier and checkpoint restore run, with no Python on
- * the hot path. DevCopyFn directions:
+ * write legs, the stripe tier, checkpoint restore, the N->M reshard and the
+ * device fault policy run, with no Python on the hot path. DevCopyFn
+ * directions:
  *   0   host buffer -> device, chunked cuMemcpyHtoDAsync on the lane's H2D
  *       stream; completion deferred to the pre-reuse barrier (direction 2).
  *       Under a stripe plan the planner picks the block's lane; under a
@@ -28,8 +29,28 @@
  *   8   the stripe tier's slice-wide gather barrier (settleAllShards).
  *   9   checkpoint shard begin: tag the worker's following blocks.
  *   10  checkpoint all-resident barrier (settleAllShards).
- * Directions 11-17 (ingest, reshard, rotation) are not ported: they return 1
- * with a latched cause.
+ *   13  reshard unit begin: tag the worker's following storage reads.
+ *   14  reshard move: one plan unit device to device (cuMemcpyPeerAsync
+ *       between two devices, cuMemcpyDtoDAsync between two lanes of one
+ *       device), per chunk on the destination lane's H2D stream, falling
+ *       back per chunk to the host bounce (D2H into pinned scratch, then
+ *       H2D) where the copy is refused or disabled (EBT_D2D_DISABLE).
+ *   15  the all-resharded barrier (every move and read settled).
+ * Directions 11, 12, 16 and 17 (ingest, rotation) are not ported: they
+ * return 1 with a latched cause.
+ *
+ * Device faults (--retry/--maxerrors). With a device error budget set
+ * (setFaultPolicy), a failed copy is resubmitted from its host source onto
+ * surviving lanes with bounded backoff, a lane whose errors reach the budget
+ * is ejected, and every later placement (stripe planner, checkpoint lanes,
+ * plain routing, reshard destinations) is replanned onto survivors. The
+ * recovered bytes move to the survivor's counters, so the stripe and
+ * checkpoint ledgers reconcile through an ejection. Ejection is per lane
+ * (the selected-device index), as in the original's mask: two lanes may
+ * share one device (--gpuids 0,0). On a card an asynchronous fault is
+ * sticky for the device's primary context, so it takes down every lane of
+ * that device; recovery can only land on a lane of another device. The
+ * mock's EBT_MOCK_CUDA_DEV_FAIL_AT poisons one stream only.
  *
  * Stripe and checkpoint ledgers. A stripe plan (--stripe rr|contig) maps
  * each read block's file offset onto a lane; a checkpoint plan (--checkpoint)
@@ -68,8 +89,9 @@
  * runs, so the trampoline takes one leaf lock and calls no driver API.
  *
  * Lock hierarchy (as in PjrtPath): reg_mutex_ > QueueShard::m > {err_mutex_,
- * src_mutex_, rank_mutex_, Lane::histo_m, Tracker::m}; stripe_mutex_ and
- * ckpt_mutex_ are leaves that never nest with err_mutex_.
+ * src_mutex_, rank_mutex_, Lane::histo_m, Tracker::m}; stripe_mutex_,
+ * ckpt_mutex_, fault_mutex_ and reshard_mutex_ are leaves that never nest
+ * with err_mutex_.
  */
 #pragma once
 
@@ -212,11 +234,93 @@ class CudaPath {
   int ckptBarrier();
   std::string ckptError() const EBT_EXCLUDES(ckpt_mutex_);
 
+  // ---- device faults: retry, lane ejection, live replanning ----
+  struct FaultStats {
+    uint64_t dev_retry_attempts = 0;    // recovery resubmits tried
+    uint64_t dev_retry_success = 0;     // copies recovered
+    uint64_t dev_retry_backoff_ns = 0;  // time in recovery backoff waits
+    uint64_t dev_errors = 0;            // lane-attributed failures seen
+    uint64_t ejected_devices = 0;       // lanes ejected
+    uint64_t replanned_units = 0;       // placements moved off ejected lanes
+  };
+  // device_error_budget: failures a lane may take before it is ejected (0 =
+  // the policy is off); retry_max: resubmits beyond one walk over the
+  // survivors; backoff_ms: the exponential backoff base. Read lock-free.
+  void setFaultPolicy(int device_error_budget, int retry_max,
+                      uint64_t backoff_ms);
+  FaultStats faultStats() const;
+  uint64_t ejectedMask() const {
+    return ejected_mask_.load(std::memory_order_acquire);
+  }
+  // "device N: cause" of every ejection, '\n'-joined in order; N is the lane
+  std::string ejectedDevices() const EBT_EXCLUDES(fault_mutex_);
+  // force-eject a lane: 0 ok, 1 = out of range, already ejected, or the
+  // last healthy lane
+  int ejectDevice(int device_idx, const std::string& cause)
+      EBT_EXCLUDES(fault_mutex_);
+  // the engine's interrupt flag: backoff waits wake when it is set
+  void setInterruptFlag(const std::atomic<bool>* flag) {
+    interrupt_flag_.store(flag, std::memory_order_release);
+  }
+
+  // ---- N->M reshard plan and the device-to-device tier (--reshard) ----
+  struct ReshardStats {
+    uint64_t units_total = 0;
+    uint64_t units_resident = 0;  // planned action-0 units
+    uint64_t units_moved = 0;     // move units whose resident bytes are full
+    uint64_t units_read = 0;      // read units whose resident bytes are full
+    uint64_t d2d_submitted_bytes = 0;  // bytes entering the move tier
+    uint64_t d2d_resident_bytes = 0;   // move bytes settled on the dst lane
+    uint64_t d2d_moves = 0;       // chunk moves settled device to device
+    uint64_t bounce_moves = 0;    // chunk moves settled via the host bounce
+    uint64_t move_recovered = 0;  // failed moves recovered by a bounce
+    uint64_t move_fallback_reads = 0;  // move units re-read from storage
+    uint64_t reshard_read_bytes = 0;   // storage-read bytes under unit tags
+    uint64_t resident_wait_ns = 0;     // direction-15 barriers' await time
+    uint64_t barriers = 0;             // direction-15 invocations
+  };
+  // one entry per unit (action 0 resident / 1 move / 2 read, src lane, dst
+  // lane, bytes); before the first data copy. 0 ok, 1 on a bad plan.
+  int setReshardPlan(const std::vector<int>& unit_action,
+                     const std::vector<int>& unit_src,
+                     const std::vector<int>& unit_dst,
+                     const std::vector<uint64_t>& unit_bytes);
+  // stage every move unit's source on its src lane (cuMemAlloc, the
+  // offset+salt pattern with salt 0xD2D): the prior restore onto N lanes.
+  // Untimed set-up; idempotent. 0 ok, 1 with the cause in
+  // firstTransferError().
+  int reshardPreload() EBT_EXCLUDES(reshard_mutex_);
+  // direction 13: tag worker_rank's following storage reads with `unit`
+  int reshardBeginUnit(int worker_rank, int64_t unit)
+      EBT_EXCLUDES(reshard_mutex_);
+  int64_t reshardUnitFor(int worker_rank) const EBT_EXCLUDES(reshard_mutex_);
+  // direction 14: move unit `unit`; 1 = no tier could land it (the engine
+  // then reads the unit from storage)
+  int reshardMove(int worker_rank, int64_t unit) EBT_EXCLUDES(reshard_mutex_);
+  // direction 15: settle every move and every pending read; 1 = a reshard
+  // transfer failed ("unit U src A dst B: cause" in reshardError())
+  int reshardBarrier() EBT_EXCLUDES(reshard_mutex_);
+  ReshardStats reshardStats() const;
+  // out[0] = bytes submitted under unit tags, out[1] = bytes resident
+  void reshardByteTotals(uint64_t* out) const;
+  // out[(src*ndev + dst)*2] = settled chunk moves, [..+1] = their bytes, for
+  // the first n pairs; returns the lane count
+  int reshardPairMatrix(uint64_t* out, int n) const;
+  std::string reshardError() const EBT_EXCLUDES(reshard_mutex_);
+  // the driver has the device-to-device entries and EBT_D2D_DISABLE is off
+  bool d2dSupported() const { return d2d_ok_; }
+  // ordered pairs of distinct selected devices, and of those the pairs with
+  // peer access enabled at init (cuCtxEnablePeerAccess)
+  void peerAccess(int* enabled, int* pairs) const {
+    *enabled = peer_enabled_;
+    *pairs = peer_pairs_;
+  }
+
   // the slice-wide settle sweep shared by directions 8 and 10 and by
   // teardown: every pending transfer of every buffer is awaited, under the
   // barriers' draining holds; 1 if any failed
   int settleAllShards();
-  void drainAll() { settleAllShards(); }
+  void drainAll();
 
  private:
   using Clock = std::chrono::steady_clock;
@@ -246,6 +350,25 @@ class CudaPath {
     bool stripe = false;
     int64_t stripe_unit = -1;
     int64_t ckpt_shard = -1;  // every chunk of a restore block
+    // reshard: the plan unit of a move or storage read, and the unit's
+    // re-arm generation at enqueue (a settle of a superseded attempt does
+    // not credit the re-armed unit)
+    int64_t reshard_unit = -1;
+    uint32_t reshard_gen = 0;
+    // a device-to-device move: settled bytes credit the pair matrix and
+    // d2d_resident, never the lane byte counters; d2d_src is the chunk's
+    // preloaded source on src_lane (alive for the path's lifetime), from
+    // which a failed move is recovered through the host bounce
+    bool d2d = false;
+    bool d2d_bounce = false;
+    int src_lane = -1;
+    cu::CUdeviceptr d2d_src = 0;
+    char* owned_src = nullptr;  // bounce scratch, back to the pool at settle
+    // the chunk's host source (read-leg copies): valid until this pending
+    // settles, so a failed copy can be resubmitted to a survivor lane
+    const char* src = nullptr;
+    // a recovery's own copies: their settle neither recovers nor attributes
+    bool no_recover = false;
   };
   struct QueueShard {
     mutable Mutex m;
@@ -321,9 +444,11 @@ class CudaPath {
                         int device_idx, Clock::time_point t0);
   int awaitRelease(Pending& p);
   int syncStream(int lane, cu::CUstream stream);  // all work enqueued so far
-  // stripe_unit / ckpt_shard >= 0 tag the pendings as they enqueue
+  // stripe_unit / ckpt_shard / reshard_unit >= 0 tag the pendings as they
+  // enqueue
   void enqueue(void* buf, std::vector<Pending>& ps, int64_t stripe_unit = -1,
-               int64_t ckpt_shard = -1) EBT_EXCLUDES(reg_mutex_);
+               int64_t ckpt_shard = -1, int64_t reshard_unit = -1)
+      EBT_EXCLUDES(reg_mutex_);
   // ledger bookkeeping at a pending's settle (awaitRelease); the cause is
   // read out of err_mutex_ before the ledger's leaf lock is taken
   void settleStripe(const Pending& p, int rc) EBT_EXCLUDES(stripe_mutex_);
@@ -333,12 +458,96 @@ class CudaPath {
   void latchCkptError(int device, int64_t shard, const std::string& cause)
       EBT_EXCLUDES(ckpt_mutex_);
 
+  // ---- fault-policy internals ----
+  bool faultPolicyActive() const {
+    return fault_device_budget_.load(std::memory_order_relaxed) > 0;
+  }
+  // the mask is 64 bits wide: lanes beyond it are never ejected
+  bool laneEjected(int idx) const {
+    return idx >= 0 && idx < 64 &&
+           (ejected_mask_.load(std::memory_order_acquire) >> idx & 1);
+  }
+  // The retry walk shared by the submit-time and settle-time recoveries:
+  // healthy lanes after failed_lane in turn, at most lanes + retry_max
+  // candidates, backoff before every attempt after the first, a bail-out on
+  // interrupt. attempt_fn(cand) returns true on success; a declining
+  // candidate is charged `cause` (or the first transfer error). Returns the
+  // lane that succeeded, or -1.
+  template <typename Fn>
+  int walkSurvivors(int failed_lane, Fn&& attempt_fn,
+                    const std::string* cause = nullptr) {
+    const int ndev = (int)lanes_.size();
+    const int extra = fault_retry_max_.load(std::memory_order_relaxed);
+    int attempts = 0;
+    for (int i = 1; i <= ndev + extra; i++) {
+      const int cand = (failed_lane + i) % ndev;
+      if (laneEjected(cand)) continue;
+      attempts++;
+      dev_retry_attempts_.fetch_add(1, std::memory_order_relaxed);
+      if (attempts > 1 && !faultBackoffWait(attempts - 1)) return -1;
+      if (attempt_fn(cand)) {
+        dev_retry_success_.fetch_add(1, std::memory_order_relaxed);
+        return cand;
+      }
+      recordDeviceError(cand, cause && !cause->empty() ? *cause
+                                                       : firstTransferError());
+    }
+    return -1;
+  }
+  // the lane a placement on device_idx uses: itself while healthy, else a
+  // fixed survivor (the survivors in ascending order, picked by
+  // device_idx % their count); unchanged when every lane is ejected
+  int survivorFor(int device_idx) const;
+  void recordDeviceError(int device_idx, const std::string& cause)
+      EBT_EXCLUDES(fault_mutex_);
+  // settle-time recovery: resubmit p's host source synchronously onto
+  // survivors; 0 = recovered (p.lane is the survivor, its bytes moved
+  // there), 1 = not recoverable. Called under no lock.
+  int recoverPending(Pending& p) EBT_EXCLUDES(fault_mutex_, err_mutex_);
+  // the backoff before recovery attempt `attempt` (1-based); false when the
+  // interrupt flag fired
+  bool faultBackoffWait(int attempt);
+
+  // ---- reshard internals ----
+  void settleReshard(const Pending& p, int rc) EBT_EXCLUDES(reshard_mutex_);
+  void latchReshardError(int64_t unit, int src, int dst,
+                         const std::string& cause)
+      EBT_EXCLUDES(reshard_mutex_);
+  // one device-to-device chunk copy onto dst's landing buffer, on dst's H2D
+  // stream (dst's context current)
+  cu::CUresult d2dCopy(int src_lane, cu::CUdeviceptr src, int dst,
+                       uint64_t dst_off, uint64_t n);
+  // the two bounce legs: an awaited D2H fetch of src into scratch on the src
+  // lane's D2H stream, then the H2D copy onto dst (completion left to the
+  // caller, who keeps scratch alive until it settles). 0 ok.
+  int bounceLegs(int src_lane, cu::CUdeviceptr src, char* scratch,
+                 uint64_t len, int dst, uint64_t dst_off, const char* what,
+                 Pending& out);
+  // one bounce-tier chunk move, deferred into the reshard ledger. 0 ok.
+  int bounceMoveChunk(int src_lane, cu::CUdeviceptr src, uint64_t len,
+                      int dst, uint64_t dst_off, int64_t unit)
+      EBT_EXCLUDES(reshard_mutex_);
+  // settle-time recovery of a failed device-to-device move through the
+  // bounce; 0 = recovered (counted as a bounce move)
+  int recoverMovePending(Pending& p) EBT_EXCLUDES(reshard_mutex_);
+  // settle every deferred move of one unit
+  void settleReshardUnit(int64_t unit) EBT_EXCLUDES(reshard_mutex_);
+  // pinned bounce scratch of chunk size from the pool made at preload;
+  // with the pool empty the oldest deferred bounce move is settled first
+  char* acquireScratch() EBT_EXCLUDES(reshard_mutex_);
+  void releaseScratch(char* p) EBT_EXCLUDES(reshard_mutex_);
+  uint64_t landingOffset(uint64_t off, uint64_t n) const {
+    const uint64_t o = off % landing_cap_;
+    return o + n <= landing_cap_ ? o : 0;
+  }
+
   RankBufs& rankBufs(int worker_rank, int lane) EBT_EXCLUDES(rank_mutex_);
   bool ensureBuffer(int lane, cu::CUdeviceptr* p, uint64_t* cap,
                     uint64_t len);
 
   int submitH2D(int device_idx, const char* buf, uint64_t len,
-                int64_t stripe_unit = -1, int64_t ckpt_shard = -1);
+                int64_t stripe_unit = -1, int64_t ckpt_shard = -1,
+                int64_t reshard_unit = -1);
   // before copies from [buf, buf + len): wait out a registration change on
   // the range, then report whether it is registered and, if so, hold it in
   // the shard's draining ledger against eviction until releaseHold
@@ -434,6 +643,65 @@ class CudaPath {
   mutable Mutex ckpt_mutex_;
   std::unordered_map<int, int64_t> ckpt_cur_shard_ EBT_GUARDED_BY(ckpt_mutex_);
   std::string ckpt_error_ EBT_GUARDED_BY(ckpt_mutex_);
+
+  // fault policy: atomics read lock-free per block; the mask is the
+  // replanner's routing input
+  std::atomic<int> fault_device_budget_{0};  // 0 = off
+  std::atomic<int> fault_retry_max_{0};
+  std::atomic<uint64_t> fault_backoff_ms_{10};
+  std::atomic<uint64_t> ejected_mask_{0};
+  std::atomic<uint64_t> dev_retry_attempts_{0};
+  std::atomic<uint64_t> dev_retry_success_{0};
+  std::atomic<uint64_t> dev_retry_backoff_ns_{0};
+  std::atomic<uint64_t> dev_errors_{0};
+  std::atomic<uint64_t> ejected_devices_{0};
+  std::atomic<uint64_t> replanned_units_{0};
+  std::atomic<const std::atomic<bool>*> interrupt_flag_{nullptr};
+  // leaf lock: per-lane error counts and the ejection attributions
+  mutable Mutex fault_mutex_;
+  std::vector<uint64_t> lane_errors_ EBT_GUARDED_BY(fault_mutex_);
+  std::string ejected_error_ EBT_GUARDED_BY(fault_mutex_);
+
+  // reshard plan: written once by setReshardPlan before the path is sealed
+  std::atomic<int> reshard_active_{0};
+  uint64_t reshard_nunits_ = 0;
+  std::vector<int> reshard_action_;
+  std::vector<int> reshard_src_;
+  std::vector<int> reshard_dst_;
+  std::vector<uint64_t> reshard_unit_bytes_;
+  std::unique_ptr<std::atomic<uint64_t>[]> reshard_sub_bytes_;
+  std::unique_ptr<std::atomic<uint64_t>[]> reshard_res_bytes_;
+  std::unique_ptr<std::atomic<uint32_t>[]> reshard_unit_gen_;
+  std::unique_ptr<std::atomic<uint64_t>[]> reshard_pair_moves_;
+  std::unique_ptr<std::atomic<uint64_t>[]> reshard_pair_bytes_;
+  size_t reshard_pairs_n_ = 0;
+  std::atomic<uint64_t> d2d_submitted_bytes_{0};
+  std::atomic<uint64_t> d2d_resident_bytes_{0};
+  std::atomic<uint64_t> d2d_moves_{0};
+  std::atomic<uint64_t> bounce_moves_{0};
+  std::atomic<uint64_t> move_recovered_{0};
+  std::atomic<uint64_t> move_fallback_reads_{0};
+  std::atomic<uint64_t> reshard_read_bytes_{0};
+  std::atomic<uint64_t> reshard_resident_wait_ns_{0};
+  std::atomic<uint64_t> reshard_barriers_{0};
+  bool d2d_ok_ = false;
+  int peer_enabled_ = 0, peer_pairs_ = 0;
+  struct SrcBuf {
+    int lane = 0;
+    cu::CUdeviceptr ptr = 0;
+    uint64_t bytes = 0;
+  };
+  // leaf lock: the per-worker unit table, the preloaded sources, the
+  // deferred moves (they have no host buffer key), the bounce scratch pool
+  // and the first failure. Released before every submit and await.
+  mutable Mutex reshard_mutex_;
+  std::unordered_map<int, int64_t> reshard_cur_unit_
+      EBT_GUARDED_BY(reshard_mutex_);
+  std::map<int64_t, SrcBuf> reshard_src_bufs_ EBT_GUARDED_BY(reshard_mutex_);
+  std::vector<Pending> reshard_pending_ EBT_GUARDED_BY(reshard_mutex_);
+  std::vector<char*> scratch_free_ EBT_GUARDED_BY(reshard_mutex_);
+  std::vector<char*> scratch_all_ EBT_GUARDED_BY(reshard_mutex_);
+  std::string reshard_error_ EBT_GUARDED_BY(reshard_mutex_);
 
   mutable Mutex rank_mutex_;
   std::map<std::pair<int, int>, std::unique_ptr<RankBufs>> rank_bufs_

@@ -566,7 +566,8 @@ class TorchStagingPath:
                 segments.append((pos, pos + v.shape[0], t))
             pos += v.shape[0]
         chunks: list[_Chunk] = []
-        checks = []  # (segment buffer, its file offset, result or None)
+        # (segment buffer, its file offset, result or None, device)
+        checks = []
         try:
             c = self.chunk_bytes
             for a, b, t in segments:
@@ -579,15 +580,21 @@ class TorchStagingPath:
                 n8 = (b - a) // 8 * 8
                 res = None
                 if n8:
-                    with self._on_copy_stream(t):  # read after the kernel
+                    with self._on_copy_stream(t):
                         res = verify_block_u32(buf[:n8], file_off + a,
                                                self.verify_salt)
-                checks.append((buf, file_off + a, res))
+                checks.append((buf, file_off + a, res, t))
             with self._lock:
                 self._last_h2d[rank] = chunks
                 self._count_h2d(chunks)
-            for buf, off, res in checks:
-                if res is not None:
+            for buf, off, res, t in checks:
+                if res is None:
+                    continue
+                # read on the copy stream, behind the kernel: the current
+                # stream is not ordered after it, and a read there can find
+                # the result buffer before the kernel wrote it (a previous
+                # block's result, or none)
+                with self._on_copy_stream(t):
                     num_bad, first_bad = res.tolist()
                     if num_bad:
                         self._raise_verify(buf, off, first_bad)

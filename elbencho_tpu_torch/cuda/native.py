@@ -5,8 +5,9 @@ C++ transfer engine (csrc/cuda_path.cpp), which drives the card through the
 CUDA driver API with no Python on the hot path. The flag keeps the original
 package's name for CLI and result-tree parity; this module is the port's
 counterpart of the original's tpu/native.py (NativePjrtPath) with its
-stripe-tier and checkpoint-restore ledgers, without its ingest, reshard,
-rotation, fault-policy, transfer-manager and raw-ceiling parts.
+stripe-tier, checkpoint-restore and reshard ledgers and its device fault
+policy, without its ingest, rotation, transfer-manager and raw-ceiling
+parts.
 
 This module resolves WHICH driver library the engine loads, makes sure the
 kernel library is built when on-device verify or write generation is on,
@@ -307,6 +308,157 @@ class NativeCudaPath:
         buf = ctypes.create_string_buffer(1024)
         self._lib.ebt_cuda_ckpt_error(self._h, buf, len(buf))
         return buf.value.decode()
+
+    # ---- N->M reshard plan + the device-to-device tier (--reshard) ----
+    #
+    # The planner (checkpoint.plan_reshard) diffs the manifest's N-lane
+    # placement against the M-lane target and emits one unit per (shard,
+    # target) pair: already resident, a move src->dst, or a storage read.
+    # The engine executes the plan (directions 13/14/15); this ledger owns
+    # the move tier and the evidence: per-unit submitted/resident bytes,
+    # the src->dst pair matrix and "unit U src A dst B: cause".
+
+    # the reshard action codes of the native plan
+    RESHARD_ACTIONS = {"resident": 0, "move": 1, "read": 2}
+
+    def set_reshard_plan(self, units) -> None:
+        """Install the reshard plan before any transfer. `units` is the
+        planner's ReshardUnit list."""
+        n = len(units)
+        actions = (ctypes.c_int * n)(
+            *[self.RESHARD_ACTIONS[u.action] for u in units])
+        srcs = (ctypes.c_int * n)(*[u.src_dev for u in units])
+        dsts = (ctypes.c_int * n)(*[u.dst_dev for u in units])
+        nbytes = (ctypes.c_uint64 * n)(*[u.bytes for u in units])
+        rc = self._lib.ebt_cuda_set_reshard_plan(self._h, actions, srcs,
+                                                 dsts, nbytes, n)
+        if rc != 0:
+            raise ProgException(
+                f"reshard plan rejected ({n} unit(s)): the plan must "
+                "precede the first transfer and every unit must name "
+                "in-range lanes with nonzero bytes")
+
+    def reshard_preload(self) -> None:
+        """Stage the move units' sources on their src lanes (the prior
+        restore onto N lanes). Untimed set-up, idempotent; run at prepare,
+        never inside the measured phase."""
+        if self._lib.ebt_cuda_reshard_preload(self._h) != 0:
+            raise ProgException(
+                f"reshard preload failed: {self.last_error()}")
+
+    def reshard_stats(self) -> dict[str, int]:
+        """Reshard counters: unit outcomes, the move tier's submitted/
+        resident bytes, chunk moves settled device to device (d2d_moves)
+        and through the host bounce (bounce_moves), settle-time bounce
+        recoveries, move units re-read from storage, storage-read bytes
+        under unit tags and the direction-15 barriers. Session-
+        cumulative."""
+        out = (ctypes.c_uint64 * 13)()
+        self._lib.ebt_cuda_reshard_stats(self._h, out)
+        return {"units_total": out[0], "units_resident": out[1],
+                "units_moved": out[2], "units_read": out[3],
+                "d2d_submitted_bytes": out[4], "d2d_resident_bytes": out[5],
+                "d2d_moves": out[6], "bounce_moves": out[7],
+                "move_recovered": out[8], "move_fallback_reads": out[9],
+                "reshard_read_bytes": out[10], "resident_wait_ns": out[11],
+                "barriers": out[12]}
+
+    def reshard_byte_totals(self) -> tuple[int, int]:
+        """(submitted, resident) bytes under reshard unit tags (moves and
+        storage reads); equal once every all-resharded barrier returned
+        clean."""
+        out = (ctypes.c_uint64 * 2)()
+        self._lib.ebt_cuda_reshard_byte_totals(self._h, out)
+        return out[0], out[1]
+
+    def reshard_pair_matrix(self) -> list[dict[str, int]]:
+        """The src->dst lane-pair matrix: one entry per pair that settled
+        at least one chunk move, row-major over the lanes."""
+        ndev = self.num_devices
+        npairs = ndev * ndev
+        out = (ctypes.c_uint64 * max(2, npairs * 2))()
+        got = self._lib.ebt_cuda_reshard_pair_matrix(self._h, out, npairs)
+        pairs = []
+        for i in range(min(npairs, got * got)):
+            if out[i * 2] == 0 and out[i * 2 + 1] == 0:
+                continue
+            pairs.append({"src": i // ndev, "dst": i % ndev,
+                          "moves": out[i * 2], "bytes": out[i * 2 + 1]})
+        return pairs
+
+    def reshard_barrier(self) -> bool:
+        """Run the all-resharded barrier explicitly (the engine's reshard
+        workers run it as direction 15). False = a reshard transfer
+        failed; cause in reshard_error()."""
+        return self._lib.ebt_cuda_reshard_barrier(self._h) == 0
+
+    def reshard_error(self) -> str:
+        """First reshard failure ("unit U src A dst B: cause"); empty when
+        none."""
+        buf = ctypes.create_string_buffer(1024)
+        self._lib.ebt_cuda_reshard_error(self._h, buf, len(buf))
+        return buf.value.decode()
+
+    @property
+    def d2d_supported(self) -> bool:
+        """The driver has the device-to-device copy entries and
+        EBT_D2D_DISABLE=1 does not force the bounce control."""
+        return bool(self._lib.ebt_cuda_d2d_supported(self._h))
+
+    def peer_access(self) -> tuple[int, int]:
+        """(ordered pairs of distinct selected devices with peer access
+        enabled at init, all such pairs)."""
+        out = (ctypes.c_int * 2)()
+        self._lib.ebt_cuda_peer_access(self._h, out)
+        return out[0], out[1]
+
+    # ---- device faults: lane ejection + live replanning ----
+    #
+    # With a nonzero device error budget, a failed copy is resubmitted from
+    # its host source onto survivor lanes with bounded backoff, a lane whose
+    # budget trips is ejected (its bit lands in ejected_mask), and every
+    # later placement replans onto survivors, so the stripe and checkpoint
+    # ledgers reconcile through an ejection.
+
+    def set_fault_policy(self, device_error_budget: int, retry_max: int,
+                         backoff_ms: int) -> None:
+        """Arm the recovery machinery (budget 0 = off, the default)."""
+        self._lib.ebt_cuda_set_fault_policy(
+            self._h, int(device_error_budget), int(retry_max),
+            int(backoff_ms))
+
+    def fault_stats(self) -> dict[str, int]:
+        """Recovery resubmits tried/succeeded, time in backoff waits,
+        lane-attributed failures, lanes ejected and placements replanned
+        off ejected lanes. Session-cumulative (ejection is sticky)."""
+        out = (ctypes.c_uint64 * 6)()
+        self._lib.ebt_cuda_fault_stats(self._h, out)
+        return {"dev_retry_attempts": out[0], "dev_retry_success": out[1],
+                "dev_retry_backoff_ns": out[2], "dev_errors": out[3],
+                "ejected_devices": out[4], "replanned_units": out[5]}
+
+    def ejected_devices(self) -> str:
+        """"device N: cause" of every ejection (N the lane), newline-joined
+        in ejection order; empty when none."""
+        buf = ctypes.create_string_buffer(4096)
+        self._lib.ebt_cuda_ejected(self._h, buf, len(buf))
+        return buf.value.decode()
+
+    @property
+    def ejected_mask(self) -> int:
+        """Bitmask of ejected lanes (bit i = selected device i)."""
+        return self._lib.ebt_cuda_ejected_mask(self._h)
+
+    def eject_device(self, device: int, cause: str = "") -> bool:
+        """Force-eject a lane; False when out of range, already ejected,
+        or the last healthy lane."""
+        return self._lib.ebt_cuda_eject_device(
+            self._h, int(device), cause.encode()) == 0
+
+    def set_interrupt_flag(self, flag_addr: int) -> None:
+        """Wire the engine's interrupt flag (NativeEngine.interrupt_flag)
+        so recovery backoff waits wake promptly on interrupt."""
+        self._lib.ebt_cuda_set_interrupt_flag(self._h, flag_addr)
 
     # ---- per-device lanes and latency ----
 

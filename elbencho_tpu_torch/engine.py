@@ -567,7 +567,27 @@ def _declare_cuda(lib: ctypes.CDLL) -> None:
             ("ckpt_byte_totals", [vp, u64p], None),
             ("ckpt_dev_bytes", [vp, u64p, i32], i32),
             ("ckpt_barrier", [vp], i32),
-            ("ckpt_error", [vp, s, i32], None)):
+            ("ckpt_error", [vp, s, i32], None),
+            # the device fault policy and the reshard ledger, with the
+            # ebt_pjrt_* twins' signatures
+            ("set_fault_policy", [vp, i32, i32, u64], None),
+            ("fault_stats", [vp, u64p], None),
+            ("ejected", [vp, s, i32], None),
+            ("ejected_mask", [vp], u64),
+            ("eject_device", [vp, i32, s], i32),
+            ("set_interrupt_flag", [vp, vp], None),
+            ("set_reshard_plan", [vp, ctypes.POINTER(ctypes.c_int),
+                                  ctypes.POINTER(ctypes.c_int),
+                                  ctypes.POINTER(ctypes.c_int), u64p, i32],
+             i32),
+            ("reshard_preload", [vp], i32),
+            ("reshard_stats", [vp, u64p], None),
+            ("reshard_byte_totals", [vp, u64p], None),
+            ("reshard_pair_matrix", [vp, u64p, i32], i32),
+            ("reshard_barrier", [vp], i32),
+            ("reshard_error", [vp, s, i32], None),
+            ("d2d_supported", [vp], i32),
+            ("peer_access", [vp, ctypes.POINTER(ctypes.c_int)], None)):
         fn = getattr(lib, f"ebt_cuda_{name}")
         fn.argtypes = args
         fn.restype = res

@@ -8,10 +8,10 @@ Everything rides the WorkerGroup accessor surface (workers/base.py), so the
 exported numbers are exactly the counter families the result tree is built
 from, under the original's names.
 
-The original's families of the ingest, reshard and serving-rotation
-subsystems are left out with those subsystems, which the port refuses at
-config validation: its worker groups have no such counters to read. The
-stripe and checkpoint families are carried. METRIC_FAMILIES lists what the
+The original's families of the ingest and serving-rotation subsystems are
+left out with those subsystems, which the port refuses at config
+validation: its worker groups have no such counters to read. The stripe,
+checkpoint and reshard families are carried. METRIC_FAMILIES lists what the
 port emits.
 
 Consistency rules (the scrape-during-phase-transition contract):
@@ -105,6 +105,12 @@ METRIC_FAMILIES = (
     ("ebt_ckpt_shards_resident", "gauge",
      "Shards whose resident bytes reconciled at the all-resident "
      "barrier."),
+    ("ebt_reshard_units_total", "gauge",
+     "Reshard plan units (N->M topology shift)."),
+    ("ebt_reshard_units_settled_total", "counter",
+     "Reshard units settled by action (resident/moved/read)."),
+    ("ebt_reshard_moves_total", "counter",
+     "Reshard chunk moves by tier (d2d/bounce)."),
     ("ebt_serving_sched_rate", "gauge",
      "CURRENT scheduled offered rate (arrivals/s per worker) per tenant "
      "class — the --arrival trace schedule's instantaneous rate, or the "
@@ -311,6 +317,19 @@ def render_metrics(workers, cfg=None, phase: BenchPhase = BenchPhase.IDLE,
         o.sample("ebt_ckpt_shards_resident", None,
                  cs.get("shards_resident", 0))
 
+    def reshard_block(o: _Renderer) -> None:
+        rs = workers.reshard_stats()
+        if not rs:
+            return
+        o.sample("ebt_reshard_units_total", None, rs.get("units_total", 0))
+        for action in ("resident", "moved", "read"):
+            o.sample("ebt_reshard_units_settled_total", {"action": action},
+                     rs.get(f"units_{action}", 0))
+        o.sample("ebt_reshard_moves_total", {"tier": "d2d"},
+                 rs.get("d2d_moves", 0))
+        o.sample("ebt_reshard_moves_total", {"tier": "bounce"},
+                 rs.get("bounce_moves", 0))
+
     def serving_block(o: _Renderer) -> None:
         # scheduled-rate + SLO-goodput gauges ride the tenant classes
         # (open-loop only)
@@ -347,7 +366,7 @@ def render_metrics(workers, cfg=None, phase: BenchPhase = BenchPhase.IDLE,
 
     for block in (phase_block, workers_block, totals_block, tenants_block,
                   device_block, faults_block, reactor_block, stripe_block,
-                  ckpt_block, serving_block, pod_block):
+                  ckpt_block, reshard_block, serving_block, pod_block):
         family(block)
     return out.text()
 

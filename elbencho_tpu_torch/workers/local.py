@@ -9,10 +9,10 @@ backend, and reads back live counters and results.
 The port carries the staged/direct callback backend, the hostsim backend,
 and the native pjrt path (`--tpubackend pjrt`: the C++ CUDA transfer engine
 of csrc/cuda_path.cpp, installed as a C function pointer) with its stripe
-planner and checkpoint restore. The scenarios the original builds on the
-native path beyond those (reshard, ingest, serving rotation, the device
-fault policy) are refused at config validation, so the counter families
-only they produce stay at the WorkerGroup defaults (None).
+planner, checkpoint restore, N->M reshard and device fault policy. The
+scenarios the original builds on the native path beyond those (ingest,
+serving rotation) are refused at config validation, so the counter
+families only they produce stay at the WorkerGroup defaults (None).
 """
 
 from __future__ import annotations
@@ -42,7 +42,15 @@ class LocalWorkerGroup(WorkerGroup):
         self._engaged_tier: str | None = None
         self._engaged_d2h_tier: str | None = None
         self._engaged_stripe_tier: str | None = None
+        # reshard move tier, confirmed from settled-move deltas: "d2d" when
+        # a chunk move settled device to device, "bounce" when moves
+        # settled only through the host bounce
+        self._engaged_reshard_tier: str | None = None
         self._tier_base: dict = {}
+        # device FaultStats at the last start_phase: the native counters
+        # are session-cumulative (ejection is sticky), the result tree
+        # reports phase-scoped deltas
+        self._fault_base: dict[str, int] = {}
 
     # ------------------------------------------------------------- lifecycle
 
@@ -172,6 +180,11 @@ class LocalWorkerGroup(WorkerGroup):
         elif backend == DevBackend.HOSTSIM:
             e.set("num_devices", max(1, len(cfg.tpu_ids)))
             e.set("dev_write_path", 1)
+        if self._native_path is not None:
+            # the last config step: reading the interrupt flag's address
+            # makes the native engine from the finished config (a later
+            # e.set() would be lost); recovery backoff waits poll it
+            self._native_path.set_interrupt_flag(e.interrupt_flag)
         return e
 
     def _build_native(self, e: NativeEngine) -> None:
@@ -185,6 +198,11 @@ class LocalWorkerGroup(WorkerGroup):
             self._native_path = NativeCudaPath(cfg)
         np_ = self._native_path
         e.set_dev_callback_native(np_.copy_fn_ptr, np_.ctx)
+        # device-side fault policy: with an error budget a lane that fails
+        # is ejected and its work replanned onto survivors (stripe planner,
+        # checkpoint placement, rank routing and reshard destinations)
+        if cfg.fault_tolerant:
+            np_.set_fault_policy(1, cfg.retry_max, cfg.retry_backoff_ms)
         if cfg.verify_salt and not cfg.tpu_host_verify:
             # read blocks are checked by the verify kernel, launched from
             # C++ once per block, and verified writes source the pattern the
@@ -225,17 +243,52 @@ class LocalWorkerGroup(WorkerGroup):
                                       validate_placement)
 
             resolve_generated_placement(cfg.ckpt_shards, np_.num_devices)
-            validate_placement(
-                cfg.ckpt_shards, np_.num_devices,
-                cfg.checkpoint_manifest or "--checkpoint-shards")
-            np_.set_ckpt_plan(cfg.ckpt_shards)
-            for shard in cfg.ckpt_shards:
-                e.add_ckpt_shard(shard.path, shard.bytes, shard.devices)
-            e.set("dev_ckpt", 1)
-            LOGGER.info(
-                f"checkpoint restore: {len(cfg.ckpt_shards)} "
-                f"shard(s) over {np_.num_devices} device(s), "
-                f"{cfg.ckpt_total_bytes() >> 20} MiB total")
+            if not cfg.reshard_devices:
+                # a reshard accepts placements beyond the live lanes (the
+                # pre-shift topology: plan_reshard makes them read units);
+                # a plain restore refuses them
+                validate_placement(
+                    cfg.ckpt_shards, np_.num_devices,
+                    cfg.checkpoint_manifest or "--checkpoint-shards")
+            if cfg.reshard_devices:
+                # topology-shift restore (--reshard M): diff the manifest's
+                # placement against the M-lane target now that the lanes
+                # are known, install the plan in the reshard ledger (the
+                # move tier and per-unit reconciliation) and hand the
+                # engine the units (the direction-13/14/15 protocol and the
+                # storage reads)
+                from ..checkpoint import plan_reshard, reshard_plan_summary
+
+                cfg.reshard_units = plan_reshard(
+                    cfg.ckpt_shards, np_.num_devices, cfg.reshard_devices)
+                np_.set_reshard_plan(cfg.reshard_units)
+                for u in cfg.reshard_units:
+                    e.add_reshard_unit(
+                        np_.RESHARD_ACTIONS[u.action], u.src_dev,
+                        u.dst_dev, u.bytes, u.path)
+                e.set("dev_reshard", 1)
+                plan = reshard_plan_summary(cfg.reshard_units)
+                LOGGER.info(
+                    f"reshard plan: {plan['units']} unit(s) -> "
+                    f"{cfg.reshard_devices} device(s) "
+                    f"({plan['resident']} resident, {plan['move']} "
+                    f"move / {plan['move_bytes'] >> 20} MiB, "
+                    f"{plan['read']} read / "
+                    f"{plan['read_bytes'] >> 20} MiB); D2D "
+                    + ("native" if np_.d2d_supported else "bounce"))
+                enabled, pairs = np_.peer_access()
+                if pairs:
+                    LOGGER.info(f"D2D peer access: on for {enabled} of "
+                                f"{pairs} device pair(s)")
+            else:
+                np_.set_ckpt_plan(cfg.ckpt_shards)
+                for shard in cfg.ckpt_shards:
+                    e.add_ckpt_shard(shard.path, shard.bytes, shard.devices)
+                e.set("dev_ckpt", 1)
+                LOGGER.info(
+                    f"checkpoint restore: {len(cfg.ckpt_shards)} "
+                    f"shard(s) over {np_.num_devices} device(s), "
+                    f"{cfg.ckpt_total_bytes() >> 20} MiB total")
         if cfg.stripe_policy:
             # the stripe tier: install the block->lane plan (the planner
             # owns direction-0 placement from here on) and have the engine
@@ -280,6 +333,11 @@ class LocalWorkerGroup(WorkerGroup):
             # the shard directory, not a file to create)
             self.engine.prepare_paths()
         self.engine.prepare()
+        if self._native_path is not None and self.cfg.reshard_devices:
+            # stage the move units' sources on their src lanes: the "restored
+            # onto N lanes" pre-state, untimed (the RESHARD clock measures
+            # the reshard, never the pre-state)
+            self._native_path.reshard_preload()
         self._prepared = True
 
     def _staging_path(self):
@@ -290,6 +348,8 @@ class LocalWorkerGroup(WorkerGroup):
         # tier-engagement deltas are phase-scoped: confirm_engaged_tier()
         # sees only THIS phase's traffic
         self._tier_base = self.tier_counter_snapshot()
+        if self._native_path is not None:
+            self._fault_base = self._native_path.fault_stats()
         # per-chip latency is phase-scoped like every other histogram
         source = self._native_path or self._staging_path()
         if source is not None:
@@ -328,7 +388,9 @@ class LocalWorkerGroup(WorkerGroup):
         self._engaged_tier = None  # a fresh session must re-confirm
         self._engaged_d2h_tier = None
         self._engaged_stripe_tier = None
+        self._engaged_reshard_tier = None
         self._tier_base = {}
+        self._fault_base = {}
 
     # ----------------------------------------------------------------- stats
 
@@ -476,11 +538,16 @@ class LocalWorkerGroup(WorkerGroup):
         if np_ is None:
             return {}
         to_hbm, from_hbm = np_.transferred_bytes
+        rs = np_.reshard_stats()
         return {"zero_copy": np_.zero_copy_count,
                 "to_hbm": to_hbm,
                 "from_hbm": from_hbm,
                 "d2h_deferred": np_.d2h_stats()["deferred_count"],
                 "stripe_units": np_.stripe_stats()["units_submitted"],
+                # reshard move tier: which path the chunk moves settled
+                # through since the phase base
+                "d2d_moves": rs["d2d_moves"],
+                "bounce_moves": rs["bounce_moves"],
                 # per-lane h2d byte totals: the stripe tier is confirmed
                 # only when units actually landed on >= 2 lanes
                 "lanes_to_hbm": [ln["to_hbm"] for ln in np_.lane_stats()]}
@@ -560,6 +627,91 @@ class LocalWorkerGroup(WorkerGroup):
                         f"{self._engaged_stripe_tier} -> {tier}")
         self._engaged_stripe_tier = tier
         return tier
+
+    def confirm_reshard_tier(self,
+                             base: dict[str, int] | None = None
+                             ) -> str | None:
+        """Reshard twin of confirm_engaged_tier: "d2d" when a chunk move
+        settled device to device since `base`, "bounce" when moves settled
+        only through the host bounce (EBT_D2D_DISABLE=1, a refused copy, or
+        fallbacks that caught every move). Confirmed from counter deltas,
+        never from d2d_supported alone. Returns the previous confirmation
+        when the window settled no moves."""
+        np_ = self._native_path
+        if np_ is None or not self.cfg.reshard_devices:
+            return None
+        base = self._tier_base if base is None else base
+        now = self.tier_counter_snapshot()
+        d2d = now["d2d_moves"] - base.get("d2d_moves", 0)
+        bounce = now["bounce_moves"] - base.get("bounce_moves", 0)
+        if d2d + bounce <= 0:
+            return self._engaged_reshard_tier
+        tier = "d2d" if d2d > 0 else "bounce"
+        if (self._engaged_reshard_tier is not None
+                and tier != self._engaged_reshard_tier):
+            LOGGER.info(f"reshard move tier engagement changed: "
+                        f"{self._engaged_reshard_tier} -> {tier}")
+        self._engaged_reshard_tier = tier
+        return tier
+
+    def reshard_tier(self) -> str | None:
+        """The engagement-confirmed reshard move tier ("d2d"/"bounce"), or
+        None before any settled move (or without a reshard plan / off the
+        native path)."""
+        return self._engaged_reshard_tier
+
+    def reshard_stats(self) -> dict[str, int] | None:
+        """The ReshardStats family plus the per-unit-tag byte pair
+        (unit_bytes_submitted/unit_bytes_resident: moves and storage
+        reads, equal once every all-resharded barrier returned clean).
+        None without a --reshard plan / off the native path."""
+        if self._native_path is None or not self.cfg.reshard_devices:
+            return None
+        stats = self._native_path.reshard_stats()
+        sub, res = self._native_path.reshard_byte_totals()
+        stats["unit_bytes_submitted"] = sub
+        stats["unit_bytes_resident"] = res
+        return stats
+
+    def reshard_pairs(self) -> list[dict[str, int]] | None:
+        """The src->dst lane-pair move/byte matrix, or None without a
+        reshard plan."""
+        if self._native_path is None or not self.cfg.reshard_devices:
+            return None
+        return self._native_path.reshard_pair_matrix()
+
+    def reshard_error(self) -> str | None:
+        """First reshard failure ("unit U src A dst B: cause"), or
+        None."""
+        if self._native_path is None or not self.cfg.reshard_devices:
+            return None
+        return self._native_path.reshard_error()
+
+    def d2d_supported(self) -> bool | None:
+        """Device-to-device copies available and not disabled (the
+        capability half of the tier claim; engagement rides
+        reshard_tier()). None off the native path."""
+        if self._native_path is None:
+            return None
+        return self._native_path.d2d_supported
+
+    def fault_stats(self) -> dict[str, int] | None:
+        """Device-side fault evidence (recovery retries, ejections,
+        replanned placements) as deltas against the last start_phase, so
+        a clean phase after a faulted one reports none of its recoveries
+        (ejection itself stays sticky: ejected_devices()). None off the
+        native path."""
+        if self._native_path is None:
+            return None
+        now = self._native_path.fault_stats()
+        return {k: v - self._fault_base.get(k, 0) for k, v in now.items()}
+
+    def ejected_devices(self) -> str | None:
+        """"device N: cause" of every ejection (newline-joined), or None
+        off the native path; empty string when none was ejected."""
+        if self._native_path is None:
+            return None
+        return self._native_path.ejected_devices()
 
     def stripe_tier(self) -> str | None:
         """The engagement-confirmed stripe tier ("striped"/"single"), or
@@ -704,6 +856,7 @@ class LocalWorkerGroup(WorkerGroup):
             self.confirm_engaged_tier()
             self.confirm_d2h_tier()
             self.confirm_stripe_tier()
+            self.confirm_reshard_tier()
         out = []
         cpu_sw = self.engine.cpu_stonewall_pct()
         staging = self._staging_path()
@@ -729,6 +882,10 @@ class LocalWorkerGroup(WorkerGroup):
                 cerr = self._native_path.ckpt_error()
                 if cerr and cerr not in err:
                     err = f"{err}: {cerr}"
+                rerr = self._native_path.reshard_error() \
+                    if self.cfg.reshard_devices else ""
+                if rerr and rerr not in err:
+                    err = f"{err}: {rerr}"
                 nerr = self._native_path.last_error()
                 if nerr and nerr not in err:
                     err = f"{err}: {nerr}"

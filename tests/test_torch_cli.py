@@ -137,24 +137,25 @@ def test_file_written_by_one_package_verifies_under_the_other(
 
 
 @pytest.mark.parametrize("args,flag", [
-    # --tpubackend pjrt itself is ported; its device fault policy is not
-    pytest.param(["--tpubackend", "pjrt", "--retry", "2", "-r", "-s", "1M",
-                  "PATH"], "--retry with --tpubackend pjrt",
-                 id="args0---tpubackend pjrt"),
+    # --tpubackend pjrt itself is ported; serving rotation on it is not
+    pytest.param(["--tpubackend", "pjrt", "--rotate", "1", "-r", "-s", "1M",
+                  "PATH"], "--rotate", id="args0---tpubackend pjrt"),
     (["--chaos", "seed=1", "-r", "-s", "1M", "PATH"], "--chaos"),
     (["--rotate", "1", "-r", "-s", "1M", "PATH"], "--rotate"),
-    (["--reshard", "2", "-r", "PATH"], "--reshard"),
+    (["--ingestshards", "2", "--tpubackend", "pjrt", "-r", "PATH"],
+     "--ingestshards"),
     # the checkpoint scenario is ported; a flag it composes with that is
     # not is refused first, by name
     (["--checkpoint-shards", "2", "-w", "-s", "1M", "--tpubackend", "pjrt",
       "--rotate", "1", "PATH"], "--rotate"),
     (["--checkpoint-shards", "2", "-w", "-s", "1M", "--tpubackend", "pjrt",
-      "--reshard", "2", "PATH"], "--reshard"),
+      "--reshard", "1", "--chaos", "seed=1", "PATH"], "--chaos"),
     # the stripe tier is ported; fault injection over it is not
     (["--stripe", "rr", "--tpubackend", "pjrt", "--chaos", "seed=1", "-r",
       "-s", "1M", "PATH"], "--chaos"),
-    (["--maxerrors", "2", "--tpubackend", "pjrt", "-r", "-s", "1M", "PATH"],
-     "--maxerrors with --tpubackend pjrt"),
+    # the device fault policy is ported; fault injection over it is not
+    (["--maxerrors", "2", "--tpubackend", "pjrt", "--chaos", "seed=1", "-r",
+      "-s", "1M", "PATH"], "--chaos"),
     (["--ingest", "PATH", "-r"], "--ingest"),
     (["--ingestshards", "2", "-r", "PATH"], "--ingestshards"),
 ])
@@ -165,6 +166,21 @@ def test_unported_flags_refused(bench_dir, capfd, args, flag):
     assert str(e.value) == f"{flag}: not yet ported (see ROADMAP.md)"
     assert torch_main(argv) == 1
     assert "not yet ported" in capfd.readouterr().err
+
+
+@pytest.mark.parametrize("args", [
+    ["--tpubackend", "pjrt", "--retry", "2", "-r", "-s", "1M", "PATH"],
+    ["--maxerrors", "2", "--tpubackend", "pjrt", "-r", "-s", "1M", "PATH"],
+    ["--checkpoint-shards", "2", "-w", "-s", "1M", "--tpubackend", "pjrt",
+     "--reshard", "1", "DIR"],
+], ids=["retry-pjrt", "maxerrors-pjrt", "reshard"])
+def test_ported_fault_and_reshard_flags_accepted(bench_dir, args):
+    """The device fault policy and --reshard are ported: the command lines
+    the port refused before are accepted, as by the original."""
+    argv = [str(bench_dir / "r") if a == "PATH" else
+            str(bench_dir) if a == "DIR" else a for a in args]
+    cfg = config_from_args(argv)
+    assert cfg.tpu_backend_name == "pjrt"
 
 
 def test_no_cuda_and_no_cpu_request_refuses(bench_dir, capfd, monkeypatch):

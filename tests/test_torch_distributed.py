@@ -243,17 +243,17 @@ def test_unported_flag_refused_by_the_service_framed_by_host(
     """A flag the port does not carry, sent over the wire by the original's
     master, is refused by the port service with the command line's text,
     and the master reports it framed by the host."""
-    p = str(bench_dir / "tf")
-    with open(p, "wb") as f:
-        f.write(b"\0" * (1 << 20))
+    p = bench_dir / "tf"
+    p.mkdir()
     capfd.readouterr()
-    rc = jax_main(["--hosts", _hosts_arg(two_services[:1]), "-r", "-t", "1",
-                   "-s", "1M", "-b", "256k", "--gpuids", "0",
-                   "--tpubackend", "pjrt", "--retry", "2", "--nolive", p])
+    rc = jax_main(["--hosts", _hosts_arg(two_services[:1]), "-w", "-t", "1",
+                   "--ingestshards", "2", "--recordsize", "4k", "-s", "1M",
+                   "-b", "256k", "--gpuids", "0", "--tpubackend", "pjrt",
+                   "--nolive", str(p)])
     out = capfd.readouterr()
     assert rc == 1
     assert (f"service 127.0.0.1:{two_services[0]}" in out.err and
-            "--retry with --tpubackend pjrt: not yet ported (see ROADMAP.md)"
+            "--ingestshards: not yet ported (see ROADMAP.md)"
             in out.err), out
 
 

@@ -171,6 +171,45 @@ def test_staged_verify_on_the_card(cuda, tmp_path, monkeypatch):
     assert sp.verify_errors[0].endswith(f"file offset {file_off + planted}")
 
 
+def test_staged_verify_reads_its_result_behind_the_kernel(cuda, tmp_path,
+                                                         monkeypatch):
+    """The staged path reads a block's verify result on the stream its
+    copies and kernel ran on. With a device sleep queued on that stream
+    just before each launch, a read on another stream would find the
+    result buffer before the kernel wrote it: a corrupt block would pass
+    and the next block would be blamed. Each block must get its own
+    verdict."""
+    from elbencho_tpu_torch.cuda import backend
+
+    launch = backend.verify_block_u32
+
+    def late_launch(*args):
+        torch.cuda._sleep(200_000_000)  # ~0.1 s of device time first
+        return launch(*args)
+
+    monkeypatch.setattr(backend, "verify_block_u32", late_launch)
+    monkeypatch.setenv("EBT_TPU_CHUNK_BYTES", str(1 << 20))
+    p = tmp_path / "f"
+    p.write_bytes(b"\0" * (4 << 20))
+    sp = TorchStagingPath(config_from_args(
+        ["-r", "-t", "1", "-b", "4M", "--gpuids", "0", "--tpubackend",
+         "staged", "--verify", "42", "--nolive", str(p)]))
+    planted = (1 << 20) + 4
+    for i, corrupt in enumerate((False, True, False, True, False)):
+        file_off = (i + 1) << 22
+        words = (np.arange(1 << 19, dtype=np.uint64) * np.uint64(8)
+                 + np.uint64(file_off + 42))
+        buf = words.view(np.uint8).copy()
+        if corrupt:
+            buf[planted] ^= 0x81
+        sp.verify_errors.clear()
+        rc = sp.copy(0, 0, 0, buf.ctypes.data, buf.nbytes, file_off)
+        assert rc == (2 if corrupt else 0), (i, sp.verify_errors)
+        if corrupt:
+            assert sp.verify_errors[0].endswith(
+                f"file offset {file_off + planted}")
+
+
 # B3 on the card: (words, word offset into the buffer, file offset, salt)
 FILL_CASES = [(1 << 16, 0, (1 << 33) + 4096, (1 << 40) + 7),
               (4097, 0, U64 - 4095, 7),            # wraps past 2^64

@@ -791,9 +791,9 @@ def test_cli_end_to_end(pkgs, tmp_path, capfd):
 
 
 @pytest.mark.parametrize("args,env,flag", [
-    (["--maxerrors", "3"], {}, "--maxerrors with --tpubackend pjrt"),
+    (["--rotate", "3"], {}, "--rotate"),
     ([], {"EBT_PJRT_XFER_MGR": "1"}, "EBT_PJRT_XFER_MGR"),
-    (["--retry", "2"], {}, "--retry with --tpubackend pjrt"),
+    (["--retry", "2", "--chaos", "seed=1"], {}, "--chaos"),
 ])
 def test_unported_pjrt_parts_refused(tmp_path, monkeypatch, args, env, flag):
     """What the native engine does not carry yet is refused by name."""

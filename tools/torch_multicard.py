@@ -13,8 +13,11 @@ master checks them against its fan-in), with one latency row per host and
 device. Then the native engine's stripe tier over all cards (--stripe rr
 and contig on a 4 GiB file, each card's bytes as the planner places them)
 and a checkpoint restore of meta-llama/Llama-3.1-8B's four shard sizes
-(16.1 GB) with shard i on card i mod n. Prints the card's name and power
-limit and the GiB/s it measured.
+(16.1 GB) with shard i on card i mod n, then the same manifest resharded
+from n cards onto the first two (--reshard 2): the shards of the other
+cards move card to card over cuMemcpyPeerAsync (peer access state
+printed), with the reshard ledger checked as in chip_smoke.py. Prints the
+card's name and power limit and the GiB/s it measured.
 """
 
 from __future__ import annotations
@@ -99,6 +102,10 @@ def main() -> int:
         chip_smoke.restore(["-t", str(len(paths)), "--tpubackend", "pjrt",
                             "--checkpoint", man, "--lat", "--nolive"],
                            f"one shard per card over {n} cards", want)
+        chip_smoke.reshard(["-t", str(len(paths)), "--tpubackend", "pjrt",
+                            "--checkpoint", man, "--reshard", "2", "--lat",
+                            "--nolive"],
+                           f"{n} cards -> 2, card to card", "d2d")
     print("torch_multicard: ok", flush=True)
     return 0
 
