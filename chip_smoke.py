@@ -61,16 +61,16 @@ Phases, each reported on its own line:
      per-device counters; exactly one ingest launch per device and step,
      one reduction launch per step and reduce;
  14. distributed service mode on the card: two port services (subprocesses,
-     --gpuids 0) and a port master on a 2 GiB file in /dev/shm, staged
+     --gpuids 0) and a port master on a 1 GiB file in /dev/shm, staged
      --verify write + read, then the native engine (--tpubackend pjrt
      --lat): totals equal to the file, host-prefixed per-chip rows, a
      corrupt byte failing the run framed by the host whose service reports
      its exact offset, /metrics answering; with two or more cards the slice
      tier (--gpuids 0,1, SliceOps reduced over two devices);
  15. the native stripe tier on two lanes of the card (--gpuids 0,0): the
-     4 GiB file read with --stripe rr, then contig (tier "striped", one
-     settled unit per block, the lanes' bytes as the planner places them,
-     GiB/s and p50/p99 per lane);
+     first 2 GiB of the 4 GiB file read with --stripe rr, then contig
+     (tier "striped", one settled unit per block, the lanes' bytes as the
+     planner places them, GiB/s and p50/p99 per lane);
  16. a 1 GiB native --verify write + read with --stripe rr over two lanes:
      one C++ fill launch per block written and one verify launch per block
      read on the lane the planner chose, a corrupt byte at its exact offset;
@@ -98,7 +98,26 @@ Phases, each reported on its own line:
      EBT_D2D_DISABLE=1 through the host bounce: tier d2d then bounce,
      d2d_submitted == d2d_resident == the plan's move bytes, the pair
      matrix equal to the plan's moves; RESHARD GiB/s and the time until all
-     is resharded.
+     is resharded;
+ 21. serving rotation (runs inside phase 18): open-loop serving reads of a
+     1 GiB file (-t 4 -b 64K, a steady trace of 56 arrivals/s per worker)
+     while the Llama-3.1-8B shards are rotated onto device 0 every second
+     (--rotate 1, unthrottled, at least two swaps), then one pass without
+     rotation, then rotation of the generated 8 x 256 MiB checkpoint with
+     --bgbudget at half of the first run's restore rate: every swapped
+     record reconciled (4 shards, 16060556376 bytes; released == the
+     previous record's retained), free device memory falling by a
+     generation while one is resident and coming back after the teardown,
+     sampled ranges of every shard read back from device memory equal to
+     the files, the tenant ledger exact, throttle evidence under the
+     budget, no kernel launched; TTR per rotation, READ GiB/s and p99 with
+     and without rotation;
+ 22. DL ingestion: a generated 16 x 256 MiB dataset in /dev/shm read as
+     32768 records of 128 KiB in 4 MiB batches over two epochs with a
+     1024-record shuffle window (-t 4, tier pipelined), then the serial
+     control (-t 1 --prefetchbatches 1): per epoch every record read and
+     resident and none dropped, the lanes' bytes equal to the dataset times
+     the epochs, no kernel launched; GiB/s and records/s per epoch.
 
 The second-to-last line is a JSON object describing each kernel of the path;
 the last line is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -136,13 +155,21 @@ MAIN_ARGS = ["-t", "4", "-s", "4G", "-b", "8M", "--iodepth", "4", "--gpuids",
              "0", "--lat", "--nolive"]
 INGEST_OPS_PER_BYTE = 4     # verify's 3, plus the checksum's adds
 ENTRY_BLOCK = 64 << 10      # graft_entry.entry()'s block
-DIST_SIZE = 2 << 30         # the distributed runs' file
+DIST_SIZE = 1 << 30         # the distributed runs' file
 COLD_BYTES = 128 << 20      # rotating buffers, 2.5x the 50 MB L2
 GRAPH_LAUNCHES = 200
 STRIPE_READ = ["-t", "4", "-b", "8M", "--iodepth", "4", "--tpubackend",
                "pjrt", "--lat", "--nolive"]
 # meta-llama/Llama-3.1-8B, model-0000{1..4}-of-00004.safetensors (bf16)
 LLAMA_8B_SHARDS = (4976698672, 4999802720, 4915916176, 1168138808)
+SERVE_BYTES = 1 << 30       # the serving file
+SERVE_RATE = 56             # arrivals/s per worker: 14 MiB/s over 4 workers
+SERVE_SECS = 70             # the rotation run (two swaps at up to 34 s of
+                            # TTR each); the 1 GiB lasts 73 s
+PLAIN_SECS = 10             # the pass without rotation
+INGEST_ARGS = ["--ingestshards", "16", "-s", "256M", "--recordsize", "128K",
+               "-b", "4M", "--epochs", "2", "--shufflewindow", "1024",
+               "--tpubackend", "pjrt", "--nolive"]
 
 
 def phase(name: str, msg: str) -> None:
@@ -1480,13 +1507,7 @@ def write_shards(d: str, sizes, seed: int = 20261016) -> list[str]:
     def write(i: int) -> str:
         p = os.path.join(d, f"model-{i + 1:05d}-of-{len(sizes):05d}"
                             ".safetensors")
-        gen = np.random.PCG64(streams[i])
-        with open(p, "wb") as f:
-            left = sizes[i]
-            while left:
-                k = min(left, 64 << 20)
-                f.write(gen.random_raw(-(-k // 8)).view(np.uint8)[:k])
-                left -= k
+        write_file(p, sizes[i], streams[i])
         return p
 
     with ThreadPoolExecutor(len(sizes)) as pool:
@@ -1608,6 +1629,235 @@ def native_reshard(d: str, paths) -> None:
                      f"{native['move_bytes']} bytes moved")
 
 
+def write_file(path: str, size: int, seed) -> None:
+    """A file of `size` bytes from a PCG64 stream of `seed` (an int or a
+    numpy SeedSequence)."""
+    gen = np.random.PCG64(seed)
+    with open(path, "wb") as f:
+        left = size
+        while left:
+            k = min(left, 64 << 20)
+            f.write(gen.random_raw(-(-k // 8)).view(np.uint8)[:k])
+            left -= k
+
+
+def merged_p99(histos) -> int:
+    h = None
+    for x in histos:
+        h = x if h is None else h.merge(x)
+    return h.percentile_us(99.0) if h is not None else 0
+
+
+def serve(serve_file: str, trace: str, label: str, extra: list[str],
+          paths=(), gen_bytes: int = 0) -> dict:
+    """One serving read phase over the 1 GiB file on device 0, with
+    rotation when `extra` names a manifest. Every swapped record reconciles
+    to the manifest, the tenant ledger is exact, device memory shows a
+    resident generation while the phase runs and comes back after the
+    teardown, and sampled ranges of every shard read back from the active
+    generation equal the files. Returns what the phase prints."""
+    from elbencho_tpu_torch.common import BenchPhase
+    from elbencho_tpu_torch.config import config_from_args
+    from elbencho_tpu_torch.cuda import native
+    from elbencho_tpu_torch.workers.local import LocalWorkerGroup
+
+    cfg = config_from_args([serve_file, "-r", "-t", "4", "-b", "64K", "-s",
+                            str(SERVE_BYTES), "--tpubackend", "pjrt",
+                            "--arrival", "trace", "--ratetrace", trace,
+                            "--nolive", *extra])
+    launches = native.kernel_launches()
+    free0 = torch.cuda.mem_get_info(0)[0]
+    min_free = free0
+    group = LocalWorkerGroup(cfg)
+    group.prepare()
+    try:
+        group.start_phase(BenchPhase.READFILES, "smoke")
+        while not group.wait_done(100):
+            min_free = min(min_free, torch.cuda.mem_get_info(0)[0])
+        res = group.phase_results()
+        errs = [r.error for r in res if r.error]
+        if errs:
+            raise AssertionError(f"{label}: {errs}")
+        secs = max(max(r.elapsed_us_list) for r in res) / 1e6
+        moved = sum(r.ops.bytes for r in res)
+        (tenant,) = group.tenant_stats()
+        if tenant["arrivals"] != tenant["completions"] + tenant["dropped"]:
+            raise AssertionError(f"{label}: tenant ledger {tenant}")
+        out = {"gibs": moved / secs / (1 << 30), "secs": secs,
+               "op_p99": merged_p99(r.iops_histo for r in res),
+               "tenant_p99": merged_p99(group.tenant_latency().values()),
+               "tenant": tenant}
+        if paths:
+            svs, recs = group.serving_stats(), group.rotation_records()
+            ttrs = group.rotation_ttr_ns()
+            out.update(svs=svs, recs=recs, ttrs=ttrs,
+                       mem_drop=free0 - min_free)
+            total = sum(os.path.getsize(p) for p in paths)
+            if len(recs) < 2 or len(ttrs) != len(recs):
+                raise AssertionError(f"{label}: {len(recs)} swaps, {svs}")
+            for i, r in enumerate(recs):
+                want_rel = 0 if i == 0 else recs[i - 1]["retained_buffers"]
+                if (r["shards_resident"] != len(paths)
+                        or r["shards_total"] != len(paths)
+                        or r["bytes_submitted"] != total
+                        or r["bytes_resident"] != total
+                        or r["released_buffers"] != want_rel):
+                    raise AssertionError(f"{label}: record {i} {r}")
+            if free0 - min_free < gen_bytes:
+                raise AssertionError(
+                    f"{label}: free device memory fell by only "
+                    f"{free0 - min_free} bytes, one generation is "
+                    f"{gen_bytes}")
+            # the active generation, read back from device memory
+            np_ = group._native_path
+            for s, p in enumerate(paths):
+                size = os.path.getsize(p)
+                span = min(1 << 20, size)
+                with open(p, "rb") as f:
+                    for off in (0, (size - span) // 2, size - span):
+                        f.seek(off)
+                        if np_.rotation_read(s, off, span) != f.read(span):
+                            raise AssertionError(
+                                f"{label}: shard {s} at {off} differs "
+                                "from its file")
+    finally:
+        group.teardown()
+    free1 = torch.cuda.mem_get_info(0)[0]
+    if free0 - free1 > 256 << 20:
+        raise AssertionError(f"{label}: {free0 - free1} bytes of device "
+                             "memory still held after the teardown")
+    if native.kernel_launches() != launches:
+        raise AssertionError(f"{label}: the serving path launched a kernel")
+    return out
+
+
+def serving_rotation(d: str, paths) -> dict:
+    """Phase 21 (inside phase 18, on its Llama-3.1-8B shard files): serving
+    traffic on a 1 GiB file while the 16.1 GB model is rotated onto
+    device 0 every second, then one pass without rotation. Returns the
+    serving file, the trace and run 1's restore rate, for run 2."""
+    serve_file = os.path.join(d, "serve.bin")
+    write_file(serve_file, SERVE_BYTES, 20261017)
+    trace = os.path.join(d, "steady.json")
+    with open(trace, "w") as f:
+        json.dump({"segments": [{"at": 0, "kind": "step",
+                                 "rate": SERVE_RATE}]}, f)
+    man = write_manifest(d, "man_rot.json", paths, [[0]] * len(paths))
+    total = sum(os.path.getsize(p) for p in paths)
+    rot = serve(serve_file, trace, "rotation",
+                ["--checkpoint", man, "--rotate", "1", "--timelimit",
+                 str(SERVE_SECS)], paths, total)
+    plain = serve(serve_file, trace, "no rotation",
+                  ["--timelimit", str(PLAIN_SECS)])
+    ttrs = [t / 1e9 for t in rot["ttrs"]]
+    rate = total / (sum(ttrs) / len(ttrs))
+    phase("serving", f"--rotate 1 unthrottled, {len(rot['recs'])} swaps of "
+                     f"{len(paths)} shards / {total} bytes, every record "
+                     f"reconciled; TTR per rotation "
+                     f"{', '.join(f'{t:.3f}' for t in ttrs)} s (restore "
+                     f"{rate / (1 << 30):.3f} GiB/s); free device memory "
+                     f"fell by {rot['mem_drop'] >> 20} MiB while resident, "
+                     f"back after the teardown; read-back == files; "
+                     f"READ {rot['gibs']:.3f} GiB/s, op p99 "
+                     f"{rot['op_p99']} us, arrival-clock p99 "
+                     f"{rot['tenant_p99']} us, tenant {rot['tenant']}")
+    phase("serving", f"no rotation: READ {plain['gibs']:.3f} GiB/s, op p99 "
+                     f"{plain['op_p99']} us, arrival-clock p99 "
+                     f"{plain['tenant_p99']} us, tenant {plain['tenant']}")
+    return {"serve_file": serve_file, "trace": trace, "rate": rate}
+
+
+def serving_budgeted(d: str, run1: dict, paths) -> None:
+    """Phase 21, run 2 (on phase 18's generated 8 x 256 MiB checkpoint):
+    the same serving traffic with --bgbudget at half of run 1's restore
+    rate; the buckets must show throttle evidence."""
+    total = sum(os.path.getsize(p) for p in paths)
+    budget = int(run1["rate"] / 2)
+    secs = max(8, -(-3 * total // budget) + 2)  # two swaps, with room
+    man = write_manifest(d, "man_rot2.json", paths, [[0]] * len(paths))
+    run = serve(run1["serve_file"], run1["trace"], "rotation, budgeted",
+                ["--checkpoint", man, "--rotate", "1", "--bgbudget",
+                 str(budget), "--timelimit", str(secs)], paths, total)
+    svs = run["svs"]
+    throttled = svs["bg_throttle_ns"] + svs["bg_lane_throttle_ns"]
+    if throttled <= 0:
+        raise AssertionError(f"rotation, budgeted: no throttle evidence "
+                             f"{svs}")
+    ttrs = [t / 1e9 for t in run["ttrs"]]
+    phase("serving", f"--bgbudget {budget} B/s over {len(paths)} x "
+                     f"{os.path.getsize(paths[0]) >> 20} MiB: "
+                     f"{len(run['recs'])} swaps, every record reconciled; "
+                     f"TTR {', '.join(f'{t:.3f}' for t in ttrs)} s "
+                     f"(restore {total / (sum(ttrs) / len(ttrs)) / (1 << 30):.3f}"
+                     f" GiB/s); throttled {throttled / 1e9:.3f} s (storage "
+                     f"{svs['bg_throttle_ns'] / 1e9:.3f}, lanes "
+                     f"{svs['bg_lane_throttle_ns'] / 1e9:.3f}); READ "
+                     f"{run['gibs']:.3f} GiB/s, op p99 {run['op_p99']} us, "
+                     f"arrival-clock p99 {run['tenant_p99']} us")
+    os.remove(run1["serve_file"])
+
+
+def ingest_run(args: list[str], label: str, want_tier: str) -> None:
+    """One INGEST phase: per epoch records_read == records_resident ==
+    every record of the dataset and none dropped, the bytes the lanes took
+    equal to the dataset times the epochs, the confirmed tier, no kernel
+    launched. Prints GiB/s and records/s per epoch."""
+    from elbencho_tpu_torch.common import BenchPhase
+    from elbencho_tpu_torch.config import config_from_args
+    from elbencho_tpu_torch.cuda import native
+    from elbencho_tpu_torch.workers.local import LocalWorkerGroup
+
+    cfg = config_from_args(args)
+    launches = native.kernel_launches()
+    group = LocalWorkerGroup(cfg)
+    group.prepare()
+    try:
+        to0 = group._native_path.transferred_bytes[0]
+        drive(group, BenchPhase.INGEST, label)
+        moved = group._native_path.transferred_bytes[0] - to0
+        st, tier = group.ingest_stats(), group.ingest_tier()
+        n = cfg.ingest_total_records()
+        size = n * cfg.record_size
+        bad = [e for e in st["epochs"] if e["read"] != n
+               or e["resident"] != n or e["dropped"]]
+        if (bad or len(st["epochs"]) != cfg.ingest_epochs
+                or moved != size * cfg.ingest_epochs or tier != want_tier
+                or group.ingest_error()):
+            raise AssertionError(f"{label}: tier {tier}, {st}, device bytes "
+                                 f"{moved}, error '{group.ingest_error()}'")
+        per_epoch = "; ".join(
+            f"epoch {i}: {size / (t / 1e9) / (1 << 30):.3f} GiB/s, "
+            f"{n / (t / 1e9):.0f} records/s"
+            for i, t in enumerate(st["epoch_time_ns"]))
+        phase("ingest-ledger", f"{label}: tier {tier}, {n} records of "
+                               f"{cfg.record_size} B per epoch read == "
+                               f"resident, 0 dropped, device bytes {moved};"
+                               f" {per_epoch}; prefetch peak "
+                               f"{st['prefetch_depth_peak']} batches")
+    finally:
+        group.teardown()
+    if native.kernel_launches() != launches:
+        raise AssertionError(f"{label}: the ingest path launched a kernel")
+
+
+def ingest_ledger(d: str) -> None:
+    """Phase 22: DL ingestion of a generated 16 x 256 MiB dataset (32768
+    records of 128 KiB, about the mean size of an ImageNet-1k training
+    JPEG) over two shuffled epochs, then the serial control."""
+    t0 = time.perf_counter()
+    ds = os.path.join(d, "dataset")
+    os.mkdir(ds)
+    ingest_run(["-w", "-t", "4", *INGEST_ARGS, ds], "-t 4, pipelined",
+               "pipelined")
+    # the serial control: one worker with one batch in flight (with more
+    # workers the path-wide in-flight gauge sees their batches overlap)
+    ingest_run(["-t", "1", "--prefetchbatches", "1", *INGEST_ARGS, ds],
+               "-t 1 --prefetchbatches 1, serial", "serial")
+    shutil.rmtree(ds)
+    phase("ingest-ledger", f"ingest phase took "
+                           f"{time.perf_counter() - t0:.1f}s")
+
+
 def write_manifest(d: str, name: str, paths, devices) -> str:
     man = os.path.join(d, name)
     with open(man, "w") as f:
@@ -1637,6 +1887,7 @@ def checkpoint_restore(d: str, shard_sizes=LLAMA_8B_SHARDS,
             "--gpuids 0,0, shards 0 and 2 on lane 0, 1 on lane 1, 3 on both",
             [s[0] + s[2] + s[3], s[1] + s[3]])
     native_reshard(d, paths)
+    run1 = serving_rotation(d, paths)
     for p in paths:
         os.remove(p)
     gen = os.path.join(d, "gen")
@@ -1646,6 +1897,8 @@ def checkpoint_restore(d: str, shard_sizes=LLAMA_8B_SHARDS,
     restore(["-w", "--checkpoint-shards", str(n_gen), "-s", gen_size, "-t",
              "4", "--tpubackend", "pjrt", "--nolive", gen],
             f"generated, {n_gen} x {gen_size}", [gen_bytes])
+    serving_budgeted(d, run1, [os.path.join(gen, f"ckpt.shard.{i}")
+                               for i in range(n_gen)])
     shutil.rmtree(gen)
     phase("restore", f"checkpoint phase took {time.perf_counter() - t0:.1f}s")
 
@@ -1703,7 +1956,7 @@ def main() -> int:
             raise AssertionError("the fill wrapper launched on the native "
                                  "path; the engine launches from C++")
         read_pairs(cli, path, d)
-        native_stripe(path, 4 << 30)
+        native_stripe(path, 2 << 30)
         native.reset_kernel_launches()
         native_faults(path, 4 << 30)
         if any(native.kernel_launches().values()):
@@ -1714,6 +1967,7 @@ def main() -> int:
         os.remove(path)
         tpustripe_launches = staged_stripe_verify(cli, vk, d)
         checkpoint_restore(d)
+        ingest_ledger(d)
         slice_launches = slice_main_path(ik, integ, mesh, graft_entry)
         distributed_run(cli, d)
     phase("launches", f"staged --verify run: {staged_launches} verify "

@@ -22,11 +22,13 @@ completion, and the docs from drifting apart.
 PyTorch/CUDA port: --gpuids selects CUDA device indices and --tpubackend
 staged|direct|pjrt moves blocks into GPU memory; --stripe, --tpustripe,
 --checkpoint, --checkpoint-shards and --reshard place blocks across the
-devices, and --retry/--maxerrors arm the native engine's device fault
-policy. Flags whose subsystem the port does not carry yet (ingest, serving
-rotation, fault injection, the transfer-manager tier) are refused by
-Config._refuse_unported with the flag's name, never run as something else —
-also when they reach a service over the wire (apply_wire -> check_args).
+devices, --retry/--maxerrors arm the native engine's device fault policy,
+and --rotate and --ingest/--ingestshards run the serving-rotation and
+DL-ingestion scenarios on the native engine. Flags whose subsystem the port
+does not carry yet (fault injection, the transfer-manager tier) are refused
+by Config._refuse_unported with the flag's name, never run as something
+else — also when they reach a service over the wire (apply_wire ->
+check_args).
 """
 
 from __future__ import annotations
@@ -616,15 +618,23 @@ class Config:
     def selected_phases(self) -> list[BenchPhase]:
         """Ordered phase sequence (reference: Coordinator::runBenchmarks order,
         Coordinator.cpp:190-231)."""
-        if self.checkpoint_manifest or self.checkpoint_shards:
+        if (self.checkpoint_manifest or self.checkpoint_shards) and \
+                not self.rotate_period_s:
             # the checkpoint scenario is its own ordered sequence: shard
             # creation (generated mode with -w) happens at prepare, and the
             # only measured phase is the restore — or, with --reshard M,
             # the topology-shift RESHARD (the N->M plan executed against
-            # the preloaded N-device pre-state)
+            # the preloaded N-device pre-state). With --rotate the
+            # manifest is the rotation payload instead and the measured
+            # phase is the ordinary serving READ below.
             if self.reshard_devices:
                 return [BenchPhase.RESHARD]
             return [BenchPhase.CHECKPOINT]
+        if self.ingest_manifest or self.ingest_shards:
+            # same rule for the ingest scenario: dataset creation
+            # (generated mode with -w) happens at prepare; the measured
+            # phase is the multi-epoch ingest itself
+            return [BenchPhase.INGEST]
         phases: list[BenchPhase] = []
         if self.run_sync:
             pass  # sync/dropcache interleave handled by coordinator
@@ -652,9 +662,6 @@ class Config:
             # the native engine's transfer-manager tier
             ("EBT_PJRT_XFER_MGR",
              pjrt and os.environ.get("EBT_PJRT_XFER_MGR") is not None),
-            ("--rotate", bool(self.rotate_period_s)),
-            ("--ingest", bool(self.ingest_manifest)),
-            ("--ingestshards", bool(self.ingest_shards)),
             ("--chaos", bool(self.chaos_spec)),
         )
         for flag, given in unported:
@@ -687,6 +694,11 @@ class Config:
                     "--interrupt/--quit require --hosts to know whom to signal")
             return
 
+        if (self.checkpoint_manifest or self.checkpoint_shards) and \
+                (self.ingest_manifest or self.ingest_shards):
+            raise ProgException(
+                "--checkpoint and --ingest are mutually exclusive "
+                "scenarios (each owns the phase sequence)")
         if self.reshard_devices and not (self.checkpoint_manifest or
                                          self.checkpoint_shards):
             # the reshard plan diffs the manifest's placement — without
@@ -694,20 +706,43 @@ class Config:
             raise ProgException(
                 "--reshard requires a --checkpoint/--checkpoint-shards "
                 "manifest (the N-device placement being resharded)")
-        if self.record_size or self.shuffle_window or \
-                self.shuffle_seed != 1 or self.ingest_epochs or \
-                self.prefetch_batches:
+        if not (self.ingest_manifest or self.ingest_shards) and (
+                self.record_size or self.shuffle_window or
+                self.shuffle_seed != 1 or self.ingest_epochs or
+                self.prefetch_batches):
+            # without the scenario these knobs would be silently ignored —
+            # checked BEFORE the scenario dispatches so --checkpoint (or
+            # any later scenario) cannot swallow them either
             raise ProgException(
                 "--recordsize/--shufflewindow/--shuffleseed/--epochs/"
                 "--prefetchbatches require the --ingest/--ingestshards "
                 "scenario")
-        if self.bg_budget or self.bg_adapt_lag_ms:
+        if self.rotate_period_s < 0:
+            raise ProgException("--rotate must be >= 0 seconds")
+        if (self.bg_budget or self.bg_adapt_lag_ms) and \
+                not self.rotate_period_s:
             raise ProgException(
                 "--bgbudget/--bgadapt pace the --rotate background "
                 "restore; add --rotate SECS")
+        if self.bg_adapt_lag_ms and not self.bg_budget:
+            raise ProgException(
+                "--bgadapt adapts the background rate BELOW the "
+                "--bgbudget ceiling; set --bgbudget too")
+        if self.bg_budget < 0 or self.bg_adapt_lag_ms < 0:
+            raise ProgException("--bgbudget/--bgadapt must be >= 0")
 
-        if self.checkpoint_manifest or self.checkpoint_shards:
+        if self.rotate_period_s:
+            # serving under live model rotation (docs/SERVING.md): the
+            # --checkpoint manifest is the ROTATION payload; the measured
+            # phase is the ordinary (open-loop) read workload, so
+            # validation FALLS THROUGH to the standard file-mode path
+            self._check_serving_args()
+        elif self.checkpoint_manifest or self.checkpoint_shards:
             self._check_checkpoint_args()
+            return
+
+        if self.ingest_manifest or self.ingest_shards:
+            self._check_ingest_args()
             return
 
         if not self.paths:
@@ -890,6 +925,61 @@ class Config:
         self._check_load_args()
         self._check_fault_args()
 
+    # ------------------------------------------- serving-rotation scenario
+
+    def _check_serving_args(self) -> None:
+        """Validation for the --rotate serving scenario (docs/SERVING.md):
+        the --checkpoint manifest re-restored every period into a
+        double-buffered shard set while the (open-loop) read phase serves.
+        Deliberately NOT an early-return scenario: the serving workload IS
+        an ordinary read phase, so check_args' standard file-mode
+        validation still runs after this."""
+        from .checkpoint import load_manifest, validate_placement
+
+        if not self.checkpoint_manifest:
+            raise ProgException(
+                "--rotate re-restores a checkpoint and needs --checkpoint "
+                "MANIFEST (the generated --checkpoint-shards mode owns the "
+                "PATH argument, which serving needs for its bench files — "
+                "write an explicit manifest instead)")
+        if self.checkpoint_shards:
+            raise ProgException(
+                "--rotate needs an explicit --checkpoint MANIFEST; "
+                "--checkpoint-shards (generated mode) owns the PATH "
+                "argument, which serving needs for its bench files")
+        if self.reshard_devices:
+            raise ProgException(
+                "--rotate and --reshard are mutually exclusive scenarios "
+                "(each owns the checkpoint manifest's placement)")
+        if not self.run_read:
+            raise ProgException(
+                "--rotate races a serving READ phase; add -r/--read")
+        if self.run_create_dirs or self.run_delete_dirs or \
+                self.run_stat_files or self.run_delete_files:
+            raise ProgException(
+                "--rotate serves the read phase only; drop the dir/stat/"
+                "delete phases")
+        if self.tpu_backend_name != "pjrt":
+            # the rotation ledger (directions 16/17, double-buffered
+            # retained generations, lane-side bg bucket) lives in the
+            # native path
+            raise ProgException(
+                "--rotate requires the native pjrt backend "
+                "(--tpubackend pjrt)")
+        if self.verify_salt or self.do_verify_direct:
+            raise ProgException(
+                "--rotate restores arbitrary shard content; --verify/"
+                "--verifydirect do not apply")
+        if self.stripe_policy or self.tpu_stripe:
+            raise ProgException(
+                "--rotate and --stripe/--tpustripe are mutually "
+                "exclusive: the manifest owns rotation placement")
+        self.ckpt_shards = load_manifest(self.checkpoint_manifest)
+        ndev = len(self.tpu_ids) or None
+        if ndev:
+            validate_placement(self.ckpt_shards, ndev,
+                               self.checkpoint_manifest)
+
     # ------------------------------------------- checkpoint-restore scenario
 
     def _check_checkpoint_args(self) -> None:
@@ -1004,6 +1094,152 @@ class Config:
         """Total manifest bytes (each shard counted once — storage reads;
         replicated shards still read storage once per restore)."""
         return sum(s.bytes for s in self.ckpt_shards)
+
+    # ------------------------------------------------- DL-ingestion scenario
+
+    def _check_ingest_args(self) -> None:
+        """Validation for the --ingest / --ingestshards training-input
+        scenario (docs/INGEST.md). Every malformed spec is refused with a
+        cause at config time — never mid-epoch — and the parsed dataset
+        lands in self.ingest_dataset."""
+        from .ingest import generated_dataset_shards, load_record_manifest
+
+        if self.ingest_manifest and self.ingest_shards:
+            raise ProgException(
+                "--ingest (explicit manifest) and --ingestshards "
+                "(generated dataset) are mutually exclusive")
+        self._check_io_loop_args()
+        if self.tpu_backend_name != "pjrt":
+            # the ingest ledger (direction 11/12, per-epoch record
+            # reconciliation, the all-resident barrier) lives in the
+            # native path; any other backend would time storage reads,
+            # not records-to-HBM
+            raise ProgException(
+                "--ingest requires the native pjrt backend "
+                "(--tpubackend pjrt)")
+        other_phases = [flag for flag, on in (
+            ("-d/--mkdirs", self.run_create_dirs),
+            ("-r/--read", self.run_read),
+            ("--stat", self.run_stat_files),
+            ("-F/--delfiles", self.run_delete_files),
+            ("-D/--deldirs", self.run_delete_dirs)) if on]
+        if other_phases:
+            raise ProgException(
+                "--ingest runs the INGEST phase only; drop "
+                + ", ".join(other_phases))
+        if self.run_create_files and not self.ingest_shards:
+            raise ProgException(
+                "-w with --ingest would overwrite real dataset shards; "
+                "dataset creation (-w) is only supported with the "
+                "generated --ingestshards dataset")
+        if self.use_random_offsets:
+            raise ProgException(
+                "--ingest owns its access pattern (the seeded shuffle "
+                "window); --rand does not apply")
+        if self.stripe_policy or self.tpu_stripe:
+            # ingest batches keep the rank-derived device routing so the
+            # per-epoch per-device attribution stays meaningful; a stripe
+            # planner re-routing them would silently break it
+            raise ProgException(
+                "--ingest and --stripe/--tpustripe are mutually "
+                "exclusive: ingest batches keep the rank-derived device "
+                "routing")
+        if self.verify_salt or self.do_verify_direct:
+            raise ProgException(
+                "--ingest reads arbitrary dataset content; --verify/"
+                "--verifydirect do not apply")
+        self._check_fault_args()
+        # open loop IS supported — ingestion runs as a tenant class so
+        # epoch prefetch competes with other traffic under --arrival
+        # (per-class bs/rwmix do not apply to the record loop; rates do)
+        self._check_load_args()
+
+        # dataset threads span service hosts (records partition by global
+        # rank, contiguous ranges like file-mode block grids)
+        self._derive_dataset_threads()
+
+        if self.ingest_manifest:
+            if self.paths:
+                raise ProgException(
+                    "--ingest MANIFEST takes its shard paths from the "
+                    "manifest; drop the PATH argument(s)")
+            shards, manifest_rs = load_record_manifest(self.ingest_manifest)
+            if manifest_rs:
+                if self.record_size and self.record_size != manifest_rs:
+                    raise ProgException(
+                        f"--recordsize ({self.record_size}) contradicts "
+                        f"the manifest's record_size ({manifest_rs})")
+                self.record_size = self.record_size or manifest_rs
+            self.file_size = shards[0].bytes
+        else:
+            if len(self.paths) != 1 or not os.path.isdir(self.paths[0]):
+                raise ProgException(
+                    "--ingestshards needs exactly one existing directory "
+                    "PATH for the generated dataset shard files")
+            shards = generated_dataset_shards(
+                self.paths[0], self.ingest_shards, self.file_size,
+                must_exist=not self.run_create_files)
+        self.ingest_dataset = shards
+        self.path_type = BenchPathType.FILE
+
+        if not self.record_size:
+            raise ProgException(
+                "--ingest needs --recordsize (or a manifest record_size): "
+                "records are the workload's unit")
+        if not self.block_size:
+            raise ProgException("block size must be > 0 for --ingest")
+        if self.record_size > self.block_size or \
+                self.block_size % self.record_size:
+            raise ProgException(
+                f"--recordsize ({self.record_size}) must divide --block "
+                f"({self.block_size}): records are batched into "
+                "block-sized device submissions exactly")
+        if self.file_size % self.record_size:
+            raise ProgException(
+                f"--ingest shard size ({self.file_size}) must be a whole "
+                f"multiple of --recordsize ({self.record_size})")
+        if self.use_direct_io and self.record_size % 512:
+            # O_DIRECT preads need 512-aligned offsets/lengths; record
+            # offsets and batch-buffer slots are record_size-strided, so
+            # the record size itself must carry the alignment — refused
+            # here (fail fast) instead of EINVAL-ing mid-epoch
+            raise ProgException(
+                "direct I/O requires --recordsize to be a multiple of "
+                f"512 (got {self.record_size})")
+        if self.shuffle_window < 0:
+            raise ProgException("--shufflewindow must be >= 1")
+        self.shuffle_window = self.shuffle_window or 1024
+        self.ingest_epochs = self.ingest_epochs or 1
+        if self.ingest_epochs < 1:
+            raise ProgException("--epochs must be >= 1")
+        if self.prefetch_batches < 0:
+            raise ProgException(
+                "--prefetchbatches must be >= 0 (0 = the whole buffer "
+                "pool, 1 = serial A/B)")
+        if self.reg_window and self.reg_window < 2 * self.block_size:
+            raise ProgException(
+                f"--regwindow ({self.reg_window}) must be at least 2x the "
+                f"block size ({self.block_size}): the window cache keeps "
+                "the current and next span pinned")
+
+    @property
+    def ingest_active(self) -> bool:
+        """True when the --ingest/--ingestshards scenario is selected."""
+        return bool(self.ingest_manifest or self.ingest_shards)
+
+    def ingest_records_per_shard(self) -> int:
+        return self.file_size // self.record_size if self.record_size else 0
+
+    def ingest_total_records(self) -> int:
+        """Records per epoch over the whole dataset (shards x
+        records_per_shard) — the offered-work unit the bench grades."""
+        return self.ingest_records_per_shard() * len(self.ingest_dataset)
+
+    def ingest_paths(self) -> list[str]:
+        """The dataset shard file paths the engine reads (ingest mode
+        replaces the CLI PATH — a directory in generated mode, nothing in
+        manifest mode — with the resolved shard list)."""
+        return [sh.path for sh in self.ingest_dataset]
 
     # ------------------------------------------- striped-fill geometry
     #

@@ -10,9 +10,8 @@ unwinding (Coordinator.cpp:66-104).
 
 The port's coordinator serves local workers, the --hosts master
 (workers/remote.py), service mode (service.py) and the --metricsport
-listener, and runs the checkpoint-restore scenario's RESTORE phase and the
-reshard scenario's RESHARD phase; the ingest scenario is refused at config
-validation (not yet ported, see ROADMAP.md).
+listener, and runs the checkpoint-restore scenario's RESTORE phase, the
+reshard scenario's RESHARD phase and the ingest scenario's INGEST phase.
 """
 
 from __future__ import annotations
@@ -188,7 +187,7 @@ class Coordinator:
         phases = cfg.selected_phases()
         data_phases = {BenchPhase.CREATEFILES, BenchPhase.READFILES,
                        BenchPhase.STATFILES, BenchPhase.CHECKPOINT,
-                       BenchPhase.RESHARD}
+                       BenchPhase.INGEST, BenchPhase.RESHARD}
         if not phases and (cfg.run_sync or cfg.run_drop_caches):
             # standalone sync / dropcaches run
             self._run_sync_and_drop_caches()
@@ -321,6 +320,15 @@ class Coordinator:
             plan = reshard_plan_summary(cfg.reshard_units)
             exp.entries = plan["units"]
             exp.bytes = plan["move_bytes"] + plan["read_bytes"]
+            return exp
+        if phase == BenchPhase.INGEST:
+            # every epoch reads the whole record-index space once (records
+            # partitioned across ranks; bytes = records x record size,
+            # iops = record reads); entries (submitted batches) depend on
+            # per-rank partition tails, so no expectation is set for them
+            exp.bytes = cfg.ingest_total_records() * cfg.record_size * \
+                cfg.ingest_epochs
+            exp.iops = cfg.ingest_total_records() * cfg.ingest_epochs
             return exp
         if cfg.path_type == BenchPathType.DIR:
             files_per_rank = cfg.num_dirs * cfg.num_files

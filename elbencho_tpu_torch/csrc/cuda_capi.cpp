@@ -333,6 +333,83 @@ void ebt_cuda_peer_access(void* p, int* out) {
   P(p)->peerAccess(&out[0], &out[1]);
 }
 
+// ---- serving rotation (--rotate), the twins of the ebt_pjrt_rotation_*
+// exports
+
+// the lane bucket's byte/s ceiling (0 = unthrottled)
+void ebt_cuda_set_bg_budget(void* p, uint64_t bytes_per_s) {
+  P(p)->setBgBudget(bytes_per_s);
+}
+
+// out[6] = {published generation, restoring, lane bucket rate,
+// bg_lane_throttle_ns, bg_h2d_bytes, retained pendings of both generations}
+void ebt_cuda_rotation_state(void* p, uint64_t* out) {
+  P(p)->rotationState(out);
+}
+
+int ebt_cuda_rotation_count(void* p) { return P(p)->rotationCount(); }
+
+// out[8] = {generation, shards_total, shards_resident, bytes_submitted,
+// bytes_resident, bg_bytes, retained_buffers, released_buffers}; 0 ok
+int ebt_cuda_rotation_record(void* p, int idx, uint64_t* out) {
+  CudaPath::RotationRecord r;
+  if (!P(p)->rotationRecord(idx, &r)) return 1;
+  out[0] = r.generation;
+  out[1] = r.shards_total;
+  out[2] = r.shards_resident;
+  out[3] = r.bytes_submitted;
+  out[4] = r.bytes_resident;
+  out[5] = r.bg_bytes;
+  out[6] = r.retained_buffers;
+  out[7] = r.released_buffers;
+  return 0;
+}
+
+// test-only: [offset, offset + len) of `shard` as the active generation
+// holds it on the shard's replica-th placement lane, into host; 0 ok
+int ebt_cuda_rotation_read(void* p, int64_t shard, int replica,
+                           uint64_t offset, uint64_t len, void* host) {
+  return P(p)->rotationRead(shard, replica, offset, len, host);
+}
+
+// ---- DL-ingestion ledger (--ingest), the twins of the ebt_pjrt_ingest_*
+// exports
+
+int ebt_cuda_set_ingest_plan(void* p, uint64_t record_size, int epochs) {
+  return P(p)->setIngestPlan(record_size, epochs);
+}
+
+// out[8] = {read, submitted, resident, dropped bytes, batch_coalesce_count,
+// prefetch_peak_bytes, resident_wait_ns, barriers}
+void ebt_cuda_ingest_stats(void* p, uint64_t* out) {
+  CudaPath::IngestStats s = P(p)->ingestStats();
+  out[0] = s.read_bytes;
+  out[1] = s.submitted_bytes;
+  out[2] = s.resident_bytes;
+  out[3] = s.dropped_bytes;
+  out[4] = s.batch_coalesce_count;
+  out[5] = s.prefetch_peak_bytes;
+  out[6] = s.resident_wait_ns;
+  out[7] = s.barriers;
+}
+
+// out[4] = read/submitted/resident/dropped bytes of `epoch`; 0 ok
+int ebt_cuda_ingest_epoch_bytes(void* p, int64_t epoch, uint64_t* out) {
+  return P(p)->ingestEpochBytes(epoch, out) ? 0 : 1;
+}
+
+int ebt_cuda_ingest_epochs(void* p) { return P(p)->ingestEpochs(); }
+
+// the direction-12 barrier, run explicitly; 0 ok
+int ebt_cuda_ingest_barrier(void* p) { return P(p)->ingestBarrier(); }
+
+// "device N epoch E: cause" of the first failure; empty if none
+void ebt_cuda_ingest_error(void* p, char* buf, int len) {
+  copyOut(P(p)->ingestError(), buf, len);
+}
+
+void ebt_cuda_ingest_rearm(void* p) { P(p)->ingestRearm(); }
+
 // ---- write leg and kernels
 
 void ebt_cuda_set_d2h_depth(void* p, int depth) { P(p)->setD2HDepth(depth); }

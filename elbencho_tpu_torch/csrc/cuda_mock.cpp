@@ -59,6 +59,9 @@
  *                             query, synchronise or event wait on the
  *                             stream; later work runs (the original mock's
  *                             EBT_MOCK_D2D_FAIL_AT)
+ *   EBT_MOCK_CUDA_ALLOC_MAX_BYTES  cuMemAlloc of more than N bytes fails
+ *                             (a rotation generation's shard that does not
+ *                             fit)
  *   EBT_MOCK_CUDA_NO_D2D      the device-to-device copies return
  *                             CUDA_ERROR_NOT_SUPPORTED (a driver that
  *                             refuses them; the original's
@@ -508,6 +511,10 @@ CUresult cuLaunchHostFunc(void* stream, void (*fn)(void*), void* arg) {
 }
 
 CUresult cuMemAlloc_v2(unsigned long long* dptr, size_t bytes) {
+  const long long max_bytes = env_ll("EBT_MOCK_CUDA_ALLOC_MAX_BYTES");
+  if (max_bytes > 0 && (long long)bytes > max_bytes)
+    return inject("mock allocation failure "
+                  "(EBT_MOCK_CUDA_ALLOC_MAX_BYTES)");
   void* p = std::calloc(1, bytes ? bytes : 1);
   if (!p) return 2;  // CUDA_ERROR_OUT_OF_MEMORY
   g_live_buffers++;

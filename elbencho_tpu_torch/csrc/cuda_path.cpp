@@ -7,6 +7,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <set>
+#include <thread>
 
 #include "ebt/engine.h"   // fillVerifyPattern / checkVerifyPattern
 #include "ebt/rand.h"     // rank-seeded random write sources
@@ -21,6 +22,12 @@ std::atomic<uint64_t> g_path_gen{0};
 // the context this thread last made current, and for which path instance
 thread_local cu::CUcontext t_ctx = nullptr;
 thread_local uint64_t t_gen = 0;
+// serving rotation: the generation the calling thread restores, and for
+// which path instance (the engine's rotator marks itself at rotateBegin and
+// clears it at the swap), so foreground blocks pay nothing for the
+// background class
+thread_local uint64_t t_rot_gen = 0;
+thread_local uint64_t t_rot_path = 0;
 
 bool envSet(const char* name) { return getenv(name) != nullptr; }
 
@@ -244,6 +251,7 @@ CudaPath::CudaPath(const std::string& driver_path, uint64_t chunk_bytes,
 CudaPath::~CudaPath() {
   if (lanes_.empty()) return;
   drainAll();
+  rotReleaseAll();
   std::vector<uintptr_t> leftover;
   {
     MutexLock lk(reg_mutex_);
@@ -461,6 +469,8 @@ int CudaPath::awaitRelease(Pending& p) {
   settleStripe(p, rc);
   settleCkpt(p, rc);
   settleReshard(p, rc);
+  settleIngest(p, rc);
+  if (rc == 0 && p.rot_gen && p.bytes) rotRetain(p);
   return rc;
 }
 
@@ -473,7 +483,7 @@ int CudaPath::syncStream(int lane, cu::CUstream stream) {
 
 void CudaPath::enqueue(void* buf, std::vector<Pending>& ps,
                        int64_t stripe_unit, int64_t ckpt_shard,
-                       int64_t reshard_unit) {
+                       int64_t reshard_unit, int64_t ingest_epoch) {
   if (ps.empty()) return;
   QueueShard& shard = shardFor(buf);
   TimedMutexLock lk(shard.m, laneFor(ps.front().lane).lock_wait_ns);
@@ -503,6 +513,11 @@ void CudaPath::enqueue(void* buf, std::vector<Pending>& ps,
     if (reshard_unit >= 0 && p.bytes && reshard_sub_bytes_)
       reshard_sub_bytes_[reshard_unit].fetch_add(p.bytes,
                                                  std::memory_order_relaxed);
+    // ingest blocks: every chunk's bytes count as submitted under the epoch
+    // and ride the in-flight gauge until their settle
+    p.ingest_epoch = ingest_epoch;
+    if (ingest_epoch >= 0 && p.bytes && ingest_sub_bytes_)
+      ingestCountSubmitted(ingest_epoch, p.bytes);
     Lane& lane = laneFor(p.lane);
     (p.d2h ? lane.bytes_from_hbm : lane.bytes_to_hbm)
         .fetch_add(p.bytes, std::memory_order_relaxed);
@@ -612,7 +627,8 @@ bool CudaPath::ensureBuffer(int lane, cu::CUdeviceptr* p, uint64_t* cap,
 
 int CudaPath::submitH2D(int device_idx, const char* buf, uint64_t len,
                         int64_t stripe_unit, int64_t ckpt_shard,
-                        int64_t reshard_unit) {
+                        int64_t reshard_unit, int64_t ingest_epoch,
+                        uint64_t rot_gen, int plan_lane, uint64_t file_off) {
   // One range lookup per block: every chunk shares the answer; the hold
   // (holdForCopy) sits in the shard's draining ledger until the enqueued
   // pendings take over, and it also covers the submit-time retries below.
@@ -623,22 +639,33 @@ int CudaPath::submitH2D(int device_idx, const char* buf, uint64_t len,
   std::vector<Pending> submitted;
   int rc = 0;
   int chunk_i = 0;
-  for (uint64_t off = 0; off < len; chunk_i++) {
+  uint64_t off = 0;  // after the loop: the bytes that were enqueued
+  for (; off < len; chunk_i++) {
     const uint64_t n = std::min(chunk_bytes_, len - off);
-    // the block's chunks land at their offsets in the lane's landing buffer
+    // the block's chunks land at their offsets in the lane's landing
+    // buffer; a chunk of a restoring generation lands in that generation's
+    // memory instead, at its file offset
     const uint64_t dst = off + n <= landing_cap_ ? off : 0;
     auto submitChunk = [&](int ci, Pending* out) -> bool {
       Lane& cl = *lanes_[ci];
       if (!makeCurrent(ci, false)) return false;
+      cu::CUdeviceptr to = cl.landing + dst;
+      if (rot_gen) {
+        to = rotDest(rot_gen, ckpt_shard, plan_lane, ci, file_off + off, n);
+        if (!to) return false;
+        if (!makeCurrent(ci, false)) return false;
+      }
       auto t0 = Clock::now();
       if (!check("cuMemcpyHtoDAsync",
-                 api_.cuMemcpyHtoDAsync(cl.landing + dst, buf + off, n,
-                                        cl.h2d)))
+                 api_.cuMemcpyHtoDAsync(to, buf + off, n, cl.h2d)))
         return false;
       if (zc) zero_copy_count_.fetch_add(1, std::memory_order_relaxed);
       Pending p;
       p.bytes = n;
       p.src = buf + off;  // the settle-time recovery's source
+      p.rot_gen = rot_gen;
+      p.rot_lane = plan_lane;
+      p.rot_off = file_off + off;
       attachCompletion(p, ci, cl.h2d, ci, t0);
       *out = p;
       return true;
@@ -668,7 +695,13 @@ int CudaPath::submitH2D(int device_idx, const char* buf, uint64_t len,
   if (lanes_.size() > 1) makeCurrent(li, false);
   // chunks copied before a failure may still be reading the buffer: they
   // are enqueued either way so the barrier waits them out
-  enqueue((void*)buf, submitted, stripe_unit, ckpt_shard, reshard_unit);
+  enqueue((void*)buf, submitted, stripe_unit, ckpt_shard, reshard_unit,
+          ingest_epoch);
+  // the bytes a submit-time failure did not enqueue never reach a settle:
+  // they are dropped here, so the epoch's read == resident + dropped closes
+  if (rc != 0 && ingest_epoch >= 0 && ingest_drop_bytes_ && len > off)
+    ingest_drop_bytes_[ingest_epoch].fetch_add(len - off,
+                                               std::memory_order_relaxed);
   if (zc) releaseHold(buf, len, lane, shard);
   return rc;
 }
@@ -1116,6 +1149,9 @@ int CudaPath::copy(int worker_rank, int device_idx, int direction, void* buf,
     device_idx = stripeDeviceFor(file_offset);
     striped = true;
   }
+  // the lane the plan chose, before any replanning: a rotation chunk lands
+  // in its shard's memory for this lane, wherever it is copied
+  const int plan_lane = laneIndex(device_idx);
   // live replanning (fault policy on): a direction-0 placement on an
   // ejected lane, whether from the stripe planner, the checkpoint manifest
   // or the rank routing, moves to a fixed survivor; replanned_units counts
@@ -1143,6 +1179,24 @@ int CudaPath::copy(int worker_rank, int device_idx, int direction, void* buf,
       const int64_t ru = reshard_active_.load(std::memory_order_acquire)
                              ? reshardUnitFor(worker_rank)
                              : -1;
+      // ingest: the block counts as read under the epoch the worker
+      // registered via direction 11 whatever the submit and settle do, so
+      // read == resident + dropped can close
+      const int64_t ie = ingest_active_.load(std::memory_order_acquire)
+                             ? ingestEpochFor(worker_rank)
+                             : -1;
+      if (ie >= 0 && ingest_read_bytes_) {
+        ingest_read_bytes_[ie].fetch_add(len, std::memory_order_relaxed);
+        if (ingest_record_size_ && len > ingest_record_size_)
+          ingest_batch_coalesce_.fetch_add(1, std::memory_order_relaxed);
+      }
+      // serving rotation: the rotator's blocks are the background class,
+      // paced by the lane bucket before they touch a lane
+      const uint64_t rot_gen = t_rot_path == gen_ ? t_rot_gen : 0;
+      if (rot_gen) {
+        bgLaneThrottle(len);
+        bg_h2d_bytes_.fetch_add(len, std::memory_order_relaxed);
+      }
       if (verify_on_) {
         // a synchronous correctness mode: placement still honours the
         // stripe plan (the block is checked on the lane that received it),
@@ -1150,6 +1204,14 @@ int CudaPath::copy(int worker_rank, int device_idx, int direction, void* buf,
         // accounts the block inline
         const int vrc = submitH2DVerified(worker_rank, li, (const char*)buf,
                                           len, file_offset);
+        // the config refuses --verify with --ingest and --rotate; the epoch
+        // ledger still accounts the block for any caller composition
+        if (ie >= 0 && ingest_sub_bytes_) {
+          ingest_sub_bytes_[ie].fetch_add(len, std::memory_order_relaxed);
+          (vrc == 0 ? ingest_res_bytes_ : ingest_drop_bytes_)[ie].fetch_add(
+              len, std::memory_order_relaxed);
+          if (vrc != 0) latchIngestError(li, ie, firstTransferError());
+        }
         if (cs >= 0 && ckpt_sub_bytes_) {
           ckpt_sub_bytes_[cs].fetch_add(len, std::memory_order_relaxed);
           if (vrc == 0) {
@@ -1175,7 +1237,13 @@ int CudaPath::copy(int worker_rank, int device_idx, int direction, void* buf,
       }
       const int64_t su =
           striped ? (int64_t)(file_offset / block_size_) : -1;
-      const int src_rc = submitH2D(li, (const char*)buf, len, su, cs, ru);
+      if (rot_gen && cs < 0) {
+        latchXferError("rotation block outside a checkpoint shard (no "
+                       "direction-9 begin on this thread)");
+        return 1;
+      }
+      const int src_rc = submitH2D(li, (const char*)buf, len, su, cs, ru, ie,
+                                   rot_gen, plan_lane, file_offset);
       // a submit-time failure never reaches a barrier's settle, so the
       // per-device attribution is latched here
       if (src_rc != 0 && striped)
@@ -1184,6 +1252,8 @@ int CudaPath::copy(int worker_rank, int device_idx, int direction, void* buf,
         latchCkptError(li, cs, firstTransferError());
       if (src_rc != 0 && ru >= 0)
         latchReshardError(ru, -1, li, firstTransferError());
+      if (src_rc != 0 && ie >= 0)
+        latchIngestError(li, ie, firstTransferError());
       return src_rc;
     }
     case 1:
@@ -1219,6 +1289,12 @@ int CudaPath::copy(int worker_rank, int device_idx, int direction, void* buf,
     case 10:
       // checkpoint all-resident barrier (the restore's measured seal)
       return ckptBarrier();
+    case 11:
+      // ingest epoch begin: len carries the epoch index
+      return ingestBeginEpoch(worker_rank, (int64_t)len);
+    case 12:
+      // ingest all-resident barrier (the phase's measured seal)
+      return ingestBarrier();
     case 13:
       // reshard unit begin: len carries the plan unit
       return reshardBeginUnit(worker_rank, (int64_t)len);
@@ -1229,9 +1305,16 @@ int CudaPath::copy(int worker_rank, int device_idx, int direction, void* buf,
     case 15:
       // the all-resharded barrier (the RESHARD phase's measured seal)
       return reshardBarrier();
+    case 16:
+      // serving rotation begin: len carries the fresh generation,
+      // file_offset the current background byte/s budget
+      return rotateBegin(worker_rank, len, file_offset);
+    case 17:
+      // serving rotation swap (after the direction-10 barrier)
+      return rotateSwap(worker_rank);
     default:
       latchXferError("device-copy direction " + std::to_string(direction) +
-                     " (ingest/rotation) is not ported to the CUDA engine");
+                     " is not handled by the CUDA engine");
       return 1;
   }
 }
@@ -1464,6 +1547,9 @@ int CudaPath::setCkptPlan(int nshards, const std::vector<int>& entry_shard,
   }
   ckpt_nshards_ = (uint64_t)nshards;
   ckpt_expected_bytes_ = std::move(expected);
+  ckpt_entry_shard_ = entry_shard;
+  ckpt_entry_device_ = entry_device;
+  ckpt_entry_bytes_ = entry_bytes;
   ckpt_sub_bytes_.reset(new std::atomic<uint64_t>[(size_t)nshards]);
   ckpt_res_bytes_.reset(new std::atomic<uint64_t>[(size_t)nshards]);
   for (int s = 0; s < nshards; s++) {
@@ -1485,8 +1571,15 @@ int CudaPath::ckptBeginShard(int worker_rank, int64_t shard) {
   // all-resident barrier settled everything it had in flight)
   ckpt_sub_bytes_[shard].store(0, std::memory_order_relaxed);
   ckpt_res_bytes_[shard].store(0, std::memory_order_relaxed);
-  MutexLock lk(ckpt_mutex_);
-  ckpt_cur_shard_[worker_rank] = shard;
+  {
+    MutexLock lk(ckpt_mutex_);
+    ckpt_cur_shard_[worker_rank] = shard;
+  }
+  // the rotator restoring a generation: the shard's memory in that
+  // generation is made now, once per placement lane
+  if (t_rot_path == gen_ && t_rot_gen &&
+      t_rot_gen == rot_restore_gen_.load(std::memory_order_acquire))
+    return rotAllocShard(shard);
   return 0;
 }
 
@@ -1691,9 +1784,20 @@ int CudaPath::recoverPending(Pending& p) {
         cause.clear();
         if (!makeCurrent(cand, false)) return false;
         Lane& cl = *lanes_[cand];
+        // a chunk of a restoring generation is recovered into that
+        // generation's memory on the survivor, never into the landing ring
+        cu::CUdeviceptr to = cl.landing;
+        if (p.rot_gen) {
+          to = rotDest(p.rot_gen, p.ckpt_shard, p.rot_lane, cand, p.rot_off,
+                       p.bytes);
+          if (!to || !makeCurrent(cand, false)) {
+            cause = firstTransferError();
+            return false;
+          }
+        }
         const auto t0 = Clock::now();
         const cu::CUresult rc =
-            api_.cuMemcpyHtoDAsync(cl.landing, p.src, p.bytes, cl.h2d);
+            api_.cuMemcpyHtoDAsync(to, p.src, p.bytes, cl.h2d);
         if (rc) {
           // a diagnostic, not a fresh root cause: not latched
           cause = cu::errorText(api_, "recovery cuMemcpyHtoDAsync", rc);
@@ -1713,6 +1817,422 @@ int CudaPath::recoverPending(Pending& p) {
   lanes_[winner]->bytes_to_hbm.fetch_add(p.bytes, std::memory_order_relaxed);
   p.lane = winner;
   return 0;
+}
+
+// ---------------------------------------------------------------- rotation
+
+// The twin of the engine's storage-side bucket (Engine::bgThrottle): the
+// same refill, burst cap and deficit sleep, charged at the lanes.
+void CudaPath::bgLaneThrottle(uint64_t len) {
+  uint64_t rate = bg_rate_bps_.load(std::memory_order_relaxed);
+  if (!rate || !len) return;
+  const auto t0 = Clock::now();
+  bool waited = false;
+  for (;;) {
+    double deficit_s = 0;
+    {
+      MutexLock lk(bg_mutex_);
+      const auto now = Clock::now();
+      const double elapsed_s =
+          (double)std::chrono::duration_cast<std::chrono::nanoseconds>(
+              now - bg_last_refill_)
+              .count() /
+          1e9;
+      bg_last_refill_ = now;
+      rate = bg_rate_bps_.load(std::memory_order_relaxed);
+      if (!rate) break;
+      // burst cap: a quarter second of budget, never below the charge at
+      // hand (an oversized block must still be able to pass)
+      const double cap = std::max({(double)rate / 4.0, (double)len, 1.0});
+      bg_tokens_ = std::min(bg_tokens_ + elapsed_s * (double)rate, cap);
+      if (bg_tokens_ >= (double)len) {
+        bg_tokens_ -= (double)len;
+        break;
+      }
+      deficit_s = ((double)len - bg_tokens_) / (double)rate;
+    }
+    const std::atomic<bool>* flag =
+        interrupt_flag_.load(std::memory_order_acquire);
+    if (flag && flag->load(std::memory_order_relaxed)) break;
+    waited = true;
+    std::this_thread::sleep_for(std::chrono::nanoseconds(
+        std::min<uint64_t>((uint64_t)(deficit_s * 1e9) + 1, 10'000'000)));
+  }
+  if (waited)
+    bg_lane_throttle_ns_.fetch_add(
+        (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(
+            Clock::now() - t0)
+            .count(),
+        std::memory_order_relaxed);
+}
+
+cu::CUdeviceptr CudaPath::rotAlloc(int lane, uint64_t bytes) {
+  cu::CUdeviceptr p = 0;
+  if (!makeCurrent(lane, false)) return 0;
+  const cu::CUresult rc = api_.cuMemAlloc(&p, std::max<uint64_t>(bytes, 8));
+  if (rc) {
+    latchXferError(cu::errorText(api_, "rotation cuMemAlloc", rc) + " (" +
+                   std::to_string(bytes) + " bytes on device " +
+                   std::to_string(lane) + ")");
+    return 0;
+  }
+  return p;
+}
+
+void CudaPath::rotFree(std::vector<RotBuf>& bufs) {
+  // every copy into these was settled before they left their generation
+  // (the engine settles the rotator's buffers before a begin, and a swap
+  // frees a generation restored one rotation earlier)
+  for (RotBuf& b : bufs) {
+    if (!b.ptr) continue;
+    makeCurrent(b.lane, false);
+    api_.cuMemFree(b.ptr);
+    b.ptr = 0;
+  }
+  bufs.clear();
+}
+
+int CudaPath::rotAllocShard(int64_t shard) {
+  std::vector<RotBuf> made;
+  int failed_lane = -1;
+  for (size_t i = 0; i < ckpt_entry_shard_.size() && failed_lane < 0; i++) {
+    if (ckpt_entry_shard_[i] != shard) continue;
+    const int lane = ckpt_entry_device_[i];
+    {
+      MutexLock lk(rot_mutex_);
+      bool have = false;
+      for (const RotBuf& b : rot_fresh_.bufs)
+        have = have || (b.shard == shard && b.lane == lane &&
+                        b.plan_lane == lane && b.off == 0);
+      if (have) continue;
+    }
+    RotBuf b;
+    b.shard = shard;
+    b.lane = b.plan_lane = lane;
+    b.bytes = ckpt_entry_bytes_[i];
+    b.ptr = rotAlloc(lane, b.bytes);
+    if (b.ptr)
+      made.push_back(b);
+    else
+      failed_lane = lane;
+  }
+  if (failed_lane >= 0)
+    latchCkptError(failed_lane, shard, firstTransferError());
+  // what was made belongs to the generation either way: the next begin or
+  // the teardown frees it
+  MutexLock lk(rot_mutex_);
+  for (const RotBuf& b : made) rot_fresh_.bufs.push_back(b);
+  return failed_lane >= 0 ? 1 : 0;
+}
+
+cu::CUdeviceptr CudaPath::rotDest(uint64_t gen, int64_t shard, int plan_lane,
+                                  int lane, uint64_t off, uint64_t n) {
+  bool current = false;
+  {
+    MutexLock lk(rot_mutex_);
+    current = gen == rot_restore_gen_.load(std::memory_order_acquire);
+    for (const RotBuf& b : rot_fresh_.bufs)
+      if (current && b.shard == shard && b.lane == lane &&
+          b.plan_lane == plan_lane && b.off <= off &&
+          off + n <= b.off + b.bytes)
+        return b.ptr + (off - b.off);
+  }
+  if (!current) {
+    // a chunk of a superseded generation never lands anywhere
+    latchXferError("rotation generation " + std::to_string(gen) +
+                   " is no longer being restored");
+    return 0;
+  }
+  // replanned or recovered onto a lane the plan did not place the shard on:
+  // the chunk gets memory of its own in the generation
+  RotBuf b;
+  b.shard = shard;
+  b.lane = lane;
+  b.plan_lane = plan_lane;
+  b.off = off;
+  b.bytes = n;
+  b.ptr = rotAlloc(lane, n);
+  if (!b.ptr) return 0;
+  MutexLock lk(rot_mutex_);
+  rot_fresh_.bufs.push_back(b);
+  return b.ptr;
+}
+
+void CudaPath::rotRetain(const Pending& p) {
+  MutexLock lk(rot_mutex_);
+  // a late settle of a superseded restore does not count
+  if (p.rot_gen == rot_restore_gen_.load(std::memory_order_relaxed))
+    rot_fresh_.pendings++;
+}
+
+void CudaPath::rotReleaseAll() {
+  std::vector<RotBuf> all;
+  {
+    MutexLock lk(rot_mutex_);
+    all.swap(rot_active_.bufs);
+    for (const RotBuf& b : rot_fresh_.bufs) all.push_back(b);
+    rot_fresh_.bufs.clear();
+    rot_active_.pendings = rot_fresh_.pendings = 0;
+  }
+  rotFree(all);
+}
+
+int CudaPath::rotateBegin(int worker_rank, uint64_t generation,
+                          uint64_t bg_rate_bps) {
+  (void)worker_rank;
+  if (!ok() || !ckpt_active_.load(std::memory_order_acquire)) return 1;
+  if (!generation) return 1;
+  // an aborted earlier restore (no swap) left its memory in the fresh set:
+  // it is freed (outside the lock) before this generation allocates
+  std::vector<RotBuf> stale;
+  {
+    MutexLock lk(rot_mutex_);
+    stale.swap(rot_fresh_.bufs);
+    rot_fresh_.pendings = 0;
+    rot_bg_bytes_base_ = bg_h2d_bytes_.load(std::memory_order_relaxed);
+  }
+  rotFree(stale);
+  {
+    // re-sync the lane bucket to the engine's (possibly adapted) budget; a
+    // rotation starts with an empty bucket, not banked burst
+    MutexLock blk(bg_mutex_);
+    bg_rate_bps_.store(bg_rate_bps, std::memory_order_relaxed);
+    bg_tokens_ = 0;
+    bg_last_refill_ = Clock::now();
+  }
+  rot_restore_gen_.store(generation, std::memory_order_release);
+  t_rot_gen = generation;
+  t_rot_path = gen_;
+  return 0;
+}
+
+int CudaPath::rotateSwap(int worker_rank) {
+  (void)worker_rank;
+  const uint64_t gen = rot_restore_gen_.load(std::memory_order_acquire);
+  if (!ok() || !gen) return 1;
+  // the direction-9 begins re-armed every shard's counters this rotation,
+  // so the checkpoint ledger's totals are this rotation's restore
+  RotationRecord rec;
+  rec.generation = gen;
+  const CkptStats cs = ckptStats();
+  rec.shards_total = cs.shards_total;
+  rec.shards_resident = cs.shards_resident;
+  uint64_t totals[2];
+  ckptByteTotals(totals);
+  rec.bytes_submitted = totals[0];
+  rec.bytes_resident = totals[1];
+  std::vector<RotBuf> old;
+  {
+    MutexLock lk(rot_mutex_);
+    rec.bg_bytes =
+        bg_h2d_bytes_.load(std::memory_order_relaxed) - rot_bg_bytes_base_;
+    rec.retained_buffers = rot_fresh_.pendings;
+    rec.released_buffers = rot_active_.pendings;
+    // the swap: the fresh generation becomes the serving one; the old one
+    // is freed below, outside the lock
+    old.swap(rot_active_.bufs);
+    rot_active_.bufs.swap(rot_fresh_.bufs);
+    rot_active_.pendings = rot_fresh_.pendings;
+    rot_fresh_.pendings = 0;
+    rot_records_.push_back(rec);
+  }
+  rot_generation_.store(gen, std::memory_order_release);
+  rot_restore_gen_.store(0, std::memory_order_release);
+  t_rot_gen = 0;
+  rotFree(old);
+  return 0;
+}
+
+int CudaPath::rotationCount() const {
+  MutexLock lk(rot_mutex_);
+  return (int)rot_records_.size();
+}
+
+bool CudaPath::rotationRecord(int idx, RotationRecord* out) const {
+  MutexLock lk(rot_mutex_);
+  if (idx < 0 || (size_t)idx >= rot_records_.size()) return false;
+  *out = rot_records_[(size_t)idx];
+  return true;
+}
+
+void CudaPath::rotationState(uint64_t* out) const {
+  out[0] = rot_generation_.load(std::memory_order_relaxed);
+  out[1] = rot_restore_gen_.load(std::memory_order_relaxed) ? 1 : 0;
+  out[2] = bg_rate_bps_.load(std::memory_order_relaxed);
+  out[3] = bg_lane_throttle_ns_.load(std::memory_order_relaxed);
+  out[4] = bg_h2d_bytes_.load(std::memory_order_relaxed);
+  MutexLock lk(rot_mutex_);
+  out[5] = rot_active_.pendings + rot_fresh_.pendings;
+}
+
+int CudaPath::rotationRead(int64_t shard, int replica, uint64_t offset,
+                           uint64_t len, void* host) {
+  int lane = -1;
+  for (size_t i = 0, r = 0; i < ckpt_entry_shard_.size(); i++) {
+    if (ckpt_entry_shard_[i] != shard) continue;
+    if ((int)r++ == replica) lane = ckpt_entry_device_[i];
+  }
+  if (lane < 0) return 1;
+  std::vector<RotBuf> bufs;
+  {
+    MutexLock lk(rot_mutex_);
+    for (const RotBuf& b : rot_active_.bufs)
+      if (b.shard == shard && b.plan_lane == lane) bufs.push_back(b);
+  }
+  if (bufs.empty()) return 1;
+  // the shard's allocation first, then the chunk allocations made after it
+  // (a chunk replanned or recovered elsewhere), which hold the newer bytes
+  std::vector<bool> covered(len, false);
+  size_t ncovered = 0;
+  for (const RotBuf& b : bufs) {
+    const uint64_t lo = std::max(offset, b.off);
+    const uint64_t hi = std::min(offset + len, b.off + b.bytes);
+    if (lo >= hi) continue;
+    if (!makeCurrent(b.lane, false)) return 1;
+    Lane& l = *lanes_[(size_t)b.lane];
+    if (!check("rotation read-back cuMemcpyDtoHAsync",
+               api_.cuMemcpyDtoHAsync((char*)host + (lo - offset),
+                                      b.ptr + (lo - b.off), hi - lo, l.d2h)) ||
+        syncStream(b.lane, l.d2h))
+      return 1;
+    for (uint64_t i = lo - offset; i < hi - offset; i++)
+      if (!covered[i]) {
+        covered[i] = true;
+        ncovered++;
+      }
+  }
+  return ncovered == len ? 0 : 1;
+}
+
+// ---------------------------------------------------------------- ingest
+
+void CudaPath::settleIngest(const Pending& p, int rc) {
+  if (p.ingest_epoch < 0 || !ingest_res_bytes_ || !p.bytes) return;
+  // the bytes leave the in-flight gauge either way
+  ingest_inflight_bytes_.fetch_sub(p.bytes, std::memory_order_relaxed);
+  if (rc == 0) {
+    ingest_res_bytes_[p.ingest_epoch].fetch_add(p.bytes,
+                                                std::memory_order_relaxed);
+    return;
+  }
+  ingest_drop_bytes_[p.ingest_epoch].fetch_add(p.bytes,
+                                               std::memory_order_relaxed);
+  latchIngestError(p.lane, p.ingest_epoch, firstTransferError());
+}
+
+void CudaPath::ingestCountSubmitted(int64_t epoch, uint64_t bytes) {
+  ingest_sub_bytes_[epoch].fetch_add(bytes, std::memory_order_relaxed);
+  const uint64_t cur =
+      ingest_inflight_bytes_.fetch_add(bytes, std::memory_order_relaxed) +
+      bytes;
+  uint64_t peak = ingest_inflight_peak_.load(std::memory_order_relaxed);
+  while (cur > peak && !ingest_inflight_peak_.compare_exchange_weak(
+                           peak, cur, std::memory_order_relaxed)) {
+  }
+}
+
+void CudaPath::latchIngestError(int device, int64_t epoch,
+                                const std::string& cause) {
+  std::string msg = "device " + std::to_string(device);
+  if (epoch >= 0) msg += " epoch " + std::to_string(epoch);
+  msg += ": " +
+         (cause.empty() ? std::string("ingest transfer failed") : cause);
+  MutexLock lk(ingest_mutex_);
+  if (ingest_error_.empty()) ingest_error_ = msg;
+}
+
+std::string CudaPath::ingestError() const {
+  MutexLock lk(ingest_mutex_);
+  return ingest_error_;
+}
+
+int CudaPath::setIngestPlan(uint64_t record_size, int epochs) {
+  if (!ok() || !record_size || epochs <= 0) return 1;
+  if (sealed_.load(std::memory_order_acquire)) return 1;
+  ingest_record_size_ = record_size;
+  ingest_epochs_ = epochs;
+  for (auto* a : {&ingest_read_bytes_, &ingest_sub_bytes_, &ingest_res_bytes_,
+                  &ingest_drop_bytes_}) {
+    a->reset(new std::atomic<uint64_t>[(size_t)epochs]);
+    for (int e = 0; e < epochs; e++)
+      (*a)[e].store(0, std::memory_order_relaxed);
+  }
+  ingest_active_.store(1, std::memory_order_release);
+  return 0;
+}
+
+int CudaPath::ingestBeginEpoch(int worker_rank, int64_t epoch) {
+  if (!ingest_active_.load(std::memory_order_acquire)) return 1;
+  if (epoch < 0 || epoch >= (int64_t)ingest_epochs_) return 1;
+  MutexLock lk(ingest_mutex_);
+  ingest_cur_epoch_[worker_rank] = epoch;
+  return 0;
+}
+
+int64_t CudaPath::ingestEpochFor(int worker_rank) const {
+  MutexLock lk(ingest_mutex_);
+  auto it = ingest_cur_epoch_.find(worker_rank);
+  return it == ingest_cur_epoch_.end() ? -1 : it->second;
+}
+
+CudaPath::IngestStats CudaPath::ingestStats() const {
+  IngestStats s;
+  for (int e = 0; e < ingest_epochs_; e++) {
+    s.read_bytes += ingest_read_bytes_[e].load(std::memory_order_relaxed);
+    s.submitted_bytes += ingest_sub_bytes_[e].load(std::memory_order_relaxed);
+    s.resident_bytes += ingest_res_bytes_[e].load(std::memory_order_relaxed);
+    s.dropped_bytes += ingest_drop_bytes_[e].load(std::memory_order_relaxed);
+  }
+  s.batch_coalesce_count =
+      ingest_batch_coalesce_.load(std::memory_order_relaxed);
+  s.prefetch_peak_bytes =
+      ingest_inflight_peak_.load(std::memory_order_relaxed);
+  s.resident_wait_ns =
+      ingest_resident_wait_ns_.load(std::memory_order_relaxed);
+  s.barriers = ingest_barriers_.load(std::memory_order_relaxed);
+  return s;
+}
+
+bool CudaPath::ingestEpochBytes(int64_t epoch, uint64_t* out) const {
+  if (epoch < 0 || epoch >= (int64_t)ingest_epochs_ || !ingest_read_bytes_)
+    return false;
+  out[0] = ingest_read_bytes_[epoch].load(std::memory_order_relaxed);
+  out[1] = ingest_sub_bytes_[epoch].load(std::memory_order_relaxed);
+  out[2] = ingest_res_bytes_[epoch].load(std::memory_order_relaxed);
+  out[3] = ingest_drop_bytes_[epoch].load(std::memory_order_relaxed);
+  return true;
+}
+
+int CudaPath::ingestBarrier() {
+  // run by each ingest worker after its last epoch, inside the measured
+  // phase; per-epoch residency is read from the atomics the settles keep
+  auto t0 = Clock::now();
+  const int rc = settleAllShards();
+  ingest_resident_wait_ns_.fetch_add(
+      (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(
+          Clock::now() - t0)
+          .count(),
+      std::memory_order_relaxed);
+  ingest_barriers_.fetch_add(1, std::memory_order_relaxed);
+  return rc;
+}
+
+void CudaPath::ingestRearm() {
+  // between phases: the previous phase's barrier settled every pending, so
+  // no settle can decrement a gauge zeroed here
+  for (int e = 0; e < ingest_epochs_; e++) {
+    ingest_read_bytes_[e].store(0, std::memory_order_relaxed);
+    ingest_sub_bytes_[e].store(0, std::memory_order_relaxed);
+    ingest_res_bytes_[e].store(0, std::memory_order_relaxed);
+    ingest_drop_bytes_[e].store(0, std::memory_order_relaxed);
+  }
+  for (auto* a : {&ingest_batch_coalesce_, &ingest_inflight_bytes_,
+                  &ingest_inflight_peak_, &ingest_resident_wait_ns_,
+                  &ingest_barriers_})
+    a->store(0, std::memory_order_relaxed);
+  MutexLock lk(ingest_mutex_);
+  ingest_error_.clear();
+  ingest_cur_epoch_.clear();
 }
 
 // ---------------------------------------------------------------- reshard

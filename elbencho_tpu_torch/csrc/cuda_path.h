@@ -4,8 +4,9 @@
  *
  * CudaPath ports the part of the original package's PjrtPath
  * (core/include/ebt/pjrt_path.h, core/src/pjrt_path.cpp) that the read and
- * write legs, the stripe tier, checkpoint restore, the N->M reshard and the
- * device fault policy run, with no Python on the hot path. DevCopyFn
+ * write legs, the stripe tier, checkpoint restore, the N->M reshard, the
+ * device fault policy, serving rotation and the DL-ingestion ledger run, with
+ * no Python on the hot path. DevCopyFn
  * directions:
  *   0   host buffer -> device, chunked cuMemcpyHtoDAsync on the lane's H2D
  *       stream; completion deferred to the pre-reuse barrier (direction 2).
@@ -36,8 +37,14 @@
  *       back per chunk to the host bounce (D2H into pinned scratch, then
  *       H2D) where the copy is refused or disabled (EBT_D2D_DISABLE).
  *   15  the all-resharded barrier (every move and read settled).
- * Directions 11, 12, 16 and 17 (ingest, rotation) are not ported: they
- * return 1 with a latched cause.
+ *   11  ingest epoch begin: tag the worker's following blocks with the epoch.
+ *   12  ingest all-resident barrier (settleAllShards).
+ *   16  serving rotation begin: the calling thread (the engine's rotator)
+ *       becomes the background class of generation `len`; `file_offset` is
+ *       the lane bucket's byte/s budget.
+ *   17  serving rotation swap: record the rotation, publish the fresh
+ *       generation, free the previous one.
+ * Any other direction returns 1 with a latched cause naming it.
  *
  * Device faults (--retry/--maxerrors). With a device error budget set
  * (setFaultPolicy), a failed copy is resubmitted from its host source onto
@@ -84,14 +91,32 @@
  * the rotating write sources once per (rank, length, variant). They are freed
  * at teardown.
  *
+ * Serving rotation (--rotate) is the one tier that keeps a model resident.
+ * The original retains each chunk's PJRT buffer; here a generation owns one
+ * cuMemAlloc per (shard, placement lane), made at that shard's direction-9
+ * begin from the checkpoint plan, and every chunk of the restoring
+ * generation lands at its file offset inside it, never in the landing ring:
+ * on the registered and the staged tier and on a recovery resubmit. A chunk
+ * that lands on a lane the plan did not place it on (replanned after an
+ * ejection, or recovered onto a survivor) gets a chunk-sized allocation of
+ * its own in the same generation. The swap frees the displaced generation
+ * (outside the lock), the next begin frees an aborted one, teardown frees
+ * both. retained/released count data-carrying pendings, as the original's
+ * buffers do, so both packages report the same numbers whatever the layout.
+ *
+ * DL ingestion (--ingest) keeps the original's per-epoch byte ledger: read
+ * at entry, submitted at enqueue, resident or dropped at settle (a submit
+ * failure drops the bytes it did not enqueue), the in-flight gauge and its
+ * peak, batch coalescing. Its chunks land in the landing ring like any read.
+ *
  * Streams: one H2D and one D2H stream per device lane, so the copy engines of
  * the two directions overlap. A host function blocks its stream while it
  * runs, so the trampoline takes one leaf lock and calls no driver API.
  *
  * Lock hierarchy (as in PjrtPath): reg_mutex_ > QueueShard::m > {err_mutex_,
  * src_mutex_, rank_mutex_, Lane::histo_m, Tracker::m}; stripe_mutex_,
- * ckpt_mutex_, fault_mutex_ and reshard_mutex_ are leaves that never nest
- * with err_mutex_.
+ * ckpt_mutex_, fault_mutex_, reshard_mutex_, ingest_mutex_, rot_mutex_ and
+ * bg_mutex_ are leaves that never nest with err_mutex_.
  */
 #pragma once
 
@@ -316,6 +341,74 @@ class CudaPath {
     *pairs = peer_pairs_;
   }
 
+  // ---- serving rotation (--rotate): the device side of the engine's
+  // rotator thread ----
+  // direction 16: the calling thread restores `generation` as the
+  // background class, paced by the lane bucket at bg_rate_bps (0 =
+  // unthrottled); an aborted generation's memory is freed first. 1 without
+  // a checkpoint plan or with generation 0.
+  int rotateBegin(int worker_rank, uint64_t generation, uint64_t bg_rate_bps)
+      EBT_EXCLUDES(rot_mutex_, bg_mutex_);
+  // direction 17: record the rotation from the checkpoint ledger, make the
+  // fresh generation the active one, free the displaced one
+  int rotateSwap(int worker_rank) EBT_EXCLUDES(rot_mutex_);
+  struct RotationRecord {
+    uint64_t generation = 0;
+    uint64_t shards_total = 0;
+    uint64_t shards_resident = 0;   // == shards_total on a clean rotation
+    uint64_t bytes_submitted = 0;   // checkpoint-tagged bytes this rotation
+    uint64_t bytes_resident = 0;    // must equal bytes_submitted
+    uint64_t bg_bytes = 0;          // background H2D bytes this rotation
+    uint64_t retained_buffers = 0;  // data-carrying pendings the fresh set
+                                    // holds
+    uint64_t released_buffers = 0;  // the previous generation's, freed
+  };
+  int rotationCount() const EBT_EXCLUDES(rot_mutex_);
+  bool rotationRecord(int idx, RotationRecord* out) const
+      EBT_EXCLUDES(rot_mutex_);
+  // out[0..5] = published generation, restoring (0/1), lane bucket rate
+  // (bytes/s), bg_lane_throttle_ns, bg_h2d_bytes, retained pendings of both
+  // generations
+  void rotationState(uint64_t* out) const EBT_EXCLUDES(rot_mutex_);
+  // the lane bucket's ceiling (0 = unthrottled); each begin re-syncs it
+  void setBgBudget(uint64_t bytes_per_s) {
+    bg_rate_bps_.store(bytes_per_s, std::memory_order_relaxed);
+  }
+  // Test-only (like ejectDevice): copy [offset, offset + len) of `shard` as
+  // the active generation holds it on the shard's replica-th placement lane
+  // into host memory. Call between phases, never beside a swap. 0 ok, 1 = no
+  // active generation, replica outside the plan or a range not covered.
+  int rotationRead(int64_t shard, int replica, uint64_t offset,
+                   uint64_t len, void* host) EBT_EXCLUDES(rot_mutex_);
+
+  // ---- DL-ingestion ledger (--ingest) ----
+  // before the first data copy; 1 on a sealed path or bad geometry
+  int setIngestPlan(uint64_t record_size, int epochs);
+  // direction 11: tag worker_rank's following blocks with `epoch`
+  int ingestBeginEpoch(int worker_rank, int64_t epoch)
+      EBT_EXCLUDES(ingest_mutex_);
+  int64_t ingestEpochFor(int worker_rank) const EBT_EXCLUDES(ingest_mutex_);
+  struct IngestStats {
+    uint64_t read_bytes = 0;       // entered the device layer
+    uint64_t submitted_bytes = 0;  // enqueued as pending copies
+    uint64_t resident_bytes = 0;   // settled on a device
+    uint64_t dropped_bytes = 0;    // failed at submit or settle
+    uint64_t batch_coalesce_count = 0;  // blocks carrying > 1 record
+    uint64_t prefetch_peak_bytes = 0;   // peak in-flight ingest bytes
+    uint64_t resident_wait_ns = 0;      // direction-12 barriers' await time
+    uint64_t barriers = 0;              // direction-12 invocations
+  };
+  IngestStats ingestStats() const;
+  // out[0..3] = read/submitted/resident/dropped bytes of `epoch`
+  bool ingestEpochBytes(int64_t epoch, uint64_t* out) const;
+  int ingestEpochs() const { return ingest_epochs_; }
+  // direction 12: settle every pending copy; 1 = an ingest copy failed
+  // ("device N epoch E: cause" in ingestError())
+  int ingestBarrier();
+  std::string ingestError() const EBT_EXCLUDES(ingest_mutex_);
+  // zero the counters for a fresh phase on the same plan
+  void ingestRearm() EBT_EXCLUDES(ingest_mutex_);
+
   // the slice-wide settle sweep shared by directions 8 and 10 and by
   // teardown: every pending transfer of every buffer is awaited, under the
   // barriers' draining holds; 1 if any failed
@@ -369,6 +462,13 @@ class CudaPath {
     const char* src = nullptr;
     // a recovery's own copies: their settle neither recovers nor attributes
     bool no_recover = false;
+    int64_t ingest_epoch = -1;  // every chunk of an ingest block
+    // serving rotation: the generation this chunk was restored into (0 =
+    // none), the lane the plan placed its shard on and its file offset, so
+    // a recovery lands it in the same generation's memory
+    uint64_t rot_gen = 0;
+    int rot_lane = -1;
+    uint64_t rot_off = 0;
   };
   struct QueueShard {
     mutable Mutex m;
@@ -447,8 +547,8 @@ class CudaPath {
   // stripe_unit / ckpt_shard / reshard_unit >= 0 tag the pendings as they
   // enqueue
   void enqueue(void* buf, std::vector<Pending>& ps, int64_t stripe_unit = -1,
-               int64_t ckpt_shard = -1, int64_t reshard_unit = -1)
-      EBT_EXCLUDES(reg_mutex_);
+               int64_t ckpt_shard = -1, int64_t reshard_unit = -1,
+               int64_t ingest_epoch = -1) EBT_EXCLUDES(reg_mutex_);
   // ledger bookkeeping at a pending's settle (awaitRelease); the cause is
   // read out of err_mutex_ before the ledger's leaf lock is taken
   void settleStripe(const Pending& p, int rc) EBT_EXCLUDES(stripe_mutex_);
@@ -457,6 +557,44 @@ class CudaPath {
   void settleCkpt(const Pending& p, int rc) EBT_EXCLUDES(ckpt_mutex_);
   void latchCkptError(int device, int64_t shard, const std::string& cause)
       EBT_EXCLUDES(ckpt_mutex_);
+  void settleIngest(const Pending& p, int rc) EBT_EXCLUDES(ingest_mutex_);
+  void latchIngestError(int device, int64_t epoch, const std::string& cause)
+      EBT_EXCLUDES(ingest_mutex_);
+  void ingestCountSubmitted(int64_t epoch, uint64_t bytes);
+
+  // ---- rotation internals ----
+  // one device allocation of a generation: bytes [off, off + bytes) of
+  // `shard`, on `lane`, standing in for the shard's copy on plan_lane
+  struct RotBuf {
+    int64_t shard = -1;
+    int lane = 0;
+    int plan_lane = 0;
+    uint64_t off = 0;
+    uint64_t bytes = 0;
+    cu::CUdeviceptr ptr = 0;
+  };
+  struct RotGen {
+    std::vector<RotBuf> bufs;
+    uint64_t pendings = 0;  // data-carrying pendings settled into it
+  };
+  // charge one background block against the lane bucket (sleeps until the
+  // budget allows; wakes on the interrupt flag)
+  void bgLaneThrottle(uint64_t len) EBT_EXCLUDES(bg_mutex_);
+  // direction 9 on the rotator's thread: allocate the shard's memory on
+  // every lane the plan places it on. 0 ok, 1 with the cause latched.
+  int rotAllocShard(int64_t shard) EBT_EXCLUDES(rot_mutex_);
+  // where a chunk of generation `gen` lands: inside the shard's
+  // allocation on `lane` when the plan put it there, else a chunk-sized
+  // allocation of its own. 0 with the cause latched when none can be made
+  // or `gen` is no longer the restoring generation.
+  cu::CUdeviceptr rotDest(uint64_t gen, int64_t shard, int plan_lane,
+                          int lane, uint64_t off, uint64_t n)
+      EBT_EXCLUDES(rot_mutex_);
+  cu::CUdeviceptr rotAlloc(int lane, uint64_t bytes);
+  void rotFree(std::vector<RotBuf>& bufs);
+  // a clean settle of a chunk of the restoring generation counts into it
+  void rotRetain(const Pending& p) EBT_EXCLUDES(rot_mutex_);
+  void rotReleaseAll() EBT_EXCLUDES(rot_mutex_);
 
   // ---- fault-policy internals ----
   bool faultPolicyActive() const {
@@ -545,9 +683,13 @@ class CudaPath {
   bool ensureBuffer(int lane, cu::CUdeviceptr* p, uint64_t* cap,
                     uint64_t len);
 
+  // rot_gen != 0: a chunk of that restoring generation, landing in its
+  // memory (ckpt_shard, plan_lane and file_off say where)
   int submitH2D(int device_idx, const char* buf, uint64_t len,
                 int64_t stripe_unit = -1, int64_t ckpt_shard = -1,
-                int64_t reshard_unit = -1);
+                int64_t reshard_unit = -1, int64_t ingest_epoch = -1,
+                uint64_t rot_gen = 0, int plan_lane = -1,
+                uint64_t file_off = 0);
   // before copies from [buf, buf + len): wait out a registration change on
   // the range, then report whether it is registered and, if so, hold it in
   // the shard's draining ledger against eviction until releaseHold
@@ -702,6 +844,50 @@ class CudaPath {
   std::vector<char*> scratch_free_ EBT_GUARDED_BY(reshard_mutex_);
   std::vector<char*> scratch_all_ EBT_GUARDED_BY(reshard_mutex_);
   std::string reshard_error_ EBT_GUARDED_BY(reshard_mutex_);
+
+  // serving rotation: the generations are published atomically so the hot
+  // path reads them lock-free; the rotator thread marks itself background
+  // (thread-local, set at rotateBegin, cleared at the swap)
+  std::atomic<uint64_t> rot_generation_{0};   // last swapped generation
+  std::atomic<uint64_t> rot_restore_gen_{0};  // being restored (0 = none)
+  std::atomic<uint64_t> bg_rate_bps_{0};
+  std::atomic<uint64_t> bg_lane_throttle_ns_{0};
+  std::atomic<uint64_t> bg_h2d_bytes_{0};
+  // leaf lock: the lane bucket (only the rotator charges it)
+  mutable Mutex bg_mutex_;
+  double bg_tokens_ EBT_GUARDED_BY(bg_mutex_) = 0;
+  Clock::time_point bg_last_refill_ EBT_GUARDED_BY(bg_mutex_){};
+  // the checkpoint plan's placement entries, kept for the per-shard
+  // allocations (written once by setCkptPlan before the path is sealed)
+  std::vector<int> ckpt_entry_shard_;
+  std::vector<int> ckpt_entry_device_;
+  std::vector<uint64_t> ckpt_entry_bytes_;
+  // leaf lock: the two generations' memory, the records, the bg byte base
+  mutable Mutex rot_mutex_;
+  RotGen rot_active_ EBT_GUARDED_BY(rot_mutex_);
+  RotGen rot_fresh_ EBT_GUARDED_BY(rot_mutex_);
+  std::vector<RotationRecord> rot_records_ EBT_GUARDED_BY(rot_mutex_);
+  uint64_t rot_bg_bytes_base_ EBT_GUARDED_BY(rot_mutex_) = 0;
+
+  // DL-ingestion plan: written once by setIngestPlan before the path is
+  // sealed; the per-epoch atomics are sized by it
+  std::atomic<int> ingest_active_{0};
+  uint64_t ingest_record_size_ = 0;
+  int ingest_epochs_ = 0;
+  std::unique_ptr<std::atomic<uint64_t>[]> ingest_read_bytes_;
+  std::unique_ptr<std::atomic<uint64_t>[]> ingest_sub_bytes_;
+  std::unique_ptr<std::atomic<uint64_t>[]> ingest_res_bytes_;
+  std::unique_ptr<std::atomic<uint64_t>[]> ingest_drop_bytes_;
+  std::atomic<uint64_t> ingest_batch_coalesce_{0};
+  std::atomic<uint64_t> ingest_inflight_bytes_{0};
+  std::atomic<uint64_t> ingest_inflight_peak_{0};
+  std::atomic<uint64_t> ingest_resident_wait_ns_{0};
+  std::atomic<uint64_t> ingest_barriers_{0};
+  // leaf lock: the per-worker current epoch and the first failure
+  mutable Mutex ingest_mutex_;
+  std::unordered_map<int, int64_t> ingest_cur_epoch_
+      EBT_GUARDED_BY(ingest_mutex_);
+  std::string ingest_error_ EBT_GUARDED_BY(ingest_mutex_);
 
   mutable Mutex rank_mutex_;
   std::map<std::pair<int, int>, std::unique_ptr<RankBufs>> rank_bufs_

@@ -5,9 +5,9 @@ C++ transfer engine (csrc/cuda_path.cpp), which drives the card through the
 CUDA driver API with no Python on the hot path. The flag keeps the original
 package's name for CLI and result-tree parity; this module is the port's
 counterpart of the original's tpu/native.py (NativePjrtPath) with its
-stripe-tier, checkpoint-restore and reshard ledgers and its device fault
-policy, without its ingest, rotation, transfer-manager and raw-ceiling
-parts.
+stripe-tier, checkpoint-restore, reshard, serving-rotation and ingest
+ledgers and its device fault policy, without its transfer-manager and
+raw-ceiling parts.
 
 This module resolves WHICH driver library the engine loads, makes sure the
 kernel library is built when on-device verify or write generation is on,
@@ -79,6 +79,7 @@ class NativeCudaPath:
 
     def __init__(self, cfg: Config) -> None:
         self._lib = load_lib()
+        self._ingest_record_size = 0  # set by set_ingest_plan
         self.so_path = resolve_driver()
         nids = len(cfg.tpu_ids)
         ids = (ctypes.c_int * max(1, nids))(*cfg.tpu_ids)
@@ -411,6 +412,139 @@ class NativeCudaPath:
         out = (ctypes.c_int * 2)()
         self._lib.ebt_cuda_peer_access(self._h, out)
         return out[0], out[1]
+
+    # ---- serving rotation (--rotate): device-side ledger ----
+    #
+    # The engine's rotator thread owns the rotation lifecycle (directions
+    # 16/17); this ledger supplies the device side: the lane-side
+    # background token bucket, the two generations held in device memory
+    # (one allocation per shard and placement lane) and the per-rotation
+    # reconciliation records appended at each swap.
+
+    def set_bg_budget(self, bytes_per_s: int) -> None:
+        """Arm the lane-side background token bucket's ceiling (0 =
+        unthrottled); each rotation begin re-syncs the rate so the
+        engine's adaptive controller carries through."""
+        self._lib.ebt_cuda_set_bg_budget(self._h, int(bytes_per_s))
+
+    def rotation_state(self) -> dict[str, int]:
+        """Live rotation gauges: the published (swapped) generation, a
+        restore-in-flight flag, the lane bucket's current byte/s budget,
+        the lane-side throttle time and background H2D bytes, and the
+        retained pendings across both generations. The original's key
+        set."""
+        out = (ctypes.c_uint64 * 6)()
+        self._lib.ebt_cuda_rotation_state(self._h, out)
+        return {"rotation_generation": out[0], "rotation_restoring": out[1],
+                "bg_lane_rate_bps": out[2], "bg_lane_throttle_ns": out[3],
+                "bg_h2d_bytes": out[4], "rotation_retained_buffers": out[5]}
+
+    def rotation_records(self) -> list[dict[str, int]]:
+        """Per-rotation reconciliation records (one per completed swap):
+        generation, shards_total == shards_resident and bytes_submitted ==
+        bytes_resident on a clean rotation, the rotation's background H2D
+        bytes, and the retained/released pending counts of the swap."""
+        recs: list[dict[str, int]] = []
+        out = (ctypes.c_uint64 * 8)()
+        for i in range(self._lib.ebt_cuda_rotation_count(self._h)):
+            if self._lib.ebt_cuda_rotation_record(self._h, i, out) != 0:
+                break
+            recs.append({"generation": out[0], "shards_total": out[1],
+                         "shards_resident": out[2],
+                         "bytes_submitted": out[3],
+                         "bytes_resident": out[4], "bg_bytes": out[5],
+                         "retained_buffers": out[6],
+                         "released_buffers": out[7]})
+        return recs
+
+    def rotation_read(self, shard: int, offset: int, length: int,
+                      replica: int = 0) -> bytes:
+        """Test-only (like eject_device): bytes [offset, offset + length)
+        of `shard` as the active generation holds them in device memory on
+        the shard's replica-th placement lane. Call between phases. Raises
+        when there is no active generation or the range is not held."""
+        buf = ctypes.create_string_buffer(int(length))
+        if self._lib.ebt_cuda_rotation_read(
+                self._h, int(shard), int(replica), int(offset), int(length),
+                buf) != 0:
+            raise ProgException(
+                f"rotation read-back of shard {shard} [{offset}, "
+                f"{offset + length}) failed: {self.last_error()}")
+        return buf.raw
+
+    # ---- DL-ingestion ledger (--ingest phase family) ----
+    #
+    # The engine owns the shuffle and the prefetch pipeline (records
+    # batched into blocks); this ledger supplies the evidence: per-epoch
+    # read/submitted/resident/dropped byte reconciliation at the
+    # direction-12 all-resident barrier, batch-coalescing and
+    # prefetch-depth peaks, and "device N epoch E: cause" attribution.
+
+    def set_ingest_plan(self, record_size: int, epochs: int) -> None:
+        """Arm the ingest ledger before any transfer (records derive from
+        the byte counters as bytes / record_size)."""
+        rc = self._lib.ebt_cuda_set_ingest_plan(self._h, int(record_size),
+                                                int(epochs))
+        if rc != 0:
+            raise ProgException(
+                f"ingest plan rejected (record_size={record_size}, "
+                f"epochs={epochs}): the plan must precede the first "
+                "transfer with a positive record size and epoch count")
+        self._ingest_record_size = int(record_size)
+
+    def ingest_stats(self, block_size: int = 0) -> dict[str, int]:
+        """Ingest evidence counters in records (the plan's record size):
+        records_read/submitted/resident/dropped (read == resident +
+        dropped once every barrier returned), batch_coalesce_count,
+        prefetch_depth_peak (peak in-flight batches, from the byte gauge),
+        resident_wait_ns and barriers. Phase-scoped via ingest_rearm. The
+        original's key set."""
+        out = (ctypes.c_uint64 * 8)()
+        self._lib.ebt_cuda_ingest_stats(self._h, out)
+        rs = self._ingest_record_size or 1
+        bs = block_size or 1
+        return {"records_read": out[0] // rs,
+                "records_submitted": out[1] // rs,
+                "records_resident": out[2] // rs,
+                "records_dropped": out[3] // rs,
+                "batch_coalesce_count": out[4],
+                "prefetch_depth_peak": (out[5] + bs - 1) // bs,
+                "resident_wait_ns": out[6],
+                "barriers": out[7]}
+
+    def ingest_epoch_records(self, epoch: int) -> dict[str, int]:
+        """Per-epoch reconciliation in records: read/submitted/resident/
+        dropped of one epoch. Raises for an epoch outside the plan."""
+        out = (ctypes.c_uint64 * 4)()
+        if self._lib.ebt_cuda_ingest_epoch_bytes(self._h, int(epoch),
+                                                 out) != 0:
+            raise ProgException(f"ingest epoch {epoch} outside the plan")
+        rs = self._ingest_record_size or 1
+        return {"read": out[0] // rs, "submitted": out[1] // rs,
+                "resident": out[2] // rs, "dropped": out[3] // rs}
+
+    @property
+    def ingest_epochs(self) -> int:
+        """The armed plan's epoch count (0 = no ingest plan)."""
+        return self._lib.ebt_cuda_ingest_epochs(self._h)
+
+    def ingest_barrier(self) -> bool:
+        """Run the all-resident barrier explicitly (the engine's ingest
+        workers run it as direction 12). False = an ingest transfer
+        failed; cause in ingest_error()."""
+        return self._lib.ebt_cuda_ingest_barrier(self._h) == 0
+
+    def ingest_error(self) -> str:
+        """First ingest failure ("device N epoch E: cause"); empty when
+        none."""
+        buf = ctypes.create_string_buffer(1024)
+        self._lib.ebt_cuda_ingest_error(self._h, buf, len(buf))
+        return buf.value.decode()
+
+    def ingest_rearm(self) -> None:
+        """Zero the ingest counters and attribution for a fresh phase on
+        the same plan."""
+        self._lib.ebt_cuda_ingest_rearm(self._h)
 
     # ---- device faults: lane ejection + live replanning ----
     #

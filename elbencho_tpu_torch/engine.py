@@ -587,7 +587,21 @@ def _declare_cuda(lib: ctypes.CDLL) -> None:
             ("reshard_barrier", [vp], i32),
             ("reshard_error", [vp, s, i32], None),
             ("d2d_supported", [vp], i32),
-            ("peer_access", [vp, ctypes.POINTER(ctypes.c_int)], None)):
+            ("peer_access", [vp, ctypes.POINTER(ctypes.c_int)], None),
+            # serving rotation and the ingest ledger, with the ebt_pjrt_*
+            # twins' signatures, plus the rotation read-back
+            ("set_bg_budget", [vp, u64], None),
+            ("rotation_state", [vp, u64p], None),
+            ("rotation_count", [vp], i32),
+            ("rotation_record", [vp, i32, u64p], i32),
+            ("rotation_read", [vp, ctypes.c_int64, i32, u64, u64, vp], i32),
+            ("set_ingest_plan", [vp, u64, i32], i32),
+            ("ingest_stats", [vp, u64p], None),
+            ("ingest_epoch_bytes", [vp, ctypes.c_int64, u64p], i32),
+            ("ingest_epochs", [vp], i32),
+            ("ingest_barrier", [vp], i32),
+            ("ingest_error", [vp, s, i32], None),
+            ("ingest_rearm", [vp], None)):
         fn = getattr(lib, f"ebt_cuda_{name}")
         fn.argtypes = args
         fn.restype = res

@@ -73,6 +73,19 @@ def engine_serving_stats(engine) -> dict[str, int]:
             "bg_adapt_ups": raw[10]}
 
 
+def shuffle_sample(seed: int, epoch: int, rank: int, begin: int, end: int,
+                   window: int, max_n: int = 1 << 16) -> list[int]:
+    """Shuffled record indices of one (seed, epoch, rank) stream over
+    [begin, end) with the given window, drawn from THE shipped native
+    WindowShuffler (ebt_shuffle_sample) — determinism/quality tests
+    exercise exactly the order the ingest hot loop reads in."""
+    out = (ctypes.c_uint64 * max_n)()
+    n = load_lib().ebt_shuffle_sample(int(seed), int(epoch), int(rank),
+                                      int(begin), int(end), int(window),
+                                      out, max_n)
+    return [out[i] for i in range(n)]
+
+
 def engine_fault_stats(engine) -> dict[str, int]:
     """Engine-side fault-tolerance evidence of a NativeEngine (--retry/
     --maxerrors): retried block ops (io_retry_attempts), ops that

@@ -8,10 +8,8 @@ Everything rides the WorkerGroup accessor surface (workers/base.py), so the
 exported numbers are exactly the counter families the result tree is built
 from, under the original's names.
 
-The original's families of the ingest and serving-rotation subsystems are
-left out with those subsystems, which the port refuses at config
-validation: its worker groups have no such counters to read. The stripe,
-checkpoint and reshard families are carried. METRIC_FAMILIES lists what the
+Every family of the original is carried, the stripe, checkpoint, reshard,
+ingest and serving-rotation ones included. METRIC_FAMILIES lists what the
 port emits.
 
 Consistency rules (the scrape-during-phase-transition contract):
@@ -105,6 +103,9 @@ METRIC_FAMILIES = (
     ("ebt_ckpt_shards_resident", "gauge",
      "Shards whose resident bytes reconciled at the all-resident "
      "barrier."),
+    ("ebt_ingest_records_total", "counter",
+     "DL-ingestion records by outcome (read/resident/dropped); "
+     "read == resident + dropped."),
     ("ebt_reshard_units_total", "gauge",
      "Reshard plan units (N->M topology shift)."),
     ("ebt_reshard_units_settled_total", "counter",
@@ -119,6 +120,22 @@ METRIC_FAMILIES = (
      "Fraction of completions under the class's SLO latency target on "
      "the scheduled-arrival clock (--slotarget / slo=), per tenant "
      "class."),
+    ("ebt_rotation_generation", "gauge",
+     "Published (swapped) model-rotation generation (--rotate)."),
+    ("ebt_rotation_restoring", "gauge",
+     "1 while a rotation restore generation is in flight (unswapped)."),
+    ("ebt_rotation_bg_rate_bytes", "gauge",
+     "Current background byte/s budget of the rotation token bucket "
+     "(the adaptive controller moves it under the --bgbudget ceiling)."),
+    ("ebt_rotation_ttr_seconds", "gauge",
+     "Last completed rotation's restore time (begin -> all-resident "
+     "swap)."),
+    ("ebt_rotation_bg_throttle_seconds_total", "counter",
+     "Time rotation I/O spent throttled by the background token buckets "
+     "(storage-side + lane-side)."),
+    ("ebt_rotations_total", "counter",
+     "Model rotations by outcome (complete = restored, reconciled and "
+     "swapped; failed = aborted before the swap)."),
     ("ebt_pod_hosts_total", "gauge",
      "Service hosts fanned in by this master (master role only)."),
     ("ebt_pod_degraded_hosts", "gauge",
@@ -330,9 +347,17 @@ def render_metrics(workers, cfg=None, phase: BenchPhase = BenchPhase.IDLE,
         o.sample("ebt_reshard_moves_total", {"tier": "bounce"},
                  rs.get("bounce_moves", 0))
 
+    def ingest_block(o: _Renderer) -> None:
+        ist = workers.ingest_stats()
+        if not ist:
+            return
+        for outcome in ("read", "resident", "dropped"):
+            o.sample("ebt_ingest_records_total", {"outcome": outcome},
+                     ist.get(f"records_{outcome}", 0))
+
     def serving_block(o: _Renderer) -> None:
         # scheduled-rate + SLO-goodput gauges ride the tenant classes
-        # (open-loop only)
+        # (open-loop only); the rotation gauges ride --rotate
         tstats = workers.tenant_stats() or []
         if tstats:
             tlat = workers.tenant_latency()
@@ -355,6 +380,24 @@ def render_metrics(workers, cfg=None, phase: BenchPhase = BenchPhase.IDLE,
                     frac = st.get("slo_ok", 0) / comp if comp else 1.0
                     o.sample("ebt_serving_goodput_fraction",
                              {"tenant": label}, float(frac))
+        svs = workers.serving_stats()
+        if not svs:
+            return
+        o.sample("ebt_rotation_generation", None,
+                 svs.get("rotation_generation", 0))
+        o.sample("ebt_rotation_restoring", None,
+                 svs.get("rotation_restoring", 0))
+        o.sample("ebt_rotation_bg_rate_bytes", None,
+                 svs.get("bg_rate_bps", 0))
+        o.sample("ebt_rotation_ttr_seconds", None,
+                 svs.get("ttr_last_ns", 0) / 1e9)
+        o.sample("ebt_rotation_bg_throttle_seconds_total", None,
+                 (svs.get("bg_throttle_ns", 0) +
+                  svs.get("bg_lane_throttle_ns", 0)) / 1e9)
+        o.sample("ebt_rotations_total", {"outcome": "complete"},
+                 svs.get("rotations_complete", 0))
+        o.sample("ebt_rotations_total", {"outcome": "failed"},
+                 svs.get("rotations_failed", 0))
 
     def pod_block(o: _Renderer) -> None:
         timings = workers.host_timings()
@@ -366,7 +409,8 @@ def render_metrics(workers, cfg=None, phase: BenchPhase = BenchPhase.IDLE,
 
     for block in (phase_block, workers_block, totals_block, tenants_block,
                   device_block, faults_block, reactor_block, stripe_block,
-                  ckpt_block, reshard_block, serving_block, pod_block):
+                  ckpt_block, ingest_block, reshard_block, serving_block,
+                  pod_block):
         family(block)
     return out.text()
 

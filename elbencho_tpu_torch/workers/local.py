@@ -9,10 +9,8 @@ backend, and reads back live counters and results.
 The port carries the staged/direct callback backend, the hostsim backend,
 and the native pjrt path (`--tpubackend pjrt`: the C++ CUDA transfer engine
 of csrc/cuda_path.cpp, installed as a C function pointer) with its stripe
-planner, checkpoint restore, N->M reshard and device fault policy. The
-scenarios the original builds on the native path beyond those (ingest,
-serving rotation) are refused at config validation, so the counter
-families only they produce stay at the WorkerGroup defaults (None).
+planner, checkpoint restore, N->M reshard, device fault policy, serving
+rotation and DL-ingestion ledger.
 """
 
 from __future__ import annotations
@@ -23,7 +21,8 @@ from ..common import BenchPathType, BenchPhase, DevBackend, RAND_ALGO_NAMES
 from ..config import Config
 from ..engine import NativeEngine
 from ..engine_stats import (engine_fault_stats, engine_numa_stats,
-                            engine_reactor_stats, tenant_stats, uring_stats)
+                            engine_reactor_stats, engine_serving_stats,
+                            tenant_stats, uring_stats)
 from ..logger import LOGGER
 from .base import WorkerGroup, WorkerPhaseResult, WorkerSnapshot
 
@@ -46,6 +45,10 @@ class LocalWorkerGroup(WorkerGroup):
         # a chunk move settled device to device, "bounce" when moves
         # settled only through the host bounce
         self._engaged_reshard_tier: str | None = None
+        # DL-ingestion tier, confirmed from counter deltas: "pipelined"
+        # when records landed resident and the in-flight gauge peaked at
+        # >= 2 batches, "serial" when it peaked at <= 1
+        self._engaged_ingest_tier: str | None = None
         self._tier_base: dict = {}
         # device FaultStats at the last start_phase: the native counters
         # are session-cumulative (ejection is sticky), the result tree
@@ -57,7 +60,9 @@ class LocalWorkerGroup(WorkerGroup):
     def _build_engine(self) -> NativeEngine:
         cfg = self.cfg
         e = NativeEngine()
-        for p in cfg.paths:
+        # ingest mode: the engine reads the resolved dataset shard files,
+        # not the CLI PATH (a directory in generated mode)
+        for p in (cfg.ingest_paths() if cfg.ingest_dataset else cfg.paths):
             e.add_path(p)
         e.set("path_type", int(cfg.path_type))
         e.set("num_threads", cfg.num_threads)
@@ -115,8 +120,17 @@ class LocalWorkerGroup(WorkerGroup):
                         e.add_trace_segment(cls, int(seg.at_s * 1e9),
                                             TRACE_KINDS[seg.kind],
                                             seg.rate, seg.rate_end)
+        # SLO goodput grading + serving rotation (--slotarget/--rotate/
+        # --bgbudget/--bgadapt): the target never gates issue, the
+        # rotation arms the engine's rotator thread on read phases
         if cfg.slo_target_ms:
             e.set_float("slo_target_ms", float(cfg.slo_target_ms))
+        if cfg.rotate_period_s:
+            e.set_float("rotate_period_s", float(cfg.rotate_period_s))
+            if cfg.bg_budget:
+                e.set("bg_budget_bps", cfg.bg_budget)
+            if cfg.bg_adapt_lag_ms:
+                e.set("bg_adapt_lag_ms", cfg.bg_adapt_lag_ms)
         # fault tolerance (--retry/--retrybackoff/--maxerrors): retries
         # with backoff in the block hot loops, plus the error budget that
         # lets a phase continue past exhausted retries. Both default to
@@ -285,10 +299,43 @@ class LocalWorkerGroup(WorkerGroup):
                 for shard in cfg.ckpt_shards:
                     e.add_ckpt_shard(shard.path, shard.bytes, shard.devices)
                 e.set("dev_ckpt", 1)
-                LOGGER.info(
-                    f"checkpoint restore: {len(cfg.ckpt_shards)} "
-                    f"shard(s) over {np_.num_devices} device(s), "
-                    f"{cfg.ckpt_total_bytes() >> 20} MiB total")
+                if cfg.rotate_period_s:
+                    # serving rotation: arm the lane-side background token
+                    # bucket (the engine's rotator re-syncs the rate at
+                    # each rotation begin)
+                    if cfg.bg_budget:
+                        np_.set_bg_budget(cfg.bg_budget)
+                    LOGGER.info(
+                        f"model rotation: {len(cfg.ckpt_shards)} "
+                        f"shard(s) every {cfg.rotate_period_s}s, "
+                        f"bg budget "
+                        + (f"{cfg.bg_budget} B/s" if cfg.bg_budget
+                           else "unthrottled")
+                        + (f" (adaptive, {cfg.bg_adapt_lag_ms}ms "
+                           "lag target)" if cfg.bg_adapt_lag_ms
+                           else ""))
+                else:
+                    LOGGER.info(
+                        f"checkpoint restore: {len(cfg.ckpt_shards)} "
+                        f"shard(s) over {np_.num_devices} device(s), "
+                        f"{cfg.ckpt_total_bytes() >> 20} MiB total")
+        if cfg.ingest_dataset:
+            # DL ingestion: arm the per-epoch record ledger in the native
+            # path and hand the engine the record/shuffle/prefetch geometry
+            # (it owns the shuffled record loop and the direction-11/12
+            # protocol)
+            np_.set_ingest_plan(cfg.record_size, cfg.ingest_epochs)
+            e.set("dev_ingest", 1)
+            e.set("record_size", cfg.record_size)
+            e.set("shuffle_window", cfg.shuffle_window)
+            e.set("shuffle_seed", cfg.shuffle_seed)
+            e.set("ingest_epochs", cfg.ingest_epochs)
+            e.set("prefetch_batches", cfg.prefetch_batches)
+            LOGGER.info(
+                f"ingest: {len(cfg.ingest_dataset)} shard(s) x "
+                f"{cfg.ingest_records_per_shard()} records of "
+                f"{cfg.record_size} B, {cfg.ingest_epochs} epoch(s), "
+                f"window {cfg.shuffle_window}, seed {cfg.shuffle_seed}")
         if cfg.stripe_policy:
             # the stripe tier: install the block->lane plan (the planner
             # owns direction-0 placement from here on) and have the engine
@@ -318,19 +365,30 @@ class LocalWorkerGroup(WorkerGroup):
     def prepare(self) -> None:
         if self._prepared:
             return
-        if self.cfg.ckpt_shards and self.cfg.run_create_files:
+        if self.cfg.ckpt_shards and self.cfg.run_create_files and \
+                not self.cfg.rotate_period_s:
             # generated --checkpoint-shards manifest with -w: create/size
-            # the shard files up front (set-up, never measured)
+            # the shard files up front (set-up, never measured). Serving
+            # rotation is excluded: there -w creates the bench files and
+            # the explicit manifest's shards must already exist
             from ..checkpoint import write_generated_shards
 
             write_generated_shards(self.cfg.ckpt_shards)
+        if self.cfg.ingest_dataset and self.cfg.run_create_files:
+            # generated --ingestshards dataset with -w: same set-up rule
+            from ..ingest import write_generated_dataset
+
+            write_generated_dataset(self.cfg.ingest_dataset)
         self.engine = self._build_engine()
-        if not self.cfg.ckpt_shards and \
+        if (not self.cfg.ckpt_shards or self.cfg.rotate_period_s) and \
+                not self.cfg.ingest_dataset and \
                 self.cfg.path_type != BenchPathType.DIR and (
                 self.cfg.run_create_files or self.cfg.path_type ==
                 BenchPathType.BLOCKDEV):
             # (checkpoint mode prepares its shard files above; its PATH is
-            # the shard directory, not a file to create)
+            # the shard directory, not a file to create. Serving rotation
+            # keeps the standard preparation: its PATH args are the bench
+            # files the read phase serves.)
             self.engine.prepare_paths()
         self.engine.prepare()
         if self._native_path is not None and self.cfg.reshard_devices:
@@ -350,6 +408,11 @@ class LocalWorkerGroup(WorkerGroup):
         self._tier_base = self.tier_counter_snapshot()
         if self._native_path is not None:
             self._fault_base = self._native_path.fault_stats()
+        # ingest counters are phase-scoped like every other family: a
+        # fresh phase on the same plan starts from zero
+        if self._native_path is not None and self.cfg.ingest_dataset and \
+                phase == BenchPhase.INGEST:
+            self._native_path.ingest_rearm()
         # per-chip latency is phase-scoped like every other histogram
         source = self._native_path or self._staging_path()
         if source is not None:
@@ -389,6 +452,7 @@ class LocalWorkerGroup(WorkerGroup):
         self._engaged_d2h_tier = None
         self._engaged_stripe_tier = None
         self._engaged_reshard_tier = None
+        self._engaged_ingest_tier = None
         self._tier_base = {}
         self._fault_base = {}
 
@@ -748,6 +812,85 @@ class LocalWorkerGroup(WorkerGroup):
             return None
         return self._native_path.ckpt_dev_bytes()
 
+    def serving_stats(self) -> dict[str, int] | None:
+        """Serving-rotation evidence (--rotate): the engine-side rotation
+        lifecycle/ttr/bg-throttle counters merged with the device-side
+        lane-bucket and retained-generation gauges, or None when no
+        rotation is configured."""
+        if self.engine is None or not self.cfg.rotate_period_s:
+            return None
+        out = engine_serving_stats(self.engine)
+        if self._native_path is not None:
+            out.update(self._native_path.rotation_state())
+        return out
+
+    def rotation_ttr_ns(self) -> list[int] | None:
+        """Per-rotation restore times this phase (ns, completion order),
+        or None when no rotation is configured."""
+        if self.engine is None or not self.cfg.rotate_period_s:
+            return None
+        return self.engine.rotation_ttr_ns()
+
+    def rotation_records(self) -> list[dict[str, int]] | None:
+        """Per-rotation reconciliation records (one per completed swap),
+        or None when no rotation is configured / off the native path."""
+        if self._native_path is None or not self.cfg.rotate_period_s:
+            return None
+        return self._native_path.rotation_records()
+
+    def confirm_ingest_tier(self) -> str | None:
+        """Ingest twin of confirm_engaged_tier: "pipelined" when records
+        landed resident this phase AND the in-flight prefetch gauge
+        peaked at >= 2 batches (epoch reads actually overlapped device
+        settles), "serial" when records landed with a peak of <= 1.
+        Confirmed from counter deltas, never from --prefetchbatches
+        alone. Returns the previous confirmation when no records
+        landed."""
+        np_ = self._native_path
+        if np_ is None or not self.cfg.ingest_dataset:
+            return None
+        stats = np_.ingest_stats(self.cfg.block_size)
+        if stats["records_resident"] <= 0:
+            return self._engaged_ingest_tier
+        tier = "pipelined" if stats["prefetch_depth_peak"] >= 2 \
+            else "serial"
+        if (self._engaged_ingest_tier is not None
+                and tier != self._engaged_ingest_tier):
+            LOGGER.info(f"ingest tier engagement changed: "
+                        f"{self._engaged_ingest_tier} -> {tier}")
+        self._engaged_ingest_tier = tier
+        return tier
+
+    def ingest_tier(self) -> str | None:
+        """The engagement-confirmed ingest tier ("pipelined"/"serial"),
+        or None before any resident records (or without an ingest plan /
+        off the native path)."""
+        return self._engaged_ingest_tier
+
+    def ingest_stats(self) -> dict | None:
+        """The IngestStats counter family: record totals + the per-epoch
+        reconciliation lists from the device ledger, the engine's
+        per-epoch wall times, and the configured shuffle window. None
+        without an ingest plan / off the native path. Phase-scoped (the
+        ledger is re-armed at start_phase)."""
+        if self._native_path is None or not self.cfg.ingest_dataset or \
+                self.engine is None:
+            return None
+        stats = self._native_path.ingest_stats(self.cfg.block_size)
+        stats["shuffle_window"] = self.cfg.shuffle_window
+        stats["epochs"] = [
+            self._native_path.ingest_epoch_records(e)
+            for e in range(self._native_path.ingest_epochs)]
+        stats["epoch_time_ns"] = self.engine.ingest_epoch_ns(
+            max(1, self.cfg.ingest_epochs))
+        return stats
+
+    def ingest_error(self) -> str | None:
+        """First ingest failure ("device N epoch E: cause"), or None."""
+        if self._native_path is None or not self.cfg.ingest_dataset:
+            return None
+        return self._native_path.ingest_error()
+
     def ckpt_error(self) -> str | None:
         """First restore failure ("device N shard S: cause"), or None."""
         if self._native_path is None or not self.cfg.ckpt_shards:
@@ -856,6 +999,7 @@ class LocalWorkerGroup(WorkerGroup):
             self.confirm_engaged_tier()
             self.confirm_d2h_tier()
             self.confirm_stripe_tier()
+            self.confirm_ingest_tier()
             self.confirm_reshard_tier()
         out = []
         cpu_sw = self.engine.cpu_stonewall_pct()
@@ -875,7 +1019,7 @@ class LocalWorkerGroup(WorkerGroup):
                 # generic "device copy failed (rc=N)" message; a striped
                 # fill adds the per-device attribution ("device N unit U:
                 # cause"), a checkpoint restore its "device N shard S:
-                # cause"
+                # cause", an ingest its "device N epoch E: cause"
                 serr = self._native_path.stripe_error()
                 if serr and serr not in err:
                     err = f"{err}: {serr}"
@@ -886,6 +1030,10 @@ class LocalWorkerGroup(WorkerGroup):
                     if self.cfg.reshard_devices else ""
                 if rerr and rerr not in err:
                     err = f"{err}: {rerr}"
+                ierr = self._native_path.ingest_error() \
+                    if self.cfg.ingest_dataset else ""
+                if ierr and ierr not in err:
+                    err = f"{err}: {ierr}"
                 nerr = self._native_path.last_error()
                 if nerr and nerr not in err:
                     err = f"{err}: {nerr}"

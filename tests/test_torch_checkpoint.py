@@ -234,8 +234,9 @@ def test_device_outside_resolved_count_refused_at_prepare(pkgs, tmp_path,
     "both-manifests", "verify", "rand", "arrival", "path-with-manifest",
     "rotate-first"])
 def test_checkpoint_scenario_rules_match(pkgs, tmp_path, case):
-    """The scenario's own checks, refused with the original's texts; a
-    flag the port does not carry yet is refused first, by name."""
+    """The scenario's own checks, refused with the original's texts
+    (--rotate is ported: a restore with it is refused by the serving
+    scenario's own rule, as in the original)."""
     man = write_manifest(tmp_path, [{"path": write_shard(tmp_path, "s.bin"),
                                      "device": 0}])
     args = {
@@ -253,9 +254,6 @@ def test_checkpoint_scenario_rules_match(pkgs, tmp_path, case):
         "rotate-first": ckpt_args(man, ["--rotate", "1"]),
     }[case]
     msgs = [refusal(p, args) for p in pkgs]
-    if case == "rotate-first":
-        assert msgs[1] == "--rotate: not yet ported (see ROADMAP.md)"
-        return
     assert msgs[1] == msgs[0]
 
 

@@ -137,17 +137,15 @@ def test_file_written_by_one_package_verifies_under_the_other(
 
 
 @pytest.mark.parametrize("args,flag", [
-    # --tpubackend pjrt itself is ported; serving rotation on it is not
-    pytest.param(["--tpubackend", "pjrt", "--rotate", "1", "-r", "-s", "1M",
-                  "PATH"], "--rotate", id="args0---tpubackend pjrt"),
+    # --tpubackend pjrt itself is ported; fault injection on it is not
+    pytest.param(["--tpubackend", "pjrt", "--chaos", "seed=1", "-r", "-s",
+                  "1M", "PATH"], "--chaos", id="args0---tpubackend pjrt"),
     (["--chaos", "seed=1", "-r", "-s", "1M", "PATH"], "--chaos"),
-    (["--rotate", "1", "-r", "-s", "1M", "PATH"], "--rotate"),
-    (["--ingestshards", "2", "--tpubackend", "pjrt", "-r", "PATH"],
-     "--ingestshards"),
-    # the checkpoint scenario is ported; a flag it composes with that is
-    # not is refused first, by name
-    (["--checkpoint-shards", "2", "-w", "-s", "1M", "--tpubackend", "pjrt",
-      "--rotate", "1", "PATH"], "--rotate"),
+    # the native engine's transfer-manager tier is not ported
+    (["--tpubackend", "pjrt", "-r", "-s", "1M", "XFER_MGR", "PATH"],
+     "EBT_PJRT_XFER_MGR"),
+    # the checkpoint and reshard scenarios are ported; a flag they compose
+    # with that is not is refused first, by name
     (["--checkpoint-shards", "2", "-w", "-s", "1M", "--tpubackend", "pjrt",
       "--reshard", "1", "--chaos", "seed=1", "PATH"], "--chaos"),
     # the stripe tier is ported; fault injection over it is not
@@ -156,16 +154,56 @@ def test_file_written_by_one_package_verifies_under_the_other(
     # the device fault policy is ported; fault injection over it is not
     (["--maxerrors", "2", "--tpubackend", "pjrt", "--chaos", "seed=1", "-r",
       "-s", "1M", "PATH"], "--chaos"),
-    (["--ingest", "PATH", "-r"], "--ingest"),
-    (["--ingestshards", "2", "-r", "PATH"], "--ingestshards"),
+    # serving rotation and ingestion are ported; fault injection is not
+    (["--tpubackend", "pjrt", "--rotate", "1", "--chaos", "seed=1", "-r",
+      "-s", "1M", "PATH"], "--chaos"),
+    (["--ingestshards", "2", "--tpubackend", "pjrt", "--chaos", "seed=1",
+      "PATH"], "--chaos"),
 ])
-def test_unported_flags_refused(bench_dir, capfd, args, flag):
+def test_unported_flags_refused(bench_dir, capfd, monkeypatch, args, flag):
     argv = [str(bench_dir / "r") if a == "PATH" else a for a in args]
+    if "XFER_MGR" in argv:
+        argv.remove("XFER_MGR")
+        monkeypatch.setenv("EBT_PJRT_XFER_MGR", "1")
     with pytest.raises(ProgException) as e:
         config_from_args(argv)
     assert str(e.value) == f"{flag}: not yet ported (see ROADMAP.md)"
     assert torch_main(argv) == 1
     assert "not yet ported" in capfd.readouterr().err
+
+
+def _outcome(config_fn, exc_type, argv) -> str:
+    try:
+        config_fn(argv)
+    except exc_type as e:
+        return str(e)
+    return "accepted"
+
+
+@pytest.mark.parametrize("args", [
+    ["--tpubackend", "pjrt", "--rotate", "1", "-r", "-s", "1M", "PATH"],
+    ["--rotate", "1", "-r", "-s", "1M", "PATH"],
+    ["--ingestshards", "2", "--tpubackend", "pjrt", "-r", "PATH"],
+    ["--checkpoint-shards", "2", "-w", "-s", "1M", "--tpubackend", "pjrt",
+     "--rotate", "1", "PATH"],
+    ["--ingest", "PATH", "-r"],
+    ["--ingestshards", "2", "-r", "PATH"],
+    ["--ingestshards", "2", "-w", "-s", "256K", "-b", "64K",
+     "--recordsize", "4K", "--tpubackend", "pjrt", "DIR"],
+], ids=["rotate-pjrt", "rotate", "ingestshards-pjrt", "rotate-generated",
+        "ingest", "ingestshards", "ingestshards-accepted"])
+def test_rotation_and_ingest_flags_no_longer_refused(bench_dir, args):
+    """--rotate, --ingest and --ingestshards are ported: the command lines
+    the port refused with "not yet ported" before now get the original's
+    own outcome, its scenario refusal text or acceptance."""
+    from elbencho_tpu.config import config_from_args as jax_config_from_args
+    from elbencho_tpu.exceptions import ProgException as JaxProgException
+
+    argv = [str(bench_dir / "r") if a == "PATH" else
+            str(bench_dir) if a == "DIR" else a for a in args]
+    port = _outcome(config_from_args, ProgException, argv)
+    assert "not yet ported" not in port
+    assert port == _outcome(jax_config_from_args, JaxProgException, argv)
 
 
 @pytest.mark.parametrize("args", [

@@ -239,21 +239,25 @@ def test_distributed_error_surfaces_host(two_services, bench_dir, capfd):
 
 
 def test_unported_flag_refused_by_the_service_framed_by_host(
-        two_services, bench_dir, capfd):
-    """A flag the port does not carry, sent over the wire by the original's
-    master, is refused by the port service with the command line's text,
+        bench_dir, capfd, monkeypatch):
+    """A tier the port does not carry, met by a port service while it
+    checks a configuration the original's master sent over the wire (the
+    transfer-manager tier, selected by EBT_PJRT_XFER_MGR in the service's
+    environment), is refused by the service with the command line's text,
     and the master reports it framed by the host."""
     p = bench_dir / "tf"
     p.mkdir()
-    capfd.readouterr()
-    rc = jax_main(["--hosts", _hosts_arg(two_services[:1]), "-w", "-t", "1",
-                   "--ingestshards", "2", "--recordsize", "4k", "-s", "1M",
-                   "-b", "256k", "--gpuids", "0", "--tpubackend", "pjrt",
-                   "--nolive", str(p)])
-    out = capfd.readouterr()
+    monkeypatch.setenv("EBT_PJRT_XFER_MGR", "1")
+    with _spawn_services(1) as ports:
+        monkeypatch.delenv("EBT_PJRT_XFER_MGR")
+        capfd.readouterr()
+        rc = jax_main(["--hosts", _hosts_arg(ports), "-w", "-t", "1",
+                       "-s", "1M", "-b", "256k", "--gpuids", "0",
+                       "--tpubackend", "pjrt", "--nolive", str(p / "f")])
+        out = capfd.readouterr()
     assert rc == 1
-    assert (f"service 127.0.0.1:{two_services[0]}" in out.err and
-            "--ingestshards: not yet ported (see ROADMAP.md)"
+    assert (f"service 127.0.0.1:{ports[0]}" in out.err and
+            "EBT_PJRT_XFER_MGR: not yet ported (see ROADMAP.md)"
             in out.err), out
 
 

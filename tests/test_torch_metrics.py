@@ -65,17 +65,16 @@ def _get(url, timeout=10):
 
 def test_registry_names_are_the_originals():
     """Every family the port can emit carries the original's name, type
-    and help; what is missing belongs to subsystems the port refuses. The
-    stripe and checkpoint families are carried."""
+    and help, and every family of the original is carried, the stripe,
+    checkpoint, reshard, ingest and serving-rotation ones included."""
     original = {f[0]: f for f in jax_metrics.METRIC_FAMILIES}
     for fam in METRIC_FAMILIES:
         assert original[fam[0]] == fam
     names = {f[0] for f in METRIC_FAMILIES}
     assert {"ebt_stripe_units_total", "ebt_ckpt_shards_total",
-            "ebt_ckpt_shards_resident"} <= names
-    left_out = set(original) - names
-    assert all(name.startswith(("ebt_ingest", "ebt_reshard", "ebt_rotation"))
-               for name in left_out), left_out
+            "ebt_ckpt_shards_resident", "ebt_ingest_records_total",
+            "ebt_rotation_generation", "ebt_rotations_total"} <= names
+    assert set(original) == names
 
 
 @pytest.mark.parametrize("scenario", ["stripe", "checkpoint"])

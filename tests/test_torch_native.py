@@ -791,7 +791,8 @@ def test_cli_end_to_end(pkgs, tmp_path, capfd):
 
 
 @pytest.mark.parametrize("args,env,flag", [
-    (["--rotate", "3"], {}, "--rotate"),
+    # serving rotation is ported; fault injection over it is not
+    (["--rotate", "3", "--chaos", "seed=1"], {}, "--chaos"),
     ([], {"EBT_PJRT_XFER_MGR": "1"}, "EBT_PJRT_XFER_MGR"),
     (["--retry", "2", "--chaos", "seed=1"], {}, "--chaos"),
 ])

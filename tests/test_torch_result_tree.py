@@ -14,6 +14,7 @@ which are null, must be equal.
 
 from __future__ import annotations
 
+import json
 import os
 import subprocess
 from types import SimpleNamespace
@@ -53,7 +54,15 @@ TIMING_NESTED = {
     "FaultStats": ("dev_retry_backoff_ns",),
     "ReshardStats": ("resident_wait_ns",),
     "UringStats": ("uring_register_ns",),
+    "IngestStats": ("resident_wait_ns", "epoch_time_ns"),
 }
+# Serving rotation: how many rotations fit into the read phase follows the
+# clock, and with them every count the rotator adds to (the rotation
+# family, the lane bytes, the checkpoint ledger of an unfinished rotation).
+# These are compared as each package's invariants in
+# tests/test_torch_serving.py; here their key sets are compared.
+ROTATION_CLOCKED = ("ServingStats", "RotationTtrNs", "RotationRecords",
+                    "LaneStats", "CkptStats", "CkptBytesPerDevice")
 
 BASE = ["-s", "4M", "-b", "256K", "--nolive"]
 # The pjrt cases run one worker. With two, several counters follow the
@@ -83,6 +92,14 @@ CASES = [
     ("pjrt-checkpoint", "pjrt", PJRT + ["--checkpoint-shards", "4"], "c"),
     ("pjrt-reshard", "pjrt",
      PJRT + ["--checkpoint-shards", "4", "--reshard", "1"], "s"),
+    # a seeded 4-shard model rotated every 0.1 s under a read phase whose
+    # copies the mocks slow to 25 ms each (0.4 s for the 16 blocks)
+    ("pjrt-rotate", "pjrt", PJRT + ["--rotate", "0.1", "--bgbudget", "8M"],
+     "wr"),
+    # one worker and --prefetchbatches 1: the serial tier by construction
+    ("pjrt-ingest", "pjrt",
+     PJRT + ["--ingestshards", "2", "--recordsize", "64K", "--epochs", "2",
+             "--prefetchbatches", "1"], "i"),
 ]
 
 
@@ -117,12 +134,16 @@ def _skip_key(family: str | None, key: str) -> bool:
     return key in TIMING_NESTED.get(family, ())
 
 
-def tree_diff(a, b, path="", family=None) -> list[str]:
-    """Every path where the two trees differ, timing fields left out."""
+def tree_diff(a, b, path="", family=None, clocked=()) -> list[str]:
+    """Every path where the two trees differ, timing fields left out (and
+    the `clocked` top-level families compared by their keys only)."""
     if isinstance(a, dict) and isinstance(b, dict):
         out = []
         for k in sorted(set(a) | set(b)):
             if _skip_key(family, k):
+                continue
+            if family is None and k in clocked and k in a and k in b:
+                out += key_diff(a[k], b[k], f"{path}/{k}")
                 continue
             if k not in a or k not in b:
                 out.append(f"{path}/{k}: only in "
@@ -139,6 +160,17 @@ def tree_diff(a, b, path="", family=None) -> list[str]:
     return [] if a == b else [f"{path}: {a!r} != {b!r}"]
 
 
+def key_diff(a, b, path) -> list[str]:
+    """The shape of a clocked family: which keys exist, which are null."""
+    def shape(x):
+        if isinstance(x, dict):
+            return {k: shape(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [shape(v) for v in x[:1]]
+        return x is None
+    return [] if shape(a) == shape(b) else [f"{path}: shapes differ"]
+
+
 def run_trees(pkg, args: list[str], phases: str) -> list[dict]:
     """One package's benchmark; the result tree after each phase."""
     cfg = pkg.config_from_args(args)
@@ -150,7 +182,7 @@ def run_trees(pkg, args: list[str], phases: str) -> list[dict]:
         for ph in phases:
             phase = {"w": pkg.Phase.CREATEFILES, "r": pkg.Phase.READFILES,
                      "c": pkg.Phase.CHECKPOINT,
-                     "s": pkg.Phase.RESHARD}[ph]
+                     "s": pkg.Phase.RESHARD, "i": pkg.Phase.INGEST}[ph]
             group.start_phase(phase, f"tree-{ph}")
             while not group.wait_done(1000):
                 pass
@@ -166,15 +198,30 @@ def run_trees(pkg, args: list[str], phases: str) -> list[dict]:
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
-def test_result_tree_matches_original(pkgs, tmp_path, case):
-    _, backend, extra, phases = case
+def test_result_tree_matches_original(pkgs, tmp_path, monkeypatch, case):
+    name, backend, extra, phases = case
     data = np.random.default_rng(7).integers(0, 256, 4 << 20,
                                              dtype=np.uint8).tobytes()
+    clocked = ()
+    if "--rotate" in extra:
+        rng = np.random.default_rng(8)
+        shards = []
+        for i in range(4):
+            p = tmp_path / f"model.{i}"
+            p.write_bytes(rng.integers(0, 256, 256 << 10,
+                                       dtype=np.uint8).tobytes())
+            shards.append({"path": str(p), "devices": [i % 2]})
+        man = tmp_path / "model.json"
+        man.write_text(json.dumps({"version": 1, "shards": shards}))
+        extra = extra + ["--checkpoint", str(man)]
+        clocked = ROTATION_CLOCKED
+        for k in ("EBT_MOCK_PJRT_XFER_US", "EBT_MOCK_CUDA_XFER_US"):
+            monkeypatch.setenv(k, "25000")
     trees = {}
     for pkg in pkgs:
         d = tmp_path / pkg.name
         d.mkdir()
-        if phases in ("c", "s"):
+        if phases in ("c", "s", "i"):
             target = str(d)
             pre = ["-w"]
         else:
@@ -188,8 +235,13 @@ def test_result_tree_matches_original(pkgs, tmp_path, case):
         trees[pkg.name] = run_trees(pkg, args, phases)
     assert len(trees["torch"]) == len(trees["jax"])
     for ph, jt, tt in zip(phases, trees["jax"], trees["torch"]):
-        diff = tree_diff(jt, tt)
+        diff = tree_diff(jt, tt, clocked=clocked)
         assert not diff, f"phase {ph}: " + "; ".join(diff)
+    if clocked:
+        for t in (trees["jax"][-1], trees["torch"][-1]):
+            assert t["ServingStats"]["rotations_complete"] >= 1
+            assert len(t["RotationRecords"]) == \
+                t["ServingStats"]["rotations_complete"]
     if backend == "pjrt":
         # the C1 fields exist and carry the original's values
         for tt in trees["torch"]:
