@@ -117,7 +117,29 @@ Phases, each reported on its own line:
      1024-record shuffle window (-t 4, tier pipelined), then the serial
      control (-t 1 --prefetchbatches 1): per epoch every record read and
      resident and none dropped, the lanes' bytes equal to the dataset times
-     the epochs, no kernel launched; GiB/s and records/s per epoch.
+     the epochs, no kernel launched; GiB/s and records/s per epoch;
+ 23. the transfer-manager tier (EBT_PJRT_XFER_MGR=1, one cuMemAllocAsync
+     device buffer per block; a tier requested and not active fails the
+     phase with its cause): phase 8's 4 GiB file read at phase 8's
+     settings (runs right after it), the tier active and confirmed, one
+     block counted and one latency sample per block, the device bytes equal
+     to the file, no kernel launched, free device memory back within
+     256 MiB after the teardown, GiB/s and p50/p99 beside phase 8's chunked
+     read; phase 9's 1 GiB --verify read with the tier requested (inside
+     phase 9): one verify launch per block and no block on the tier, a
+     corrupt byte at its exact offset; one rotation of phase 18's generated
+     8 x 256 MiB checkpoint on the tier under phase 21's serving traffic
+     (inside phase 18): every record reconciled, retained_buffers equal to
+     the generation's blocks, sampled ranges read back equal to the files;
+ 24. --chaos on the card (runs after phase 23): the first 1 GiB of phase
+     8's file read on the native engine into its I/O buffers
+     (EBT_TPU_NO_MMAP=1) with --iodepth 4 and --arrival paced, the
+     storage engine's seams armed at p = 1 (aio: the first
+     io_setup refused and retried, visible in aio_setup_retries on a host
+     without io_uring; reactor: the second worker's eventfd bridge fails,
+     visible as the reactor's cause), the bytes landing exactly; then a
+     mock-driver seam (submit=1.0) armed against the real driver: the
+     INERT warning names it and the read is clean; no kernel launched.
 
 The second-to-last line is a JSON object describing each kernel of the path;
 the last line is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -634,7 +656,7 @@ def native_main_path(d: str) -> str:
     """Phase 8: the native engine's 4 GiB write + read at the main setting,
     through the worker group a program drives (the CLI's own layer), so
     the engine's tier, cache and d2h counters can be read. Returns the
-    file's path."""
+    file's path and the read's GiB/s, p50 and p99."""
     from elbencho_tpu_torch.common import BenchPhase
     from elbencho_tpu_torch.config import config_from_args
     from elbencho_tpu_torch.workers.local import LocalWorkerGroup
@@ -663,6 +685,9 @@ def native_main_path(d: str) -> str:
             phase("native", f"{op} {moved / secs / (1 << 30):.3f} GiB/s, "
                             f"GPU 0 xfer p50 {h.percentile_us(50.0)} us p99 "
                             f"{h.percentile_us(99.0)} us (clock {clock})")
+            read = {"gibs": moved / secs / (1 << 30),
+                    "p50": h.percentile_us(50.0),
+                    "p99": h.percentile_us(99.0)}
         tier, d2h = group.data_path_tier(), group.d2h_tier()
         stats, cache = group.d2h_stats(), group.reg_cache_stats()
         if tier != probe:
@@ -676,7 +701,70 @@ def native_main_path(d: str) -> str:
                         f"{time.perf_counter() - t0:.1f}s")
     finally:
         group.teardown()
-    return path
+    return path, read
+
+
+def xfer_mgr_group(args: list[str]):
+    """A prepared worker group whose native path was built with the
+    transfer-manager tier requested; the tier must be active (nothing falls
+    back: a failed probe fails the phase with its cause)."""
+    from elbencho_tpu_torch.config import config_from_args
+    from elbencho_tpu_torch.workers.local import LocalWorkerGroup
+
+    with env_set(EBT_PJRT_XFER_MGR=1):
+        group = LocalWorkerGroup(config_from_args(args))
+        group.prepare()
+    if not group._native_path.xfer_mgr_active:
+        cause = group._native_path.reg_error()
+        group.teardown()
+        raise AssertionError(f"transfer-manager tier requested but not "
+                             f"active: {cause}")
+    return group
+
+
+def xfer_mgr_read(path: str, chunked: dict) -> None:
+    """Phase 23, the plain read: phase 8's file read on the tier at phase
+    8's settings, printed beside phase 8's chunked read."""
+    from elbencho_tpu_torch.common import BenchPhase
+    from elbencho_tpu_torch.cuda import native
+
+    size = os.path.getsize(path)
+    blocks = size // (8 << 20)
+    launches = native.kernel_launches()
+    free0 = torch.cuda.mem_get_info(0)[0]
+    group = xfer_mgr_group(["-r", *MAIN_ARGS, "--tpubackend", "pjrt", path])
+    try:
+        np_ = group._native_path
+        res, secs = drive(group, BenchPhase.READFILES, "xfer-mgr read")
+        moved = sum(r.ops.bytes for r in res)
+        tier, count = group.confirm_engaged_tier(), np_.xfer_mgr_count
+        to_hbm = np_.transferred_bytes[0]
+        h = group.device_latency()["0"]
+        if (moved != size or to_hbm != size or tier != "xfer_mgr"
+                or count != blocks or h.count != blocks):
+            raise AssertionError(
+                f"xfer-mgr read: moved {moved}, device bytes {to_hbm}, tier "
+                f"{tier}, {count} tier blocks and {h.count} latency samples "
+                f"for {blocks} blocks")
+        phase("xfer-mgr", f"READ {moved / secs / (1 << 30):.3f} GiB/s, GPU 0 "
+                          f"xfer p50 {h.percentile_us(50.0)} us p99 "
+                          f"{h.percentile_us(99.0)} us ({h.count} samples, "
+                          f"one per block); chunked (phase 8) READ "
+                          f"{chunked['gibs']:.3f} GiB/s, p50 "
+                          f"{chunked['p50']} us p99 {chunked['p99']} us; "
+                          f"tier {tier}, {count} tier blocks, device bytes "
+                          f"{to_hbm}")
+    finally:
+        group.teardown()
+    held = free0 - torch.cuda.mem_get_info(0)[0]
+    if held > 256 << 20:
+        raise AssertionError(f"xfer-mgr read: {held} bytes of device memory "
+                             "still held after the teardown")
+    if native.kernel_launches() != launches:
+        raise AssertionError("xfer-mgr read: the tier's read launched a "
+                             "kernel")
+    phase("xfer-mgr", f"free device memory back after the teardown (held "
+                      f"{held >> 20} MiB); no kernel launched")
 
 
 def native_verify_run(cli, native, d: str) -> dict:
@@ -707,6 +795,24 @@ def native_verify_run(cli, native, d: str) -> dict:
                            f"words hold the pattern; WRITE "
                            f"{rows['WRITE']['MiB/s last']} MiB/s, READ "
                            f"{rows['READ']['MiB/s last']} MiB/s")
+    # phase 23: the same read with the transfer-manager tier requested
+    # takes the verified path, one verify launch per block, none on the tier
+    from elbencho_tpu_torch.common import BenchPhase
+
+    native.reset_kernel_launches()
+    group = xfer_mgr_group(["-r", *args])
+    try:
+        drive(group, BenchPhase.READFILES, "xfer-mgr --verify")
+        tier_launches = native.kernel_launches()
+        count = group._native_path.xfer_mgr_count
+    finally:
+        group.teardown()
+    if tier_launches != {"verify_u32": blocks, "fill_u64": 0} or count:
+        raise AssertionError(f"xfer-mgr --verify: launches {tier_launches}, "
+                             f"{count} tier blocks, for {blocks} blocks")
+    phase("xfer-mgr", f"--verify 1 GiB with the tier requested: engine "
+                      f"launches {tier_launches} for {blocks} blocks, "
+                      f"{count} tier blocks (the verified path first)")
     corrupt = 9 * BLOCK + CHUNK + 4321
     flip_byte(path, corrupt)
     rc, _, err = run_cli(cli, ["-r", *args])
@@ -715,6 +821,13 @@ def native_verify_run(cli, native, d: str) -> dict:
         raise AssertionError(f"native corrupt run: rc {rc}, expected "
                              f"'{want}'")
     phase("native-verify", f"corrupt byte found: rc 1, '{want}'")
+    with env_set(EBT_PJRT_XFER_MGR=1):
+        rc, _, err = run_cli(cli, ["-r", *args])
+    if rc != 1 or want not in err:
+        raise AssertionError(f"xfer-mgr corrupt run: rc {rc}, expected "
+                             f"'{want}'")
+    phase("xfer-mgr", f"corrupt byte found with the tier requested: rc 1, "
+                      f"'{want}'")
     os.remove(path)
     return launches
 
@@ -1109,6 +1222,21 @@ def distributed_run(cli, d: str) -> None:
                           "this machine has one card")
         cli.main(["--hosts", hosts, "--quit"])
     phase("dist", f"distributed phase took {time.perf_counter() - t0:.1f}s")
+
+
+@contextlib.contextmanager
+def env_set(**kv):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update({k: str(v) for k, v in kv.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def drive(group, ph, label: str):
@@ -1649,11 +1777,13 @@ def merged_p99(histos) -> int:
 
 
 def serve(serve_file: str, trace: str, label: str, extra: list[str],
-          paths=(), gen_bytes: int = 0) -> dict:
+          paths=(), gen_bytes: int = 0, min_swaps: int = 2,
+          retained: int | None = None) -> dict:
     """One serving read phase over the 1 GiB file on device 0, with
-    rotation when `extra` names a manifest. Every swapped record reconciles
-    to the manifest, the tenant ledger is exact, device memory shows a
-    resident generation while the phase runs and comes back after the
+    rotation when `extra` names a manifest. At least `min_swaps` swapped
+    records, every one reconciled to the manifest (and retaining `retained`
+    buffers, where given), the tenant ledger is exact, device memory shows
+    a resident generation while the phase runs and comes back after the
     teardown, and sampled ranges of every shard read back from the active
     generation equal the files. Returns what the phase prints."""
     from elbencho_tpu_torch.common import BenchPhase
@@ -1693,7 +1823,7 @@ def serve(serve_file: str, trace: str, label: str, extra: list[str],
             out.update(svs=svs, recs=recs, ttrs=ttrs,
                        mem_drop=free0 - min_free)
             total = sum(os.path.getsize(p) for p in paths)
-            if len(recs) < 2 or len(ttrs) != len(recs):
+            if len(recs) < min_swaps or len(ttrs) != len(recs):
                 raise AssertionError(f"{label}: {len(recs)} swaps, {svs}")
             for i, r in enumerate(recs):
                 want_rel = 0 if i == 0 else recs[i - 1]["retained_buffers"]
@@ -1701,7 +1831,8 @@ def serve(serve_file: str, trace: str, label: str, extra: list[str],
                         or r["shards_total"] != len(paths)
                         or r["bytes_submitted"] != total
                         or r["bytes_resident"] != total
-                        or r["released_buffers"] != want_rel):
+                        or r["released_buffers"] != want_rel
+                        or retained not in (None, r["retained_buffers"])):
                     raise AssertionError(f"{label}: record {i} {r}")
             if free0 - min_free < gen_bytes:
                 raise AssertionError(
@@ -1794,7 +1925,112 @@ def serving_budgeted(d: str, run1: dict, paths) -> None:
                      f"{svs['bg_lane_throttle_ns'] / 1e9:.3f}); READ "
                      f"{run['gibs']:.3f} GiB/s, op p99 {run['op_p99']} us, "
                      f"arrival-clock p99 {run['tenant_p99']} us")
-    os.remove(run1["serve_file"])
+
+
+def xfer_mgr_rotation(d: str, run1: dict, paths) -> None:
+    """Phase 23, the rotation: phase 18's generated checkpoint rotated onto
+    device 0 on the transfer-manager tier under phase 21's serving traffic
+    (whose blocks ride the tier too). Each tier block of the restoring
+    generation lands in the generation's memory and retains one buffer."""
+    total = sum(os.path.getsize(p) for p in paths)
+    blocks = sum(-(-os.path.getsize(p) // (64 << 10)) for p in paths)
+    secs = max(6, -(-3 * total // (2 * int(run1["rate"]))) + 2)
+    man = write_manifest(d, "man_rot3.json", paths, [[0]] * len(paths))
+    with env_set(EBT_PJRT_XFER_MGR=1):
+        run = serve(run1["serve_file"], run1["trace"],
+                    "rotation on the transfer-manager tier",
+                    ["--checkpoint", man, "--rotate", "1", "--timelimit",
+                     str(secs)], paths, total, min_swaps=1, retained=blocks)
+    ttrs = [t / 1e9 for t in run["ttrs"]]
+    phase("xfer-mgr", f"--rotate 1 on the tier over {len(paths)} x "
+                      f"{os.path.getsize(paths[0]) >> 20} MiB: "
+                      f"{len(run['recs'])} swaps, every record reconciled, "
+                      f"retained_buffers == {blocks} blocks; read-back == "
+                      f"files; TTR {', '.join(f'{t:.3f}' for t in ttrs)} s; "
+                      f"READ {run['gibs']:.3f} GiB/s, op p99 "
+                      f"{run['op_p99']} us")
+
+
+def chaos_on_card(path: str, size: int = 1 << 30) -> None:
+    """Phase 24: --chaos on the card. The storage engine's seams, armed at
+    p = 1 on a native read, must each show (aio on a host without io_uring,
+    reactor), the bytes landing exactly; a mock-driver seam armed against
+    the real driver must be named INERT and change nothing."""
+    from elbencho_tpu_torch.common import BenchPhase
+    from elbencho_tpu_torch.config import config_from_args
+    from elbencho_tpu_torch.cuda import native
+    from elbencho_tpu_torch.engine_stats import uring_stats
+    from elbencho_tpu_torch.workers.local import LocalWorkerGroup
+
+    launches = native.kernel_launches()
+    seams = ("EBT_MOCK_AIO_SETUP_FAIL", "EBT_MOCK_REACTOR_FAIL_AT",
+             "EBT_MOCK_CUDA_FAIL_AT")
+
+    def read(spec: str, extra: list[str], label: str, **env):
+        cfg = config_from_args(["-r", "-t", "4", "-s", str(size), "-b", "8M",
+                                "--iodepth", "4", "--gpuids", "0",
+                                "--tpubackend", "pjrt", "--lat", "--nolive",
+                                "--chaos", spec, *extra, path])
+        group = LocalWorkerGroup(cfg)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err), env_set(**env):
+            group.prepare()
+        sys.stderr.write(err.getvalue())
+        try:
+            res, secs = drive(group, BenchPhase.READFILES, label)
+            moved = sum(r.ops.bytes for r in res)
+            to_hbm = group._native_path.transferred_bytes[0]
+            if moved != size or to_hbm != size:
+                raise AssertionError(f"{label}: moved {moved}, device bytes "
+                                     f"{to_hbm}, file {size}")
+            return (err.getvalue(), moved / secs / (1 << 30),
+                    group.io_engine(), group.reactor_cause() or "",
+                    group.tenant_stats())
+        finally:
+            group.teardown()
+
+    u0 = uring_stats()["aio_setup_retries"]
+    try:
+        # EBT_TPU_NO_MMAP: the blocks come through the engine's I/O buffers
+        # and its async queue (the native read maps the file otherwise)
+        log, gibs, engine, cause, tenants = read(
+            "aio=1.0,reactor=1.0,seed=1",
+            ["--arrival", "paced", "--rate", "16"], "chaos, engine seams",
+            EBT_TPU_NO_MMAP=1)
+        retries = uring_stats()["aio_setup_retries"] - u0
+        if "EBT_MOCK_REACTOR_FAIL_AT" not in cause:
+            raise AssertionError(f"chaos: the reactor seam did not show: "
+                                 f"cause '{cause}'")
+        if engine == "aio" and retries < 1:
+            raise AssertionError("chaos: the aio seam did not show: "
+                                 f"aio_setup_retries +{retries}")
+        for t in tenants:
+            if t["arrivals"] != t["completions"] + t["dropped"]:
+                raise AssertionError(f"chaos: tenant ledger {t}")
+        phase("chaos", f"aio=1.0,reactor=1.0 on a native {size >> 20} MiB "
+                       f"read (--iodepth 4 into the engine's buffers, "
+                       f"--arrival paced): io engine {engine}, "
+                       f"aio_setup_retries +{retries}"
+                       + ("" if engine == "aio" else
+                          " (io_uring here: the aio seam is not reached)")
+                       + f", reactor cause '{cause}'; bytes exact; READ "
+                         f"{gibs:.3f} GiB/s")
+        for k in seams:
+            os.environ.pop(k, None)
+        log, gibs, _, _, _ = read("submit=1.0,seed=1", [],
+                                  "chaos, mock seam on the card")
+        inert = [ln for ln in log.splitlines() if "INERT" in ln]
+        if not inert or "submit" not in inert[0]:
+            raise AssertionError(f"chaos: no INERT warning for submit in "
+                                 f"{log!r}")
+        phase("chaos", f"submit=1.0 against the real driver: '{inert[0]}'; "
+                       f"the read is clean, bytes exact, READ {gibs:.3f} "
+                       f"GiB/s")
+    finally:
+        for k in seams:
+            os.environ.pop(k, None)
+    if native.kernel_launches() != launches:
+        raise AssertionError("chaos: a kernel was launched")
 
 
 def ingest_run(args: list[str], label: str, want_tier: str) -> None:
@@ -1897,8 +2133,10 @@ def checkpoint_restore(d: str, shard_sizes=LLAMA_8B_SHARDS,
     restore(["-w", "--checkpoint-shards", str(n_gen), "-s", gen_size, "-t",
              "4", "--tpubackend", "pjrt", "--nolive", gen],
             f"generated, {n_gen} x {gen_size}", [gen_bytes])
-    serving_budgeted(d, run1, [os.path.join(gen, f"ckpt.shard.{i}")
-                               for i in range(n_gen)])
+    gen_paths = [os.path.join(gen, f"ckpt.shard.{i}") for i in range(n_gen)]
+    serving_budgeted(d, run1, gen_paths)
+    xfer_mgr_rotation(d, run1, gen_paths)
+    os.remove(run1["serve_file"])
     shutil.rmtree(gen)
     phase("restore", f"checkpoint phase took {time.perf_counter() - t0:.1f}s")
 
@@ -1950,7 +2188,9 @@ def main() -> int:
         finally:
             del os.environ["EBT_TPU_CHUNK_BYTES"]
         fk.reset_launches()
-        path = native_main_path(d)
+        path, chunked = native_main_path(d)
+        xfer_mgr_read(path, chunked)
+        chaos_on_card(path)
         launches = native_verify_run(cli, native, d)
         if fk.LAUNCHES["fill_block_u32"]:
             raise AssertionError("the fill wrapper launched on the native "

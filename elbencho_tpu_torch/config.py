@@ -23,12 +23,12 @@ PyTorch/CUDA port: --gpuids selects CUDA device indices and --tpubackend
 staged|direct|pjrt moves blocks into GPU memory; --stripe, --tpustripe,
 --checkpoint, --checkpoint-shards and --reshard place blocks across the
 devices, --retry/--maxerrors arm the native engine's device fault policy,
-and --rotate and --ingest/--ingestshards run the serving-rotation and
-DL-ingestion scenarios on the native engine. Flags whose subsystem the port
-does not carry yet (fault injection, the transfer-manager tier) are refused
-by Config._refuse_unported with the flag's name, never run as something
-else — also when they reach a service over the wire (apply_wire ->
-check_args).
+--rotate and --ingest/--ingestshards run the serving-rotation and
+DL-ingestion scenarios on the native engine, EBT_PJRT_XFER_MGR selects its
+transfer-manager tier, and --chaos arms the fault seams of the port's mock
+driver and of the storage engine (elbencho_tpu_torch/chaos.py). The port
+accepts every flag of the original; the original's bench harness and tools
+are not part of it.
 """
 
 from __future__ import annotations
@@ -331,7 +331,7 @@ class Config:
     max_errors_pct: int = 0   # derived: percentage budget (0 = none)
     chaos_spec: str = ""  # --chaos: fault-injection campaign spec
                           # ("seam=prob[,seam=prob...][,seed=N]",
-                          # elbencho_tpu/chaos.py grammar) — arms the
+                          # elbencho_tpu_torch/chaos.py grammar) — arms the
                           # EBT_MOCK_* fault seams at derived injection
                           # points before the engine/native path start.
                           # Master-local: services are not armed over the
@@ -476,8 +476,9 @@ class Config:
             4 * max(1, self.iodepth) * self.block_size, 64 << 20)
 
     def _check_fault_args(self) -> None:
-        """Fault-tolerance validation (--retry/--retrybackoff/--maxerrors,
-        docs/FAULT_TOLERANCE.md). Every malformed spec is refused with
+        """Fault-tolerance validation (--retry/--retrybackoff/--maxerrors/
+        --chaos, docs/FAULT_TOLERANCE.md), shared by the standard and
+        checkpoint validation paths. Every malformed spec is refused with
         a cause; the parsed budget lands in max_errors / max_errors_pct."""
         if self.retry_max < 0:
             raise ProgException("--retry must be >= 0")
@@ -501,6 +502,23 @@ class Config:
             raise ProgException(
                 f"--maxerrors {spec!r}: expected a count >= 0 or a "
                 "percentage 0-100 like '5%'")
+        if self.chaos_spec:
+            # parse for refusal-with-cause at config time; the env arming
+            # itself happens at worker-group prepare (chaos.arm_chaos)
+            from .chaos import parse_chaos_spec
+
+            parse_chaos_spec(self.chaos_spec)
+            if self.hosts:
+                # the seams are in-process env reads armed at the LOCAL
+                # worker group's prepare; a master cannot arm a service's
+                # process, so accepting the flag here would run a "chaos"
+                # campaign that injects nothing — refuse instead of
+                # silently passing clean
+                raise ProgException(
+                    "--chaos is master-local (the fault seams are "
+                    "in-process env reads) and cannot arm remote "
+                    "services; run the campaign on each host")
+
     def _check_load_args(self) -> None:
         """Open-loop load-generation validation (--arrival/--rate/
         --tenants, docs/OPEN_LOOP.md). Every malformed spec is refused with
@@ -654,26 +672,10 @@ class Config:
 
     # ------------------------------------------------------------ validation
 
-    def _refuse_unported(self) -> None:
-        """Refuse every flag whose subsystem the port has not carried over
-        from the original package yet (ROADMAP.md lists them in order)."""
-        pjrt = self.tpu_backend_name == "pjrt"
-        unported = (
-            # the native engine's transfer-manager tier
-            ("EBT_PJRT_XFER_MGR",
-             pjrt and os.environ.get("EBT_PJRT_XFER_MGR") is not None),
-            ("--chaos", bool(self.chaos_spec)),
-        )
-        for flag, given in unported:
-            if given:
-                raise ProgException(
-                    f"{flag}: not yet ported (see ROADMAP.md)")
-
     def check_args(self) -> None:
         """Cross-argument validation & auto-correction
         (reference: ProgArgs::checkArgs + checkPathDependentArgs,
         ProgArgs.cpp:390-631)."""
-        self._refuse_unported()
         if not 0 <= self.metrics_port <= 65535:
             raise ProgException(
                 f"--metricsport {self.metrics_port}: not a valid TCP port "

@@ -69,6 +69,21 @@ bool loadApi(const std::string& path, Api* api, std::string* err) {
     *e.slot = dlsym(dl, e.name);
     if (!*e.slot) api->d2d = false;
   }
+  const struct {
+    const char* name;
+    void** slot;
+  } pool_entries[] = {
+      {"cuMemAllocAsync", (void**)&api->cuMemAllocAsync},
+      {"cuMemFreeAsync", (void**)&api->cuMemFreeAsync},
+      {"cuDeviceGetDefaultMemPool", (void**)&api->cuDeviceGetDefaultMemPool},
+      {"cuMemPoolSetAttribute", (void**)&api->cuMemPoolSetAttribute},
+      {"cuMemPoolTrimTo", (void**)&api->cuMemPoolTrimTo},
+  };
+  api->mempool = true;
+  for (const auto& e : pool_entries) {
+    *e.slot = dlsym(dl, e.name);
+    if (!*e.slot) api->mempool = false;
+  }
   return true;
 }
 

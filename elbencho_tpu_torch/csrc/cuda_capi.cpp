@@ -109,6 +109,13 @@ void ebt_cuda_reg_error(void* p, char* buf, int len) {
 
 uint64_t ebt_cuda_zero_copy_count(void* p) { return P(p)->zeroCopyCount(); }
 
+// ---- the transfer-manager tier (EBT_PJRT_XFER_MGR): probed at init; the
+// counter counts the hot path's blocks (the probe's is reset)
+
+int ebt_cuda_xfer_mgr(void* p) { return P(p)->xferMgrActive() ? 1 : 0; }
+
+uint64_t ebt_cuda_xfer_mgr_count(void* p) { return P(p)->xferMgrCount(); }
+
 // ---- lanes and latency
 
 int ebt_cuda_num_lanes(void* p) { return P(p)->numDevices(); }

@@ -66,6 +66,23 @@
  *                             CUDA_ERROR_NOT_SUPPORTED (a driver that
  *                             refuses them; the original's
  *                             EBT_MOCK_PJRT_NO_D2D)
+ *   EBT_MOCK_CUDA_NO_XFERMGR  devices report no memory-pool support
+ *                             (CU_DEVICE_ATTRIBUTE_MEMORY_POOLS_SUPPORTED
+ *                             0): the transfer-manager tier downgrades at
+ *                             init (the original's EBT_MOCK_PJRT_NO_XFERMGR)
+ *   EBT_MOCK_CUDA_XFERMGR_FAIL  every cuMemAllocAsync fails: the tier's
+ *                             init probe downgrades it (the original's
+ *                             EBT_MOCK_PJRT_XFERMGR_FAIL, a stubbed slot)
+ *   EBT_MOCK_CUDA_XFERMGR_COPY_FAIL_AT  the Nth cuMemcpyHtoDAsync into a
+ *                             tier block buffer (memory of cuMemAllocAsync)
+ *                             fails at the call, 1-based, the init probe's
+ *                             copy counted as 1 (the original's
+ *                             EBT_MOCK_PJRT_XFER_FAIL_AT). Copies into tier
+ *                             block buffers have this counter of their
+ *                             own: EBT_MOCK_CUDA_FAIL_AT and _DEV_FAIL_AT
+ *                             do not count them, as the original's
+ *                             BufferFromHostBuffer seams do not count
+ *                             TransferData
  * A read-only mapping registered without CU_MEMHOSTREGISTER_READ_ONLY is
  * refused, as the real driver refuses it.
  *
@@ -75,7 +92,9 @@
  * ebt_mock_exec_count(dev) (kernel launches per device),
  * ebt_mock_dev_h2d_count(dev) (host-to-device copies per device),
  * ebt_mock_hostreg_active (registered ranges), ebt_mock_live_buffers
- * (allocated minus freed device buffers), ebt_mock_h2d_count /
+ * (allocated minus freed device buffers, cuMemAllocAsync's included),
+ * ebt_mock_xfer_mgr_count (tier block buffers allocated, the original
+ * mock's count of managers created), ebt_mock_h2d_count /
  * ebt_mock_completion_count (calls so far, for the *_AT seams) and
  * ebt_mock_reset.
  */
@@ -138,6 +157,24 @@ std::atomic<uint64_t> g_hostreg_calls{0};
 std::atomic<uint64_t> g_exec[kMaxDevices];
 std::atomic<uint64_t> g_dev_h2d[kMaxDevices];
 std::atomic<int64_t> g_live_buffers{0};
+std::atomic<uint64_t> g_xfer_mgr_allocs{0};
+std::atomic<uint64_t> g_xfer_copy_calls{0};
+
+// stream-ordered allocations (cuMemAllocAsync): base -> length, so a copy
+// into a tier block buffer is told apart from any other
+std::mutex g_pool_m;
+std::map<uintptr_t, uint64_t> g_pool_allocs;
+
+bool pool_alloc(uintptr_t dst, uint64_t len) {
+  std::lock_guard<std::mutex> lk(g_pool_m);
+  auto it = g_pool_allocs.upper_bound(dst);
+  if (it == g_pool_allocs.begin()) return false;
+  --it;
+  return dst + len <= it->first + it->second;
+}
+
+// one opaque memory-pool handle per device
+char g_pools[kMaxDevices];
 
 // the current context's device, per thread
 struct Ctx {
@@ -222,6 +259,8 @@ struct Op {
   // behind it
   std::string transient;
   bool completion = false;  // a host function or event record
+  bool always = false;  // runs on a stream in error too (a stream-ordered
+                        // free, so the mock does not leak its memory)
 };
 
 struct Stream {
@@ -245,7 +284,7 @@ struct Stream {
       Op op = std::move(q.front());
       q.pop_front();
       busy = true;
-      const bool dropped = !fault.empty();
+      const bool dropped = !fault.empty() && !op.always;
       lk.unlock();
       bool drop_this = false;
       if (!dropped && op.completion) {
@@ -401,6 +440,9 @@ CUresult cuDeviceGetAttribute(int* value, int attrib, int) {
     case 113:  // read-only host register supported
       *value = 1;
       return kOk;
+    case 115:  // memory pools supported
+      *value = env_int("EBT_MOCK_CUDA_NO_XFERMGR") ? 0 : 1;
+      return kOk;
     default:
       return kInvalidValue;
   }
@@ -530,6 +572,29 @@ CUresult cuMemFree_v2(unsigned long long dptr) {
 
 CUresult cuMemcpyHtoDAsync_v2(unsigned long long dst, const void* src,
                               size_t bytes, void* stream) {
+  if (pool_alloc((uintptr_t)dst, bytes)) {
+    // into a tier block buffer: its own counter and seam
+    uint64_t n = ++g_xfer_copy_calls;
+    if (env_int("EBT_MOCK_CUDA_XFERMGR_COPY_FAIL_AT") == (long long)n)
+      return inject("mock tier copy failure "
+                    "(EBT_MOCK_CUDA_XFERMGR_COPY_FAIL_AT)");
+    char* d = (char*)(uintptr_t)dst;
+    auto* st = static_cast<Stream*>(stream);
+    if (registered(src, bytes)) {
+      st->push(copy_op([d, src, bytes] {
+        std::memcpy(d, src, bytes);
+        land(d, bytes);
+      }));
+    } else {
+      auto staged = std::make_shared<std::vector<char>>(
+          (const char*)src, (const char*)src + bytes);
+      st->push(copy_op([d, staged, bytes] {
+        std::memcpy(d, staged->data(), bytes);
+        land(d, bytes);
+      }));
+    }
+    return kOk;
+  }
   uint64_t n = ++g_h2d_calls;
   if (env_int("EBT_MOCK_CUDA_FAIL_AT") == (long long)n)
     return inject("mock transfer failure (EBT_MOCK_CUDA_FAIL_AT)");
@@ -638,6 +703,59 @@ CUresult cuDeviceCanAccessPeer(int* can, int dev, int peer) {
 }
 
 CUresult cuCtxEnablePeerAccess(void*, unsigned) { return kOk; }
+
+// ---- the stream-ordered allocator (the transfer-manager tier) ----
+
+CUresult cuMemAllocAsync(unsigned long long* dptr, size_t bytes, void*) {
+  if (env_int("EBT_MOCK_CUDA_XFERMGR_FAIL"))
+    return inject("mock tier allocation failure (EBT_MOCK_CUDA_XFERMGR_FAIL)");
+  void* p = std::calloc(1, bytes ? bytes : 1);
+  if (!p) return 2;  // CUDA_ERROR_OUT_OF_MEMORY
+  {
+    std::lock_guard<std::mutex> lk(g_pool_m);
+    g_pool_allocs[(uintptr_t)p] = bytes ? bytes : 1;
+  }
+  g_live_buffers++;
+  g_xfer_mgr_allocs++;
+  *dptr = (unsigned long long)(uintptr_t)p;
+  return kOk;
+}
+
+CUresult cuMemFreeAsync(unsigned long long dptr, void* stream) {
+  {
+    std::lock_guard<std::mutex> lk(g_pool_m);
+    if (!g_pool_allocs.count((uintptr_t)dptr)) return kInvalidValue;
+  }
+  // freed when the stream reaches it: the copies queued before it still
+  // write into the buffer
+  Op op;
+  op.always = true;
+  op.fn = [dptr] {
+    {
+      std::lock_guard<std::mutex> lk(g_pool_m);
+      g_pool_allocs.erase((uintptr_t)dptr);
+    }
+    std::free((void*)(uintptr_t)dptr);
+    g_live_buffers--;
+  };
+  static_cast<Stream*>(stream)->push(std::move(op));
+  return kOk;
+}
+
+CUresult cuDeviceGetDefaultMemPool(void** pool, int dev) {
+  if (dev < 0 || dev >= kMaxDevices) return kInvalidValue;
+  *pool = &g_pools[dev];
+  return kOk;
+}
+
+// host memory is never handed back: the release threshold has no effect
+CUresult cuMemPoolSetAttribute(void* pool, int attr, void* value) {
+  return pool && value && attr == 4 ? kOk : kInvalidValue;
+}
+
+CUresult cuMemPoolTrimTo(void* pool, size_t) {
+  return pool ? kOk : kInvalidValue;
+}
 
 CUresult cuMemsetD8Async(unsigned long long dst, unsigned char value,
                          size_t bytes, void* stream) {
@@ -753,6 +871,7 @@ int64_t ebt_mock_live_buffers() { return g_live_buffers; }
 uint64_t ebt_mock_h2d_count() { return g_h2d_calls; }
 uint64_t ebt_mock_completion_count() { return g_completion_calls; }
 uint64_t ebt_mock_d2d_count() { return g_d2d_calls; }
+uint64_t ebt_mock_xfer_mgr_count() { return g_xfer_mgr_allocs; }
 
 // zero the counters; the live-buffer and registration gauges stay, so a
 // test can reset after prepare and still check the teardown balance
@@ -764,6 +883,8 @@ void ebt_mock_reset() {
   g_completion_calls = 0;
   g_d2d_calls = 0;
   g_hostreg_calls = 0;
+  g_xfer_mgr_allocs = 0;
+  g_xfer_copy_calls = 0;
   for (auto& e : g_exec) e = 0;
   for (auto& e : g_dev_h2d) e = 0;
 }

@@ -226,6 +226,10 @@ CudaPath::CudaPath(const std::string& driver_path, uint64_t chunk_bytes,
     }
   }
 
+  // the opt-in transfer-manager tier, probed before the warm-up as in the
+  // original (whose counter resets below also clear the probe's traffic)
+  initXferMgr();
+
   // warm-up transfer per lane at construction (preparation), so the
   // measured phase starts hot; a driver that cannot move it fails init
   std::vector<char> probe(std::min<uint64_t>(chunk_bytes_, 1u << 20), 0);
@@ -264,6 +268,18 @@ CudaPath::~CudaPath() {
     makeCurrent((int)d, true);
     if (l.h2d) api_.cuStreamSynchronize(l.h2d);
     if (l.d2h) api_.cuStreamSynchronize(l.d2h);
+  }
+  // every tier block buffer was freed at its settle (drainAll above) and
+  // the streams are idle: the pools go back to the default threshold and
+  // hand their memory back
+  for (size_t d = 0; d < lanes_.size(); d++) {
+    Lane& l = *lanes_[d];
+    if (!l.pool) continue;
+    makeCurrent((int)d, true);
+    uint64_t threshold = 0;
+    api_.cuMemPoolSetAttribute(l.pool, cu::CU_MEMPOOL_ATTR_RELEASE_THRESHOLD,
+                               &threshold);
+    api_.cuMemPoolTrimTo(l.pool, 0);
   }
   {
     MutexLock lk(rank_mutex_);
@@ -470,7 +486,16 @@ int CudaPath::awaitRelease(Pending& p) {
   settleCkpt(p, rc);
   settleReshard(p, rc);
   settleIngest(p, rc);
-  if (rc == 0 && p.rot_gen && p.bytes) rotRetain(p);
+  // a rotation retains one buffer per data-carrying pending; a tier block
+  // retains one, carried by its last pending (its chunks carry no rot_gen)
+  if (rc == 0 && p.rot_gen && (p.bytes || p.xm_block)) rotRetain(p);
+  if (p.xm_buf) {
+    // stream-ordered behind every copy of the block: a failure path frees
+    // it too (teardown-path call: its result is not an error to report)
+    makeCurrent(p.lane, false);
+    api_.cuMemFreeAsync(p.xm_buf, p.stream);
+    p.xm_buf = 0;
+  }
   return rc;
 }
 
@@ -744,6 +769,149 @@ void CudaPath::releaseHold(const char* buf, uint64_t len, Lane& lane,
     if (!it->second) shard.draining.erase(it);
   }
   shard.cv.notify_all();  // a barrier may be waiting out this hold
+}
+
+// ---------------------------------------------------------------- xfer-mgr
+
+void CudaPath::initXferMgr() {
+  if (!envSet("EBT_PJRT_XFER_MGR")) return;
+  if (stripe_) {
+    latchRegError("transfer-manager tier requested but --tpustripe keeps "
+                  "the chunked path");
+    return;
+  }
+  if (!api_.mempool) {
+    latchRegError("transfer-manager tier requested but the driver lacks the "
+                  "stream-ordered allocator (cuMemAllocAsync, "
+                  "cuMemFreeAsync, cuDeviceGetDefaultMemPool, "
+                  "cuMemPoolSetAttribute, cuMemPoolTrimTo)");
+    return;
+  }
+  // each lane's pool is resolved once here, never per block
+  for (size_t d = 0; d < lanes_.size(); d++) {
+    Lane& l = *lanes_[d];
+    int pools = 0;
+    cu::CUresult rc = api_.cuDeviceGetAttribute(
+        &pools, cu::CU_DEVICE_ATTRIBUTE_MEMORY_POOLS_SUPPORTED, l.dev);
+    if (rc || !pools) {
+      latchRegError("transfer-manager tier requested but device " +
+                    std::to_string(d) +
+                    " does not support memory pools "
+                    "(CU_DEVICE_ATTRIBUTE_MEMORY_POOLS_SUPPORTED is 0)");
+      return;
+    }
+    cu::CUmemoryPool pool = nullptr;
+    if ((rc = api_.cuDeviceGetDefaultMemPool(&pool, l.dev))) {
+      latchRegError("transfer-manager " +
+                    cu::errorText(api_, "cuDeviceGetDefaultMemPool", rc));
+      return;
+    }
+    // keep freed blocks in the pool across synchronises: each block then
+    // reuses the pool's memory instead of paying a real allocation
+    uint64_t threshold = UINT64_MAX;
+    if ((rc = api_.cuMemPoolSetAttribute(
+             pool, cu::CU_MEMPOOL_ATTR_RELEASE_THRESHOLD, &threshold))) {
+      latchRegError("transfer-manager " +
+                    cu::errorText(api_, "cuMemPoolSetAttribute", rc));
+      return;
+    }
+    l.pool = pool;
+  }
+  xm_ok_ = true;  // provisionally, for the probe's own dispatch
+  // zeros, like the warm-up: checksum harnesses exclude probe traffic
+  char probe8[8] = {0};
+  makeCurrent(0, false);
+  const int prc = submitH2DXferMgr(0, probe8, sizeof probe8);
+  // drain whatever the probe enqueued, failed or not: its copies read
+  // probe8's stack memory
+  const int brc = settle(probe8, 0, false);
+  if (prc || brc) {
+    xm_ok_ = false;
+    std::string cause;
+    {
+      MutexLock lk(err_mutex_);
+      cause.swap(xfer_error_);  // a downgrade, not an error
+    }
+    latchRegError("transfer-manager probe failed: " + cause);
+  }
+  // the counter counts hot-path blocks, with no probe base to subtract
+  // (the probe's bytes and latency sample go with the warm-up's reset)
+  xfer_mgr_count_.store(0, std::memory_order_relaxed);
+}
+
+int CudaPath::submitH2DXferMgr(int device_idx, const char* buf, uint64_t len,
+                               int64_t stripe_unit, int64_t ckpt_shard,
+                               int64_t reshard_unit, int64_t ingest_epoch,
+                               uint64_t rot_gen, int plan_lane,
+                               uint64_t file_off) {
+  const int li = laneIndex(device_idx);
+  Lane& lane = *lanes_[li];
+  const auto t0 = Clock::now();  // the block's one latency sample
+  // a registered source is read in place by the copies: hold it against
+  // eviction until they are enqueued, as submitH2D does (the tier counts
+  // blocks, not zero-copy chunks)
+  QueueShard& shard = shardFor(buf);
+  const bool held = holdForCopy(buf, len, lane, shard);
+  int rc = 0;
+  // a restoring generation's block lands in the generation's memory and
+  // needs no block buffer of its own
+  cu::CUdeviceptr block = 0;
+  if (!rot_gen &&
+      !check("transfer-manager cuMemAllocAsync",
+             api_.cuMemAllocAsync(&block, std::max<uint64_t>(len, 8),
+                                  lane.h2d)))
+    rc = 1;
+  std::vector<Pending> submitted;
+  uint64_t off = 0;  // after the loop: the bytes that were enqueued
+  while (rc == 0 && off < len) {
+    const uint64_t n = std::min(chunk_bytes_, len - off);
+    cu::CUdeviceptr to = block + off;
+    if (rot_gen) {
+      to = rotDest(rot_gen, ckpt_shard, plan_lane, li, file_off + off, n);
+      if (!to || !makeCurrent(li, false)) {
+        rc = 1;
+        break;
+      }
+    }
+    if (!check("transfer-manager cuMemcpyHtoDAsync",
+               api_.cuMemcpyHtoDAsync(to, buf + off, n, lane.h2d))) {
+      rc = 1;
+      break;
+    }
+    // no host source: a tier chunk is not recoverable under the fault
+    // policy, as the original's manager pendings are not
+    Pending p;
+    p.bytes = n;
+    attachCompletion(p, li, lane.h2d, -1, t0);  // no sample per chunk
+    submitted.push_back(p);
+    off += n;
+  }
+  if (rc == 0) {
+    Pending p;
+    p.xm_block = true;
+    p.xm_buf = block;  // freed at this pending's settle
+    p.rot_gen = rot_gen;
+    attachCompletion(p, li, lane.h2d, li, t0);
+    submitted.push_back(p);
+    xfer_mgr_count_.fetch_add(1, std::memory_order_relaxed);
+  } else if (block) {
+    // failed mid-block: the chunks already enqueued may still be copying
+    // into the buffer, so it rides the last of them and is freed after
+    // they are waited out; with none enqueued it is freed now, still
+    // stream-ordered
+    if (!submitted.empty())
+      submitted.back().xm_buf = block;
+    else
+      api_.cuMemFreeAsync(block, lane.h2d);
+  }
+  enqueue((void*)buf, submitted, stripe_unit, ckpt_shard, reshard_unit,
+          ingest_epoch);
+  // the bytes a submit-time failure did not enqueue never reach a settle
+  if (rc != 0 && ingest_epoch >= 0 && ingest_drop_bytes_ && len > off)
+    ingest_drop_bytes_[ingest_epoch].fetch_add(len - off,
+                                               std::memory_order_relaxed);
+  if (held) releaseHold(buf, len, lane, shard);
+  return rc;
 }
 
 // --verify: the block's chunks land in one device block buffer, the verify
@@ -1242,8 +1410,13 @@ int CudaPath::copy(int worker_rank, int device_idx, int direction, void* buf,
                        "direction-9 begin on this thread)");
         return 1;
       }
-      const int src_rc = submitH2D(li, (const char*)buf, len, su, cs, ru, ie,
-                                   rot_gen, plan_lane, file_offset);
+      // the opt-in transfer-manager tier (one device buffer per block; never
+      // active under --tpustripe) or the chunked landing-ring path
+      const int src_rc =
+          xm_ok_ ? submitH2DXferMgr(li, (const char*)buf, len, su, cs, ru, ie,
+                                    rot_gen, plan_lane, file_offset)
+                 : submitH2D(li, (const char*)buf, len, su, cs, ru, ie,
+                             rot_gen, plan_lane, file_offset);
       // a submit-time failure never reaches a barrier's settle, so the
       // per-device attribution is latched here
       if (src_rc != 0 && striped)

@@ -5,8 +5,8 @@
  * CudaPath ports the part of the original package's PjrtPath
  * (core/include/ebt/pjrt_path.h, core/src/pjrt_path.cpp) that the read and
  * write legs, the stripe tier, checkpoint restore, the N->M reshard, the
- * device fault policy, serving rotation and the DL-ingestion ledger run, with
- * no Python on the hot path. DevCopyFn
+ * device fault policy, serving rotation, the DL-ingestion ledger and the
+ * transfer-manager tier run, with no Python on the hot path. DevCopyFn
  * directions:
  *   0   host buffer -> device, chunked cuMemcpyHtoDAsync on the lane's H2D
  *       stream; completion deferred to the pre-reuse barrier (direction 2).
@@ -15,7 +15,10 @@
  *       --tpustripe the block's chunks rotate over the lanes.
  *       With --verify the block is checked on the device instead: its chunks
  *       land in one device block buffer and the verify kernel (csrc/verify.cu)
- *       is launched once per block, synchronously.
+ *       is launched once per block, synchronously. With the transfer-manager
+ *       tier active (EBT_PJRT_XFER_MGR) the block gets a device buffer of
+ *       its own instead of the landing buffer (see below); --verify still
+ *       takes the verified path first.
  *   1   device -> host buffer (write-phase source): the pattern generated on
  *       the device by the fill kernel (csrc/fill.cu) on verified writes, the
  *       block this rank just staged (direction 3) when it has one, else
@@ -76,6 +79,31 @@
  * source: the "staged" tier. A failed registration drops that buffer (or
  * window) to the staged tier with its cause in regError(), as a failed DmaMap
  * does in the original.
+ *
+ * Transfer-manager tier (EBT_PJRT_XFER_MGR, the original's
+ * submitH2DXferMgr, core/src/pjrt_path.cpp:2535). Opt-in and probed at
+ * init: it is active only when the variable is set, --tpustripe is off
+ * (a block buffer lives on one device) and every lane's device reports
+ * memory-pool support and its default pool resolves; then one 8-byte zero
+ * block goes through the tier and a barrier. Any failure downgrades the tier
+ * with its cause in regError() and leaves no error behind. Per block: one
+ * cuMemAllocAsync on the lane's H2D stream, the block's chunks copied into
+ * it at their offsets on the same stream, one completion per chunk, then one
+ * pending that carries the buffer and the block's only latency sample (t0 =
+ * the block's start). The settle that retires that pending frees the buffer
+ * with cuMemFreeAsync on the same stream; a block that fails mid-way parks
+ * the buffer on its last enqueued chunk (or frees it at once when none was
+ * enqueued), so the chunks already copying are waited out first. The pools'
+ * release threshold is raised to UINT64_MAX at init, so a synchronise does
+ * not hand the pool's memory back and each block reuses it; the pool holds
+ * at most the blocks in flight, and teardown sets the threshold back to 0
+ * and trims the pool. The tier counts its blocks (xferMgrCount), not
+ * zero-copy chunks; a registered source is still held against eviction
+ * while its copies run. Its pendings are not recoverable under the fault
+ * policy (no survivor walk at submit or at settle), as the original's
+ * manager pendings are not. A block of a restoring rotation generation
+ * lands in the generation's memory (rotDest) and needs no block buffer; its
+ * block pending is the one that counts as retained.
  *
  * Completion. Each chunk's copy is followed on its stream by a host function
  * (cuLaunchHostFunc) that stamps the per-device latency, marks the chunk's
@@ -179,7 +207,19 @@ class CudaPath {
   // true when hot-path copies from registered memory take the zero-copy
   // gate: capability, and not the EBT_PJRT_NO_READY diagnostic (which the
   // original also excludes from the tier)
-  bool zeroCopyEngaged() const { return dma_ok_ && !no_ready_diag_; }
+  // capability, not the transfer-manager tier (which bypasses the gate) and
+  // not the EBT_PJRT_NO_READY diagnostic
+  bool zeroCopyEngaged() const {
+    return dma_ok_ && !xm_ok_ && !no_ready_diag_;
+  }
+
+  // ---- transfer-manager tier (EBT_PJRT_XFER_MGR, probed at init) ----
+  bool xferMgrActive() const { return xm_ok_; }
+  // blocks the hot path submitted through the tier (the init probe's
+  // block is not counted)
+  uint64_t xferMgrCount() const {
+    return xfer_mgr_count_.load(std::memory_order_relaxed);
+  }
   bool onReadyClock() const {
     return onready_ok_.load(std::memory_order_relaxed);
   }
@@ -469,6 +509,12 @@ class CudaPath {
     uint64_t rot_gen = 0;
     int rot_lane = -1;
     uint64_t rot_off = 0;
+    // transfer-manager tier: the block's last pending (xm_block) carries
+    // its buffer and counts as the block's one retained buffer in a
+    // rotation; xm_buf is freed (cuMemFreeAsync on `stream`) when this
+    // pending settles
+    bool xm_block = false;
+    cu::CUdeviceptr xm_buf = 0;
   };
   struct QueueShard {
     mutable Mutex m;
@@ -492,6 +538,9 @@ class CudaPath {
     // where read-phase chunks land; the H2D stream orders every write to it
     cu::CUdeviceptr landing = 0;
     cu::CUdeviceptr verify_ws = 0;  // used on the H2D stream only
+    // the device's default memory pool (transfer-manager tier), resolved
+    // once at init; its release threshold is raised while the path lives
+    cu::CUmemoryPool pool = nullptr;
     std::atomic<uint64_t> submits{0};
     std::atomic<uint64_t> awaits{0};
     std::atomic<uint64_t> lock_wait_ns{0};
@@ -703,6 +752,16 @@ class CudaPath {
       EBT_EXCLUDES(reg_mutex_);
   int submitH2DVerified(int worker_rank, int device_idx, const char* buf,
                         uint64_t len, uint64_t file_off);
+  // the transfer-manager tier's probe at init (sets xm_ok_ or downgrades
+  // with the cause in regError())
+  void initXferMgr();
+  // one tier block: a device buffer of its own, chunks copied into it; the
+  // tags as submitH2D's
+  int submitH2DXferMgr(int device_idx, const char* buf, uint64_t len,
+                       int64_t stripe_unit = -1, int64_t ckpt_shard = -1,
+                       int64_t reshard_unit = -1, int64_t ingest_epoch = -1,
+                       uint64_t rot_gen = 0, int plan_lane = -1,
+                       uint64_t file_off = 0);
   int roundTripH2D(int worker_rank, int device_idx, const char* buf,
                    uint64_t len);
   int serveD2H(int worker_rank, int device_idx, char* buf, uint64_t len,
@@ -738,6 +797,8 @@ class CudaPath {
   bool no_ready_diag_ = false;
   bool no_latency_diag_ = false;
   bool dma_ok_ = false;
+  bool xm_ok_ = false;  // transfer-manager tier probed and opted in
+  std::atomic<uint64_t> xfer_mgr_count_{0};  // blocks submitted through it
   std::atomic<bool> onready_ok_{false};
   std::atomic<uint64_t> zero_copy_count_{0};
   std::atomic<int> d2h_depth_{1};

@@ -6,7 +6,7 @@ CUDA driver API with no Python on the hot path. The flag keeps the original
 package's name for CLI and result-tree parity; this module is the port's
 counterpart of the original's tpu/native.py (NativePjrtPath) with its
 stripe-tier, checkpoint-restore, reshard, serving-rotation and ingest
-ledgers and its device fault policy, without its transfer-manager and
+ledgers, its device fault policy and its transfer-manager tier, without its
 raw-ceiling parts.
 
 This module resolves WHICH driver library the engine loads, makes sure the
@@ -156,8 +156,26 @@ class NativeCudaPath:
     @property
     def zero_copy_engaged(self) -> bool:
         """True when hot-path copies from registered memory take the
-        registered tier (capability and not the NO_READY diagnostic)."""
+        registered tier (capability, not the transfer-manager tier and not
+        the NO_READY diagnostic)."""
         return bool(self._lib.ebt_cuda_zero_copy_engaged(self._h))
+
+    # ---- transfer-manager tier (EBT_PJRT_XFER_MGR) ----
+
+    @property
+    def xfer_mgr_active(self) -> bool:
+        """Opt-in transfer-manager tier (EBT_PJRT_XFER_MGR=1, no
+        --tpustripe, memory pools on every lane's device) that passed its
+        init probe: one cuMemAllocAsync device buffer per block, the
+        block's chunks copied into it. A downgrade leaves its cause in
+        reg_error()."""
+        return bool(self._lib.ebt_cuda_xfer_mgr(self._h))
+
+    @property
+    def xfer_mgr_count(self) -> int:
+        """Blocks the hot path submitted through the transfer-manager
+        tier (reset after the init probe, so no base to subtract)."""
+        return self._lib.ebt_cuda_xfer_mgr_count(self._h)
 
     def set_reg_window(self, nbytes: int) -> None:
         """Byte budget of the bounded-registration LRU pin cache

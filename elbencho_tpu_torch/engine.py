@@ -542,6 +542,8 @@ def _declare_cuda(lib: ctypes.CDLL) -> None:
             ("reg_cache_stats", [vp, u64p], None),
             ("reg_error", [vp, s, i32], None),
             ("zero_copy_count", [vp], u64),
+            ("xfer_mgr", [vp], i32),
+            ("xfer_mgr_count", [vp], u64),
             ("num_lanes", [vp], i32),
             ("lane_stats", [vp, i32, u64p], i32),
             ("single_lane", [vp], i32),

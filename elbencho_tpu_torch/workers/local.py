@@ -10,7 +10,8 @@ The port carries the staged/direct callback backend, the hostsim backend,
 and the native pjrt path (`--tpubackend pjrt`: the C++ CUDA transfer engine
 of csrc/cuda_path.cpp, installed as a C function pointer) with its stripe
 planner, checkpoint restore, N->M reshard, device fault policy, serving
-rotation and DL-ingestion ledger.
+rotation, DL-ingestion ledger and transfer-manager tier (EBT_PJRT_XFER_MGR),
+and arms --chaos seams at prepare.
 """
 
 from __future__ import annotations
@@ -361,10 +362,22 @@ class LocalWorkerGroup(WorkerGroup):
                 "native CUDA tier: staged (pageable copies, host-synchronous "
                 "for their source; "
                 + (np_.reg_error() or "registration unavailable") + ")")
+        if os.environ.get("EBT_PJRT_XFER_MGR") is not None:
+            LOGGER.info(
+                "native CUDA transfer-manager tier: "
+                + ("one cuMemAllocAsync device buffer per block"
+                   if np_.xfer_mgr_active else
+                   f"not active ({np_.reg_error()})"))
 
     def prepare(self) -> None:
         if self._prepared:
             return
+        if self.cfg.chaos_spec:
+            # arm the mock fault seams BEFORE the engine and the native
+            # path exist (the seams are environment reads inside them)
+            from ..chaos import arm_chaos
+
+            arm_chaos(self.cfg.chaos_spec)
         if self.cfg.ckpt_shards and self.cfg.run_create_files and \
                 not self.cfg.rotate_period_s:
             # generated --checkpoint-shards manifest with -w: create/size
@@ -590,20 +603,23 @@ class LocalWorkerGroup(WorkerGroup):
 
     # ------------------------------------- empirical tier engagement
     #
-    # The h2d tier (zero-copy -> staged) is CONFIRMED from counter deltas,
-    # never from capability alone: a registration that passed the init
-    # probe can still fail per buffer, silently dropping the leg to the
-    # staged tier. The counters say which path the bytes actually took.
+    # The h2d tier ladder (zero-copy -> transfer-manager -> staged) is
+    # CONFIRMED from counter deltas, never from capability alone: a
+    # registration that passed the init probe can still fail per buffer,
+    # silently dropping the leg to the staged tier. The counters say which
+    # path the bytes actually took.
 
     def tier_counter_snapshot(self) -> dict[str, int]:
-        """Cumulative tier counters (zero-copy chunks, h2d/d2h bytes,
-        deferred d2h blocks) — diffed by confirm_engaged_tier()."""
+        """Cumulative tier counters (zero-copy chunks, transfer-manager
+        blocks, h2d/d2h bytes, deferred d2h blocks) — diffed by
+        confirm_engaged_tier()."""
         np_ = self._native_path
         if np_ is None:
             return {}
         to_hbm, from_hbm = np_.transferred_bytes
         rs = np_.reshard_stats()
         return {"zero_copy": np_.zero_copy_count,
+                "xfer_mgr": np_.xfer_mgr_count,
                 "to_hbm": to_hbm,
                 "from_hbm": from_hbm,
                 "d2h_deferred": np_.d2h_stats()["deferred_count"],
@@ -620,9 +636,10 @@ class LocalWorkerGroup(WorkerGroup):
                              base: dict[str, int] | None = None) -> str | None:
         """Which h2d tier the traffic since `base` (default: the last
         start_phase) actually ran: "zero_copy" when copies from registered
-        memory happened, else "staged". Returns the previous confirmation
-        (or None) when the window moved no h2d bytes — a write phase must
-        not un-confirm the read tier."""
+        memory happened, else "xfer_mgr" when blocks rode the
+        transfer-manager tier, else "staged". Returns the previous
+        confirmation (or None) when the window moved no h2d bytes — a write
+        phase must not un-confirm the read tier."""
         np_ = self._native_path
         if np_ is None:
             return None
@@ -630,9 +647,12 @@ class LocalWorkerGroup(WorkerGroup):
         now = self.tier_counter_snapshot()
         if now["to_hbm"] - base.get("to_hbm", 0) <= 0:
             return self._engaged_tier
-        tier = ("zero_copy"
-                if now["zero_copy"] - base.get("zero_copy", 0) > 0
-                else "staged")
+        if now["zero_copy"] - base.get("zero_copy", 0) > 0:
+            tier = "zero_copy"
+        elif now["xfer_mgr"] - base.get("xfer_mgr", 0) > 0:
+            tier = "xfer_mgr"
+        else:
+            tier = "staged"
         if tier != self._engaged_tier and self._engaged_tier is not None:
             LOGGER.info(f"native CUDA tier engagement changed: "
                         f"{self._engaged_tier} -> {tier}"
@@ -899,13 +919,15 @@ class LocalWorkerGroup(WorkerGroup):
 
     def plugin_caps(self) -> dict | None:
         """Capability probes of the session's driver library: registration
-        (zero-copy tier possible), the latency clock, and whether the
-        driver is the CPU test mock. None off the native path."""
+        (zero-copy tier possible), the transfer-manager tier, the latency
+        clock, and whether the driver is the CPU test mock. None off the
+        native path."""
         np_ = self._native_path
         if np_ is None:
             return None
         driver = os.path.basename(np_.so_path)
-        return {"dma_map": bool(np_.dma_supported), "xfer_mgr": False,
+        return {"dma_map": bool(np_.dma_supported),
+                "xfer_mgr": bool(np_.xfer_mgr_active),
                 "onready_clock": np_.latency_clock, "plugin": driver,
                 "mock": "mock" in driver}
 

@@ -240,25 +240,28 @@ def test_distributed_error_surfaces_host(two_services, bench_dir, capfd):
 
 def test_unported_flag_refused_by_the_service_framed_by_host(
         bench_dir, capfd, monkeypatch):
-    """A tier the port does not carry, met by a port service while it
-    checks a configuration the original's master sent over the wire (the
-    transfer-manager tier, selected by EBT_PJRT_XFER_MGR in the service's
-    environment), is refused by the service with the command line's text,
-    and the master reports it framed by the host."""
+    """The transfer-manager tier, selected by EBT_PJRT_XFER_MGR in a port
+    service's environment, is ported: a configuration the original's
+    master sends over the wire runs on the tier in the service (its
+    result tree confirms it), and the master's totals equal the file."""
     p = bench_dir / "tf"
     p.mkdir()
     monkeypatch.setenv("EBT_PJRT_XFER_MGR", "1")
     with _spawn_services(1) as ports:
         monkeypatch.delenv("EBT_PJRT_XFER_MGR")
         capfd.readouterr()
-        rc = jax_main(["--hosts", _hosts_arg(ports), "-w", "-t", "1",
+        rc = jax_main(["--hosts", _hosts_arg(ports), "-w", "-r", "-t", "1",
                        "-s", "1M", "-b", "256k", "--gpuids", "0",
                        "--tpubackend", "pjrt", "--nolive", str(p / "f")])
         out = capfd.readouterr()
-    assert rc == 1
-    assert (f"service 127.0.0.1:{ports[0]}" in out.err and
-            "EBT_PJRT_XFER_MGR: not yet ported (see ROADMAP.md)"
-            in out.err), out
+        tree = _benchresult(ports[0])
+    assert rc == 0, out
+    assert "not yet ported" not in out.err
+    totals = [ln.split()[-1] for ln in out.out.splitlines()
+              if "Total MiB" in ln]
+    assert totals == ["1", "1"], out.out
+    assert tree["DataPathTier"] == "xfer_mgr"
+    assert tree["Ops"]["bytes"] == 1 << 20
 
 
 def test_master_unreachable_service(bench_dir, capsys):

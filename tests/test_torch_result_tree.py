@@ -100,7 +100,16 @@ CASES = [
     ("pjrt-ingest", "pjrt",
      PJRT + ["--ingestshards", "2", "--recordsize", "64K", "--epochs", "2",
              "--prefetchbatches", "1"], "i"),
+    # the transfer-manager tier (EBT_PJRT_XFER_MGR=1, XFER_MGR_CASES): a
+    # plain read and a checkpoint restore, one block buffer per block
+    ("pjrt-xfer-mgr", "pjrt", PJRT, "wr"),
+    ("pjrt-xfer-mgr-checkpoint", "pjrt", PJRT + ["--checkpoint-shards", "4"],
+     "c"),
 ]
+# cases run with EBT_PJRT_XFER_MGR=1; besides the tree, the tier's block
+# counter and each device's latency sample count (one per block on the
+# tier) must equal the original's
+XFER_MGR_CASES = ("pjrt-xfer-mgr", "pjrt-xfer-mgr-checkpoint")
 
 
 @pytest.fixture
@@ -171,8 +180,11 @@ def key_diff(a, b, path) -> list[str]:
     return [] if shape(a) == shape(b) else [f"{path}: shapes differ"]
 
 
-def run_trees(pkg, args: list[str], phases: str) -> list[dict]:
-    """One package's benchmark; the result tree after each phase."""
+def run_trees(pkg, args: list[str], phases: str,
+              counters: list | None = None) -> list[dict]:
+    """One package's benchmark; the result tree after each phase (and,
+    into `counters`, the transfer-manager tier's block count and the
+    latency sample count per device after each phase)."""
     cfg = pkg.config_from_args(args)
     uring_base = pkg.uring_stats()
     group = pkg.Group(cfg)
@@ -192,6 +204,11 @@ def run_trees(pkg, args: list[str], phases: str) -> list[dict]:
             tree["UringStats"] = {k: v - uring_base[k]
                                   for k, v in tree["UringStats"].items()}
             trees.append(tree)
+            if counters is not None:
+                counters.append((
+                    group._native_path.xfer_mgr_active,
+                    group._native_path.xfer_mgr_count,
+                    {k: h["count"] for k, h in tree["DevLatHistos"].items()}))
     finally:
         group.teardown()
     return trees
@@ -217,7 +234,10 @@ def test_result_tree_matches_original(pkgs, tmp_path, monkeypatch, case):
         clocked = ROTATION_CLOCKED
         for k in ("EBT_MOCK_PJRT_XFER_US", "EBT_MOCK_CUDA_XFER_US"):
             monkeypatch.setenv(k, "25000")
-    trees = {}
+    xfer_mgr = name in XFER_MGR_CASES
+    if xfer_mgr:
+        monkeypatch.setenv("EBT_PJRT_XFER_MGR", "1")
+    trees, counters = {}, {}
     for pkg in pkgs:
         d = tmp_path / pkg.name
         d.mkdir()
@@ -232,7 +252,8 @@ def test_result_tree_matches_original(pkgs, tmp_path, monkeypatch, case):
                 # come from the same seeded file on both sides
                 (d / "f").write_bytes(data)
         args = pre + BASE + ["--tpubackend", backend] + extra + [target]
-        trees[pkg.name] = run_trees(pkg, args, phases)
+        counters[pkg.name] = [] if xfer_mgr else None
+        trees[pkg.name] = run_trees(pkg, args, phases, counters[pkg.name])
     assert len(trees["torch"]) == len(trees["jax"])
     for ph, jt, tt in zip(phases, trees["jax"], trees["torch"]):
         diff = tree_diff(jt, tt, clocked=clocked)
@@ -242,6 +263,16 @@ def test_result_tree_matches_original(pkgs, tmp_path, monkeypatch, case):
             assert t["ServingStats"]["rotations_complete"] >= 1
             assert len(t["RotationRecords"]) == \
                 t["ServingStats"]["rotations_complete"]
+    if xfer_mgr:
+        assert counters["torch"] == counters["jax"]
+        # the tier carried every block read or restored, one latency
+        # sample each: 4 MiB read, or 4 shards of 4 MiB restored, in 256
+        # KiB blocks
+        want = 16 if phases == "wr" else 64
+        active, blocks, samples = counters["torch"][-1]
+        assert active and blocks == want
+        assert sum(samples.values()) == want
+        assert trees["torch"][-1]["DataPathTier"] == "xfer_mgr"
     if backend == "pjrt":
         # the C1 fields exist and carry the original's values
         for tt in trees["torch"]:
