@@ -139,7 +139,21 @@ Phases, each reported on its own line:
      without io_uring; reactor: the second worker's eventfd bridge fails,
      visible as the reactor's cause), the bytes landing exactly; then a
      mock-driver seam (submit=1.0) armed against the real driver: the
-     INERT warning names it and the read is clean; no kernel launched.
+     INERT warning names it and the read is clean; no kernel launched;
+ 25. a campaign on the card (runs after phase 24, in its own directory
+     under /dev/shm): tools/torch_campaign.py on the real driver (no
+     --mock) over a spec of five stages on two lanes (--gpuids 0,0): a
+     4 GiB --verify fill (-b 8M --iodepth 4), the same file read with
+     --stripe rr --verify and --retry 1 --maxerrors 5%, a generated
+     4 x 1 GiB restore, 10 s of open-loop reads (-b 64K, 500 arrivals/s
+     per worker) with the reactor seam armed, a generated 8 x 512 MiB
+     checkpoint resharded onto one lane. Exit 0, every invariant held, the
+     two mock-only ones recorded as skipped; the engine's launches counted
+     per stage (B3 once per block in the fill, B1 once per block in the
+     verified read, none elsewhere); the confirmed tier of the read
+     stages, the verified read's lane bytes in halves, no ejection, the
+     reactor's cause; each stage's time and GiB/s, the open-loop p99 and
+     the report's fingerprint.
 
 The second-to-last line is a JSON object describing each kernel of the path;
 the last line is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -2145,6 +2159,220 @@ def _size_bytes(spec: str) -> int:
     return int(spec[:-1]) << {"K": 10, "M": 20, "G": 30}[spec[-1]]
 
 
+# Phase 25 runs tools/torch_campaign.py under this probe, which counts the
+# engine's kernel launches around each stage and reads, from the stage's
+# live group, what the campaign report does not carry (the confirmed tier,
+# the reactor's cause, the tenant latency p99); it writes them to
+# $EBT_SMOKE_PROBE and leaves the tool, its report and its exit code as
+# they are.
+CAMPAIGN_PROBE = r"""
+import json, os, runpy, sys
+from elbencho_tpu_torch import campaign
+from elbencho_tpu_torch.cuda import native
+
+sys.argv = sys.argv[1:]
+out = {}
+snapshot, run_stage = campaign._snapshot, campaign.CampaignRunner._run_stage
+
+
+def probed_snapshot(group):
+    caps = group.plugin_caps() or {}
+    out["_live"] = {
+        "tier": group.confirm_engaged_tier(),
+        "probe": "zero_copy" if caps.get("dma_map") else "staged",
+        "stripe_tier": group.confirm_stripe_tier(),
+        "lanes": [ln["to_hbm"] for ln in group.lane_stats() or []],
+        "reactor_cause": group.reactor_cause() or "",
+        "p99_us": {k: h.percentile_us(99.0)
+                   for k, h in group.tenant_latency().items()}}
+    return snapshot(group)
+
+
+def probed_run_stage(self, index, st):
+    native.reset_kernel_launches()
+    try:
+        return run_stage(self, index, st)
+    finally:
+        out[st.name] = dict(out.pop("_live", {}),
+                            launches=native.kernel_launches())
+
+
+campaign._snapshot = probed_snapshot
+campaign.CampaignRunner._run_stage = probed_run_stage
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+finally:
+    with open(os.environ["EBT_SMOKE_PROBE"], "w") as f:
+        json.dump(out, f)
+"""
+CAMPAIGN_LANES = ["--tpubackend", "pjrt", "--gpuids", "0,0"]
+CAMPAIGN_RATE = 500         # arrivals/s per worker: 125 MiB/s over 4
+
+
+def campaign_spec() -> dict:
+    """Phase 25's campaign: a verified fill of phase 8's 4 GiB, a verified
+    striped read of it with the fault policy armed, a 4 x 1 GiB restore,
+    10 s of open-loop reads with the reactor seam armed, and an
+    8 x 512 MiB reshard onto one lane, all on two lanes of the card (the
+    shard counts of campaigns/soak-smoke.json)."""
+    size, shard, rshard, secs = "4G", "1G", "512M", 10
+    read = ["-r", "-t", "4", "-s", size]
+    clean = ["phase_clean"]
+    return {"campaign": {
+        "name": "card-campaign", "seed": 25, "spec_version": 1,
+        "description": "chip_smoke.py phase 25: the port's campaign engine "
+                       "on the card at full size"},
+        "stages": [
+            {"name": "fill", "phase": "write", "path": "campaign.bin",
+             "flags": ["-w", "-t", "4", "-s", size, "-b", "8M", "--iodepth",
+                       "4", "--verify", "42", *CAMPAIGN_LANES],
+             "invariants": clean + ["no_leaks"]},
+            {"name": "verified-stripe-read", "phase": "stripe",
+             "path": "campaign.bin",
+             "flags": read + ["-b", "8M", "--iodepth", "4", "--stripe", "rr",
+                              "--verify", "42", "--retry", "1",
+                              "--maxerrors", "5%", *CAMPAIGN_LANES],
+             "invariants": clean + [
+                 "stripe_reconciliation",
+                 {"name": "expected_ejections", "equals": 0},
+                 "byte_exact_landing", "metrics_consistent", "no_leaks"]},
+            {"name": "restore", "phase": "restore", "path": "ckpt",
+             "create": "dir",
+             "flags": ["--checkpoint-shards", "4", "-w", "-s", shard, "-b",
+                       "8M", "-t", "4", *CAMPAIGN_LANES],
+             "invariants": clean + ["ckpt_reconciliation",
+                                    "metrics_consistent", "no_leaks"]},
+            {"name": "open-loop", "phase": "load", "path": "campaign.bin",
+             "flags": read + ["-b", "64K", "--arrival", "paced", "--rate",
+                              str(CAMPAIGN_RATE), "--timelimit", str(secs),
+                              *CAMPAIGN_LANES],
+             "chaos": {"reactor": 1.0},
+             "invariants": clean + ["open_loop_ledger", "backlog_reported",
+                                    "reactor_reconciles",
+                                    "metrics_consistent"]},
+            {"name": "reshard-drain", "phase": "reshard", "path": "reshard",
+             "create": "dir",
+             "flags": ["--checkpoint-shards", "8", "-w", "-s", rshard, "-b",
+                       "8M", "--reshard", "1", "-t", "4", *CAMPAIGN_LANES],
+             "invariants": clean + ["reshard_reconciliation",
+                                    "metrics_consistent", "no_leaks"]},
+        ]}
+
+
+def campaign_on_card() -> None:
+    """Phase 25: tools/torch_campaign.py on the real driver (no --mock) over
+    phase 25's spec, in its own directory under /dev/shm. The campaign must
+    hold every invariant, the mock-only ones recorded as skipped; the
+    engine must launch B3 once per block in the fill and B1 once per block
+    in the verified read, and nothing in the other stages."""
+    spec = campaign_spec()
+    t0 = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="ebt_torch_campaign_", dir="/dev/shm")
+    try:
+        specp, rep, probe = (os.path.join(d, n) for n in (
+            "spec.json", "report.json", "probe.json"))
+        with open(specp, "w") as f:
+            json.dump(spec, f)
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("EBT_TORCH_DEVICE", "EBT_CUDA_DRIVER")}
+        env["EBT_SMOKE_PROBE"] = probe
+        r = subprocess.run(
+            [sys.executable, "-c", CAMPAIGN_PROBE,
+             os.path.join(repo, "tools", "torch_campaign.py"), specp,
+             "--dir", os.path.join(d, "work"), "--report", rep,
+             "--print-fingerprint"],
+            cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            sys.stderr.write(r.stderr[-8000:])
+            raise AssertionError(f"campaign: tool exit {r.returncode}: "
+                                 f"{r.stdout[-2000:]}")
+        report = json.load(open(rep))
+        live = json.load(open(probe))
+        _check_campaign(spec, report, live, r.stdout.strip())
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    phase("campaign", f"phase 25 took {time.perf_counter() - t0:.1f}s")
+
+
+def _check_campaign(spec: dict, report: dict, live: dict,
+                    printed: str) -> None:
+    if not report["ok"] or report["violations"]:
+        raise AssertionError(f"campaign: {report['violations']}")
+    if printed != report["fingerprint"]:
+        raise AssertionError(f"campaign: printed '{printed}', report "
+                             f"{report['fingerprint']}")
+    gib = 1 << 30
+    for st, want in zip(report["stages"], spec["stages"]):
+        name, stats = st["stage"], st["stats"]
+        flags, got = want["flags"], live[st["stage"]]
+        if st["error"] or not st["ok"] or name != want["name"]:
+            raise AssertionError(f"campaign stage {name}: {st['error']}")
+        for inv in st["invariants"]:
+            mock_only = inv["name"] in ("byte_exact_landing", "no_leaks")
+            if mock_only != bool(inv["skipped"]):
+                raise AssertionError(f"campaign stage {name}: {inv}")
+        # one launch per block under --verify (phases 9 and 16), else none
+        blocks = _size_bytes(flags[flags.index("-s") + 1]) // (8 << 20)
+        kernel = ({"-w": "fill_u64", "-r": "verify_u32"}[flags[0]]
+                  if "--verify" in flags else None)
+        want_l = {k: blocks if k == kernel else 0
+                  for k in ("verify_u32", "fill_u64")}
+        if got["launches"] != want_l:
+            raise AssertionError(f"campaign stage {name}: launches "
+                                 f"{got['launches']}, want {want_l}")
+        secs = stats["elapsed_us"] / 1e6
+        rate = stats["ops"]["bytes"] / secs / gib
+        line = (f"stage {name} ({st['phase']}): {st['timing']['wall_s']} s "
+                f"wall, phase {secs:.3f} s, engine launches "
+                f"{got['launches']}")
+        if name == "fill":
+            line += f"; WRITE {rate:.3f} GiB/s"
+        elif st["phase"] in ("stripe", "load"):
+            # the confirmed tier, as phase 8 prints it; a verified read
+            # takes the engine's verified (staged) path whatever the probe
+            want_t = "staged" if kernel else got["probe"]
+            if got["tier"] != want_t:
+                raise AssertionError(f"campaign stage {name}: tier "
+                                     f"{got['tier']} (probe {got['probe']})")
+            line += (f"; READ {rate:.3f} GiB/s; tier {got['tier']} (probe "
+                     f"{got['probe']})")
+        if st["phase"] == "stripe":
+            # the verified path keeps no stripe-unit ledger (as in the
+            # original): the planner's placement shows in the lanes' bytes
+            half = stats["ops"]["bytes"] // 2
+            if got["lanes"] != [half, half] or \
+                    stats["faults"]["ejected_devices"] != 0:
+                raise AssertionError(f"campaign stage {name}: lane bytes "
+                                     f"{got['lanes']}, faults "
+                                     f"{stats['faults']}")
+            line += f", lane bytes {got['lanes']}"
+        elif st["phase"] == "restore":
+            line += f"; RESTORE {rate:.3f} GiB/s, {stats['ckpt']}"
+        elif st["phase"] == "reshard":
+            rs = stats["reshard"]
+            line += (f"; RESHARD {rs['d2d_resident_bytes'] / secs / gib:.3f} "
+                     f"GiB/s ({rs['d2d_resident_bytes']} bytes moved, "
+                     f"{rs['d2d_moves']} d2d / {rs['bounce_moves']} bounce "
+                     f"chunk moves)")
+        elif st["phase"] == "load":
+            if list(st["chaos_env"]) != ["EBT_MOCK_REACTOR_FAIL_AT"]:
+                raise AssertionError(f"campaign stage {name}: chaos_env "
+                                     f"{st['chaos_env']}")
+            if "EBT_MOCK_REACTOR_FAIL_AT" not in got["reactor_cause"]:
+                raise AssertionError(f"campaign stage {name}: reactor cause "
+                                     f"'{got['reactor_cause']}'")
+            ledger = [(t["arrivals"], t["completions"], t["dropped"])
+                      for t in stats["tenants"]]
+            line += (f"; chaos_env {st['chaos_env']}, tenant (arrivals, "
+                     f"completions, dropped) {ledger}, open-loop p99 "
+                     f"{got['p99_us']} us; reactor cause (from the live "
+                     f"group: the report has no field for it) "
+                     f"'{got['reactor_cause']}'")
+        phase("campaign", line)
+    phase("campaign", f"ok, no violations; fingerprint {printed}")
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2210,6 +2438,7 @@ def main() -> int:
         ingest_ledger(d)
         slice_launches = slice_main_path(ik, integ, mesh, graft_entry)
         distributed_run(cli, d)
+    campaign_on_card()
     phase("launches", f"staged --verify run: {staged_launches} verify "
                       f"launches (Python wrapper); native --verify run: "
                       f"{launches} (C++ engine); native --stripe --verify "

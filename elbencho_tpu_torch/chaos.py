@@ -115,6 +115,23 @@ SEAMS: dict[str, Seam] = {
                 "move recovers via the host-bounce tier, byte-exact)"),
 }
 
+# the original package's env name of each mock seam -> the campaign name the
+# port registers it under (the storage engine's seams keep one name in both
+# packages). A campaign spec written for the original pins these names; the
+# campaign parser (campaign.py) arms the port's env in their place.
+ORIGINAL_SEAM_ENVS: dict[str, str] = {
+    "EBT_MOCK_STRIPE_FAIL_AT": "stripe",
+    "EBT_MOCK_PJRT_FAIL_AT": "submit",
+    "EBT_MOCK_PJRT_FAIL_READY_AT": "ready",
+    "EBT_MOCK_D2H_FAIL_AT": "d2h",
+    "EBT_MOCK_PJRT_XFER_FAIL_AT": "xfer",
+    "EBT_MOCK_PJRT_XFERMGR_FAIL": "xfermgr",
+    "EBT_MOCK_PJRT_DMAMAP_FAIL_AT": "dmamap",
+    "EBT_MOCK_PJRT_DMAMAP_FAIL_AFTER": "dmamap_after",
+    "EBT_MOCK_PJRT_DMAMAP_FAIL": "dmamap_all",
+    "EBT_MOCK_D2D_FAIL_AT": "d2d",
+}
+
 MOCK_DRIVER_NAME = "libebtcudamock.so"
 
 

@@ -88,7 +88,11 @@
  *
  * Test helpers: ebt_mock_total_bytes / ebt_mock_checksum (bytes landed on
  * the devices by host-to-device and device-to-device copies and their
- * additive checksum), ebt_mock_d2d_count (device-to-device copy calls),
+ * additive checksum; a copy whose completion its stream then drops, because
+ * the stream went into error or a failed device-to-device copy dropped it,
+ * is taken back out: the engine cannot know it landed and lands it again,
+ * and the original's mock counts each transfer behind its own ready event
+ * once), ebt_mock_d2d_count (device-to-device copy calls),
  * ebt_mock_exec_count(dev) (kernel launches per device),
  * ebt_mock_dev_h2d_count(dev) (host-to-device copies per device),
  * ebt_mock_hostreg_active (registered ranges), ebt_mock_live_buffers
@@ -263,6 +267,10 @@ struct Op {
                         // free, so the mock does not leak its memory)
 };
 
+struct Stream;
+// the stream whose worker is running an op on this thread
+thread_local Stream* t_stream = nullptr;
+
 struct Stream {
   int device = 0;
   std::mutex m;
@@ -274,7 +282,12 @@ struct Stream {
   std::string fault;  // non-empty: the stream is in error, work is dropped
   std::string drop_next;  // a failed copy's fault: drop the next completion
   std::string transient;  // reported once by the next query or wait
+  // bytes landed since the last completion ran (the worker thread's own):
+  // taken back out of the gauges when that completion is dropped
+  uint64_t unacked_sum = 0, unacked_bytes = 0;
   std::thread worker;
+
+  void unland();
 
   void run() {
     std::unique_lock<std::mutex> lk(m);
@@ -307,11 +320,20 @@ struct Stream {
                                                device % kMaxDevices],
                                op.service_us)
                   : reserve_service(device, op.service_us));
-        if (op.fault.empty() && op.transient.empty()) op.fn();
+        if (op.fault.empty() && op.transient.empty()) {
+          t_stream = this;
+          op.fn();
+          t_stream = nullptr;
+        }
+        if (op.completion) unacked_sum = unacked_bytes = 0;
       }
+      if (drop_this) unland();
       lk.lock();
       if (!dropped && !op.transient.empty()) drop_next = op.transient;
-      if (!dropped && !op.fault.empty()) fault = op.fault;
+      if (!dropped && !op.fault.empty()) {
+        fault = op.fault;
+        unland();
+      }
       busy = false;
       if (q.empty()) idle_cv.notify_all();
     }
@@ -362,6 +384,16 @@ void land(const char* data, uint64_t n) {
   for (uint64_t i = 0; i < n; i++) sum += (unsigned char)data[i];
   g_checksum += sum;
   g_total_bytes += n;
+  if (t_stream) {
+    t_stream->unacked_sum += sum;
+    t_stream->unacked_bytes += n;
+  }
+}
+
+void Stream::unland() {
+  g_checksum -= unacked_sum;
+  g_total_bytes -= unacked_bytes;
+  unacked_sum = unacked_bytes = 0;
 }
 
 // the device pattern word i = base + 8*i, as verify.cu / fill.cu define it

@@ -143,6 +143,22 @@ def test_chaos_seam_matrix_every_fail_seam_reachable():
             assert seam.env.startswith("EBT_MOCK_CUDA_"), name
 
 
+def test_chaos_seam_matrix_original_env_names_translate():
+    """ORIGINAL_SEAM_ENVS (the original's variable of each mock seam, which
+    a campaign spec may pin) names exactly the original's seams whose
+    variable the port renamed, each under its own campaign name, and each
+    such name is registered in the port: no entry missing, none stale."""
+    table = torch_chaos.ORIGINAL_SEAM_ENVS
+    renamed = {s.env: n for n, s in jax_chaos.SEAMS.items()
+               if s.env != torch_chaos.SEAMS[n].env}
+    assert table == renamed
+    for env, name in table.items():
+        assert name in torch_chaos.SEAMS, env
+        assert jax_chaos.SEAMS[name].env == env
+        assert torch_chaos.SEAMS[name].layer == "cuda"
+    assert set(table).isdisjoint(s.env for s in torch_chaos.SEAMS.values())
+
+
 # ------------------------------------------- spec refusals, determinism
 
 

@@ -1,8 +1,10 @@
-"""The port stands alone: no module of elbencho_tpu_torch/ and not
-chip_smoke.py imports jax or the original elbencho_tpu package, and no C++
-or CUDA source of the port includes PJRT."""
+"""The port stands alone: no module of elbencho_tpu_torch/, not the port's
+tools (tools/torch_*.py) and not chip_smoke.py imports jax or the original
+elbencho_tpu package, and no C++ or CUDA source of the port includes
+PJRT."""
 
 import ast
+import glob
 import os
 import re
 
@@ -17,6 +19,7 @@ def _port_files():
     for root, _dirs, files in os.walk(os.path.join(REPO,
                                                    "elbencho_tpu_torch")):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    out += glob.glob(os.path.join(REPO, "tools", "torch_*.py"))
     return sorted(out)
 
 
@@ -61,7 +64,12 @@ NATIVE_MODULES = ("elbencho_tpu_torch/cuda/native.py",
                   "elbencho_tpu_torch/service.py",
                   "elbencho_tpu_torch/metrics.py",
                   "elbencho_tpu_torch/workers/remote.py",
-                  "elbencho_tpu_torch/checkpoint.py")
+                  "elbencho_tpu_torch/checkpoint.py",
+                  "elbencho_tpu_torch/campaign.py",
+                  "elbencho_tpu_torch/tools/chart.py")
+# the port's command-line tools beside the original's in tools/
+PORT_TOOLS = ("tools/torch_multicard.py", "tools/torch_campaign.py",
+              "tools/torch_chaos.py")
 # the kernel sources, which must be among the native sources scanned
 KERNEL_SOURCES = ("verify.cu", "fill.cu", "ingest.cu", "mesh_reduce.cu")
 
@@ -69,6 +77,11 @@ KERNEL_SOURCES = ("verify.cu", "fill.cu", "ingest.cu", "mesh_reduce.cu")
 def test_native_modules_are_scanned():
     scanned = {os.path.relpath(p, REPO) for p in _port_files()}
     assert set(NATIVE_MODULES) <= scanned
+
+
+def test_port_tools_are_scanned():
+    scanned = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert set(PORT_TOOLS) <= scanned
 
 
 def test_kernel_sources_are_scanned():
