@@ -154,6 +154,21 @@ Phases, each reported on its own line:
      stages, the verified read's lane bytes in halves, no ejection, the
      reactor's cause; each stage's time and GiB/s, the open-loop p99 and
      the report's fingerprint.
+ 26. the in-session raw transport ceilings (runs inside phase 8, on its
+     worker group between its phases, at its settings: 4 GiB, 2 MiB
+     chunks): the host-to-device ceiling on the confirmed tier with one
+     submitter (16 chunks in flight, phase 8's -t 4 --iodepth 4 x 8 MiB
+     blocks per worker) and with four (the -t 4 denominator), probe_tier()
+     equal to the confirmed tier, the device-to-host ceiling (one block's
+     4 chunks in flight), phase 8's READ and WRITE as shares of them; the
+     path's transferred bytes and the engine's kernel launches unmoved and
+     raw_last_error() empty; a second group with EBT_PJRT_NO_DMAMAP=1 whose
+     ceiling lands on the staged rung; then the standalone probe
+     (build/torch_core/cuda_probe, built on first use) in both modes. Inside
+     phase 20, on its reshard group (two lanes of the card), the
+     device-to-device ceiling lane 1 -> lane 0 beside the RESHARD rate, and
+     the refusals for src == dst and under EBT_D2D_DISABLE=1;
+     tools/torch_multicard.py measures it between cards 0 and 1.
 
 The second-to-last line is a JSON object describing each kernel of the path;
 the last line is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -203,6 +218,7 @@ SERVE_RATE = 56             # arrivals/s per worker: 14 MiB/s over 4 workers
 SERVE_SECS = 70             # the rotation run (two swaps at up to 34 s of
                             # TTR each); the 1 GiB lasts 73 s
 PLAIN_SECS = 10             # the pass without rotation
+CEILING_BYTES = 4 << 30     # phase 26's windows: phase 8's file
 INGEST_ARGS = ["--ingestshards", "16", "-s", "256M", "--recordsize", "128K",
                "-b", "4M", "--epochs", "2", "--shufflewindow", "1024",
                "--tpubackend", "pjrt", "--nolive"]
@@ -699,6 +715,8 @@ def native_main_path(d: str) -> str:
             phase("native", f"{op} {moved / secs / (1 << 30):.3f} GiB/s, "
                             f"GPU 0 xfer p50 {h.percentile_us(50.0)} us p99 "
                             f"{h.percentile_us(99.0)} us (clock {clock})")
+            if op == "WRITE":
+                write_gibs = moved / secs / (1 << 30)
             read = {"gibs": moved / secs / (1 << 30),
                     "p50": h.percentile_us(50.0),
                     "p99": h.percentile_us(99.0)}
@@ -713,9 +731,106 @@ def native_main_path(d: str) -> str:
                         f"{cache}; d2h {d2h}, {stats['deferred_count']} "
                         f"blocks deferred; 4 GiB native write+read took "
                         f"{time.perf_counter() - t0:.1f}s")
+        raw_ceilings(group, read["gibs"], write_gibs, path)
     finally:
         group.teardown()
     return path, read
+
+
+def raw_ceilings(group, read_gibs: float, write_gibs: float,
+                 path: str) -> None:
+    """Phase 26, on phase 8's group between its phases: the in-session raw
+    transport ceilings at phase 8's settings, phase 8's rates as shares of
+    them, the ladder under EBT_PJRT_NO_DMAMAP=1 on a second group, and the
+    standalone probe. Nothing here may move the path's own counters."""
+    from elbencho_tpu_torch import engine
+    from elbencho_tpu_torch.config import config_from_args
+    from elbencho_tpu_torch.cuda import native
+    from elbencho_tpu_torch.exceptions import ProgException
+    from elbencho_tpu_torch.workers.local import LocalWorkerGroup
+
+    card = gpu_name_and_power()
+    np_ = group._native_path
+    tier = group.data_path_tier()
+    before = (np_.transferred_bytes, native.kernel_launches())
+    # phase 8's transfers: 2 MiB chunks, per worker --iodepth 4 blocks of
+    # 8 MiB in flight (16 chunks); its write fetches one block's 4 chunks
+    # at a time; the windows move the phase's bytes
+    total, depth_h2d, depth_d2h = CEILING_BYTES, 16, 4
+    t0 = time.perf_counter()
+    h2d1 = group.native_raw_ceiling(total, depth_h2d, chunk_bytes=CHUNK)
+    tier1 = group.probe_tier()
+    h2d4 = group.native_raw_ceiling(total, depth_h2d, chunk_bytes=CHUNK,
+                                    streams=4)
+    tier4 = group.probe_tier()
+    d2h = group.native_raw_ceiling(total, depth_d2h, direction="d2h",
+                                   chunk_bytes=CHUNK)
+    secs = time.perf_counter() - t0
+    after = (np_.transferred_bytes, native.kernel_launches())
+    err = np_.raw_last_error()
+    if (min(h2d1, h2d4, d2h) <= 0 or tier1 != tier or tier4 != tier
+            or before != after or err):
+        raise AssertionError(
+            f"raw ceilings: h2d {h2d1}/{h2d4} MiB/s on {tier1}/{tier4} "
+            f"(confirmed {tier}), d2h {d2h}, counters {before} -> {after}, "
+            f"raw error '{err}'")
+    try:
+        group.native_raw_d2d_ceiling(1 << 30, src_device=0, dst_device=0)
+        raise AssertionError("a d2d ceiling from a lane onto itself ran")
+    except ProgException as e:
+        if "src/dst must be distinct in-range device indices" not in str(e):
+            raise
+    phase("ceilings", f"{card}: H2D {h2d1:.1f} MiB/s (1 submitter), "
+                      f"{h2d4:.1f} MiB/s (4 submitters) on tier {tier1} "
+                      f"(probe_tier; confirmed {tier}); D2H {d2h:.1f} MiB/s;"
+                      f" {total >> 30} GiB each, 2 MiB chunks, "
+                      f"{secs:.1f}s for the three; transferred bytes and "
+                      f"kernel launches unmoved")
+    phase("ceilings", f"{card}: phase 8 READ {read_gibs:.3f} GiB/s = "
+                      f"{100 * read_gibs * 1024 / h2d4:.1f}% of the 4-"
+                      f"submitter H2D ceiling "
+                      f"({100 * read_gibs * 1024 / h2d1:.1f}% of 1); WRITE "
+                      f"{write_gibs:.3f} GiB/s = "
+                      f"{100 * write_gibs * 1024 / d2h:.1f}% of the D2H "
+                      f"ceiling")
+    with env_set(EBT_PJRT_NO_DMAMAP=1):
+        staged = LocalWorkerGroup(config_from_args(
+            ["-r", *MAIN_ARGS, "--tpubackend", "pjrt", path]))
+        staged.prepare()
+    try:
+        v = staged.native_raw_ceiling(total, depth_h2d, chunk_bytes=CHUNK)
+        rung = staged.probe_tier()
+        if v <= 0 or rung != "staged":
+            raise AssertionError(f"EBT_PJRT_NO_DMAMAP=1 ceiling {v} on "
+                                 f"{rung}")
+    finally:
+        staged.teardown()
+    phase("ceilings", f"{card}: EBT_PJRT_NO_DMAMAP=1: H2D {v:.1f} MiB/s on "
+                      f"the {rung} rung (pageable sources)")
+    probe = engine.build_probe()
+    for mode in ("h2d", "d2h"):
+        r = subprocess.run([probe, str(total >> 20), str(CHUNK >> 20),
+                            str(depth_h2d if mode == "h2d" else depth_d2h),
+                            "64", "64", "1", mode],
+                           capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            raise AssertionError(f"cuda_probe {mode}: rc {r.returncode} "
+                                 f"{r.stderr.strip()}")
+        line = json.loads(r.stdout.strip().splitlines()[-1])
+        if line[f"native_{mode}_mib_s"] <= 0:
+            raise AssertionError(f"cuda_probe {mode}: {line}")
+        phase("ceilings", f"{card}: cuda_probe {mode} {json.dumps(line)}")
+
+
+def ceilings_on_card() -> None:
+    """Phases 8 and 26 alone: phase 8's 4 GiB write + read in a scratch
+    directory, the raw ceilings measured on its group."""
+    from elbencho_tpu_torch import engine
+
+    print(gpu_name_and_power(), flush=True)
+    engine.load_lib()
+    with scratch_dir(5 << 30) as d:
+        native_main_path(d)
 
 
 def xfer_mgr_group(args: list[str]):
@@ -1689,12 +1804,15 @@ def restore(args: list[str], label: str, want_dev: list[int]) -> float:
     return secs
 
 
-def reshard(args: list[str], label: str, want_tier: str) -> dict:
+def reshard(args: list[str], label: str, want_tier: str,
+            d2d_pair: tuple[int, int] | None = None) -> dict:
     """One --reshard run through the worker group: the plan's move units
     staged at prepare, then the RESHARD phase. The confirmed tier must be
     want_tier, d2d_submitted == d2d_resident == the plan's move bytes,
     every move unit resident and the pair matrix the plan's moves (one
-    chunk move per 2 MiB of each moved shard). Returns the numbers
+    chunk move per 2 MiB of each moved shard). With d2d_pair (src, dst),
+    phase 26's device-to-device ceiling between those lanes follows on the
+    same group (on the bounce control: its refusal). Returns the numbers
     printed."""
     from elbencho_tpu_torch.checkpoint import reshard_plan_summary
     from elbencho_tpu_torch.common import BenchPhase
@@ -1741,10 +1859,47 @@ def reshard(args: list[str], label: str, want_tier: str) -> dict:
                          f"{st['resident_wait_ns'] / 1e9:.3f} s); preload "
                          f"{prep:.1f} s; peer access on for {enabled} of "
                          f"{npairs} device pairs; {lane_rows(group)}")
+        if d2d_pair is not None:
+            d2d_ceiling(group, *d2d_pair, move_bytes / secs / (1 << 30),
+                        want_tier == "d2d")
     finally:
         group.teardown()
     return {"tier": tier, "gibs": move_bytes / secs / (1 << 30),
             "secs": secs, "move_bytes": move_bytes}
+
+
+def d2d_ceiling(group, src: int, dst: int, reshard_gibs: float,
+                native_d2d: bool) -> None:
+    """Phase 26 on a reshard group after its phase: the in-session
+    device-to-device ceiling from lane src onto lane dst (4 GiB in 2 MiB
+    chunks, 8 in flight) beside the RESHARD rate; under the bounce control
+    (EBT_D2D_DISABLE=1) its refusal with the cause."""
+    from elbencho_tpu_torch.exceptions import ProgException
+
+    card = gpu_name_and_power()
+    np_ = group._native_path
+    if not native_d2d:
+        try:
+            group.native_raw_d2d_ceiling(1 << 30, 8, src, dst, CHUNK)
+            raise AssertionError("a d2d ceiling ran under EBT_D2D_DISABLE=1")
+        except ProgException as e:
+            cause = str(e)
+        if "EBT_D2D_DISABLE=1 forces the bounce control" not in cause:
+            raise AssertionError(f"bounce-control refusal: {cause}")
+        phase("ceilings", f"{card}: D2D ceiling refused under "
+                          f"EBT_D2D_DISABLE=1: {cause}")
+        return
+    before = np_.transferred_bytes
+    c = group.native_raw_d2d_ceiling(CEILING_BYTES, 8, src, dst, CHUNK)
+    err = np_.raw_last_error()
+    if c <= 0 or err or np_.transferred_bytes != before:
+        raise AssertionError(f"d2d ceiling {c} MiB/s, raw error '{err}', "
+                             f"bytes {before} -> {np_.transferred_bytes}")
+    phase("ceilings", f"{card}: D2D lane {src} -> lane {dst} {c:.1f} MiB/s "
+                      f"({CEILING_BYTES >> 30} GiB, 2 MiB chunks, 8 in "
+                      f"flight); RESHARD "
+                      f"{reshard_gibs:.3f} GiB/s = "
+                      f"{100 * reshard_gibs * 1024 / c:.1f}% of it")
 
 
 def native_reshard(d: str, paths) -> None:
@@ -1757,12 +1912,13 @@ def native_reshard(d: str, paths) -> None:
                          [[i % 2] for i in range(len(paths))])
     args = ["-t", "4", "--gpuids", "0,0", "--tpubackend", "pjrt",
             "--checkpoint", man, "--reshard", "1", "--lat", "--nolive"]
+    # phase 26: the moves run lane 1 -> lane 0, the ceiling too
     native = reshard(args, "--gpuids 0,0 -> 1 lane, device to device",
-                     "d2d")
+                     "d2d", (1, 0))
     os.environ["EBT_D2D_DISABLE"] = "1"
     try:
         bounce = reshard(args, "--gpuids 0,0 -> 1 lane, EBT_D2D_DISABLE=1",
-                         "bounce")
+                         "bounce", (1, 0))
     finally:
         del os.environ["EBT_D2D_DISABLE"]
     phase("reshard", f"device to device {native['gibs']:.3f} GiB/s "

@@ -62,6 +62,31 @@ void ebt_cuda_last_error(void* p, char* buf, int len) {
   copyOut(P(p)->firstTransferError(), buf, len);
 }
 
+// ---- in-session raw transport ceilings (CudaPath::rawH2DCeiling and its
+// twins): MiB/s, <= 0 on failure with the cause in ebt_cuda_raw_last_error,
+// never in ebt_cuda_last_error. tier: 0 staged, 1 zero copy, 2 transfer
+// manager; streams > 1 runs that many submitters (tiers 0 and 1).
+
+double ebt_cuda_raw_h2d(void* p, uint64_t total_bytes, int depth, int device,
+                        uint64_t chunk_bytes, int tier, int streams) {
+  return P(p)->rawH2DCeiling(total_bytes, depth, device, chunk_bytes, tier,
+                             streams);
+}
+
+double ebt_cuda_raw_d2h(void* p, uint64_t total_bytes, int depth, int device,
+                        uint64_t chunk_bytes) {
+  return P(p)->rawD2HCeiling(total_bytes, depth, device, chunk_bytes);
+}
+
+double ebt_cuda_raw_d2d(void* p, uint64_t total_bytes, int depth, int src,
+                        int dst, uint64_t chunk_bytes) {
+  return P(p)->rawD2DCeiling(total_bytes, depth, src, dst, chunk_bytes);
+}
+
+void ebt_cuda_raw_last_error(void* p, char* buf, int len) {
+  copyOut(P(p)->rawError(), buf, len);
+}
+
 // ---- registered-buffer tier (cuMemHostRegister). The engine drives the
 // lifecycle itself through DevCopyFn directions 4/5/6 when dev_register is
 // set; these are for the Python layer's tier gate, diagnostics and tests.
@@ -333,6 +358,9 @@ void ebt_cuda_reshard_error(void* p, char* buf, int len) {
 // 1 when the driver has the device-to-device entries and EBT_D2D_DISABLE
 // is off
 int ebt_cuda_d2d_supported(void* p) { return P(p)->d2dSupported() ? 1 : 0; }
+
+// 1 when at least one reshard chunk move settled device to device
+int ebt_cuda_d2d_engaged(void* p) { return P(p)->d2dEngaged() ? 1 : 0; }
 
 // out[2] = {ordered pairs of distinct selected devices with peer access
 // enabled, all such pairs}

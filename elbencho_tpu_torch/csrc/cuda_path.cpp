@@ -6,6 +6,8 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <deque>
+#include <mutex>
 #include <set>
 #include <thread>
 
@@ -354,7 +356,8 @@ void CudaPath::addDevLatency(int device_idx, uint64_t us) {
 }
 
 void CudaPath::attachCompletion(Pending& p, int lane, cu::CUstream stream,
-                                int device_idx, Clock::time_point t0) {
+                                int device_idx, Clock::time_point t0,
+                                bool wake_reactor) {
   p.stream = stream;
   p.lane = lane;
   // EBT_PJRT_NO_READY / EBT_PJRT_NO_LATENCY take no samples, as in the
@@ -368,7 +371,7 @@ void CudaPath::attachCompletion(Pending& p, int lane, cu::CUstream stream,
     t->path = this;
     t->device = p.device;
     t->t0 = p.t0;
-    t->reactor_fd = reactorhub::currentFd();
+    t->reactor_fd = wake_reactor ? reactorhub::currentFd() : -1;
     cu::CUresult rc = api_.cuLaunchHostFunc(stream, &hostFnTrampoline, t);
     if (rc == cu::CUDA_SUCCESS) {
       p.tracker = t;
@@ -502,7 +505,7 @@ int CudaPath::awaitRelease(Pending& p) {
 int CudaPath::syncStream(int lane, cu::CUstream stream) {
   Pending p;
   p.no_recover = true;  // a bare quiesce, not a copy: nothing to charge
-  attachCompletion(p, lane, stream, -1, {});
+  attachCompletion(p, lane, stream, -1, {}, false);  // awaited right here
   return awaitRelease(p);
 }
 
@@ -1128,7 +1131,9 @@ int CudaPath::fetchDeviceSource(int worker_rank, int device_idx, char* buf,
     Pending p;
     p.d2h = true;
     p.bytes = deferred ? n : 0;  // counted at enqueue
-    attachCompletion(p, li, lane.d2h, li, t0);
+    // a serial fetch is awaited right here: only a deferred one wakes the
+    // worker's reactor, as only the original's deferred fetches do
+    attachCompletion(p, li, lane.d2h, li, t0, deferred);
     fetches.push_back(p);
     off += n;
   }
@@ -1177,7 +1182,7 @@ int CudaPath::generateD2H(int worker_rank, int device_idx, char* buf,
       Pending p;
       p.d2h = true;
       p.bytes = deferred ? len : 0;  // counted at enqueue
-      attachCompletion(p, li, lane.d2h, li, t0);
+      attachCompletion(p, li, lane.d2h, li, t0, deferred);
       ps.push_back(p);
     }
   }
@@ -1226,8 +1231,9 @@ int CudaPath::serveD2H(int worker_rank, int device_idx, char* buf,
       }
       Pending p;
       p.d2h = true;
-      // latency attributed to the serving rank's lane, as in the original
-      attachCompletion(p, ci, cl.d2h, li, t0);
+      // latency attributed to the serving rank's lane, as in the original;
+      // awaited below, so the reactor is not woken
+      attachCompletion(p, ci, cl.d2h, li, t0, false);
       fetches.push_back(p);
       off += n;
     }
@@ -3178,6 +3184,500 @@ bool CudaPath::bufferRegisteredLocked(const void* p, uint64_t len) const {
     ++it;
   }
   return false;
+}
+
+// ---------------------------------------------------------------- raw ceilings
+
+// The raw loops latch their failures through check(), which writes the
+// session's set-once first transfer error, read by the engine as a worker's
+// root cause. A failed ceiling must not stand as the cause of a later phase,
+// so this scope moves what the loop latched into raw_error_ and restores the
+// session's error on exit. Ceilings run while the engine is idle, so no
+// engine error can land meanwhile.
+class CudaPath::RawErrorScope {
+ public:
+  explicit RawErrorScope(CudaPath* p) : p_(p) {
+    MutexLock lk(p_->err_mutex_);
+    saved_.swap(p_->xfer_error_);
+  }
+  ~RawErrorScope() {
+    MutexLock lk(p_->err_mutex_);
+    if (!p_->xfer_error_.empty()) p_->raw_error_ = p_->xfer_error_;
+    p_->xfer_error_.swap(saved_);
+  }
+  RawErrorScope(const RawErrorScope&) = delete;
+  RawErrorScope& operator=(const RawErrorScope&) = delete;
+
+ private:
+  CudaPath* p_;
+  std::string saved_;
+};
+
+std::string CudaPath::rawError() const {
+  MutexLock lk(err_mutex_);
+  return raw_error_;
+}
+
+void CudaPath::setRawError(const std::string& msg) {
+  MutexLock lk(err_mutex_);
+  raw_error_ = msg;
+}
+
+namespace {
+
+double mibPerSec(uint64_t bytes, std::chrono::steady_clock::time_point t0,
+                 std::chrono::steady_clock::time_point t1) {
+  const double secs = std::chrono::duration<double>(t1 - t0).count();
+  return secs > 0 ? (double)bytes / (1 << 20) / secs : -1.0;
+}
+
+}  // namespace
+
+CudaPath::RawHostBufs::RawHostBufs(size_t n, uint64_t bytes, uint64_t seed) {
+  const uint64_t rounded = (std::max<uint64_t>(bytes, 1) + 4095) & ~4095ull;
+  RandAlgoXoshiro rng(seed);
+  for (size_t i = 0; i < n; i++) {
+    void* p = nullptr;
+    if (posix_memalign(&p, 4096, rounded) != 0) break;  // size() tells
+    bufs_.push_back(static_cast<char*>(p));
+    // a storage benchmark's sources are streamed pages of distinct
+    // content, never one cache-hot buffer
+    rng.fillBuf(bufs_.back(), rounded);
+  }
+}
+
+CudaPath::RawHostBufs::~RawHostBufs() {
+  for (char* p : bufs_) free(p);
+}
+
+bool CudaPath::rawEvents(int lane, size_t n, std::vector<cu::CUevent>* out) {
+  if (!makeCurrent(lane, false)) return false;
+  for (size_t i = 0; i < n; i++) {
+    cu::CUevent ev = nullptr;
+    if (!check("raw ceiling cuEventCreate",
+               api_.cuEventCreate(&ev, cu::CU_EVENT_DISABLE_TIMING)))
+      return false;
+    out->push_back(ev);
+  }
+  return true;
+}
+
+void CudaPath::rawFreeEvents(int lane, std::vector<cu::CUevent>* evs) {
+  makeCurrent(lane, false);
+  for (cu::CUevent ev : *evs) api_.cuEventDestroy(ev);
+  evs->clear();
+}
+
+bool CudaPath::rawPipeline(int lane, cu::CUstream stream, uint64_t n,
+                           const std::vector<cu::CUevent>& evs,
+                           const std::function<bool(uint64_t, size_t)>& copy) {
+  const size_t depth = evs.size();
+  bool ok = true, quiesce = false;
+  uint64_t recorded = 0, confirmed = 0;  // copies with an event / awaited
+  auto confirm = [&] {
+    if (!check("raw ceiling arrival (cuEventSynchronize)",
+               api_.cuEventSynchronize(evs[confirmed++ % depth])))
+      ok = false;
+  };
+  for (uint64_t i = 0; i < n && ok; i++) {
+    if (i >= depth) confirm();  // the slot's previous copy has arrived
+    if (!ok || !copy(i, (size_t)(i % depth))) {
+      ok = false;
+      break;
+    }
+    if (!check("raw ceiling cuEventRecord",
+               api_.cuEventRecord(evs[i % depth], stream))) {
+      ok = false;
+      quiesce = true;  // a copy runs with no event behind it
+      break;
+    }
+    recorded++;
+  }
+  while (confirmed < recorded) confirm();
+  if (quiesce || !ok) {
+    makeCurrent(lane, false);
+    api_.cuStreamSynchronize(stream);
+  }
+  return ok;
+}
+
+uint64_t CudaPath::rawBlockBytes(uint64_t chunk) const {
+  const uint64_t blk = block_size_ ? block_size_ - block_size_ % chunk : 0;
+  return blk ? blk : chunk;
+}
+
+bool CudaPath::rawXferMgrLoop(int lane, uint64_t n, uint64_t chunk, int depth,
+                              const RawHostBufs& srcs,
+                              const std::vector<cu::CUevent>& pool) {
+  // the topology of submitH2DXferMgr: one buffer per block, its chunks
+  // copied at their offsets, freed stream-ordered behind them; the pipeline
+  // depth counts chunks, whole blocks drain at the front
+  Lane& l = *lanes_[lane];
+  const uint64_t blk = rawBlockBytes(chunk);
+  std::vector<cu::CUevent> free_evs = pool;
+  struct RawBlock {
+    cu::CUdeviceptr buf = 0;
+    std::vector<cu::CUevent> evs;
+  };
+  std::deque<RawBlock> blocks;
+  uint64_t inflight = 0;
+  bool ok = true, quiesce = false;
+  auto drainFront = [&] {
+    RawBlock b = std::move(blocks.front());
+    blocks.pop_front();
+    for (cu::CUevent ev : b.evs) {
+      if (!check("raw xfer-mgr arrival (cuEventSynchronize)",
+                 api_.cuEventSynchronize(ev)))
+        ok = false;
+      free_evs.push_back(ev);
+    }
+    inflight -= b.evs.size();
+    if (!check("raw xfer-mgr cuMemFreeAsync",
+               api_.cuMemFreeAsync(b.buf, l.h2d)))
+      ok = false;
+  };
+  const uint64_t total = n * chunk;
+  uint64_t sent = 0, src_i = 0;
+  while (sent < total && ok) {
+    const uint64_t bytes = std::min(blk, total - sent);
+    RawBlock b;
+    if (!check("raw xfer-mgr cuMemAllocAsync",
+               api_.cuMemAllocAsync(&b.buf, bytes, l.h2d))) {
+      ok = false;
+      break;
+    }
+    for (uint64_t off = 0; off < bytes && ok; off += chunk) {
+      if (!check("raw xfer-mgr cuMemcpyHtoDAsync",
+                 api_.cuMemcpyHtoDAsync(b.buf + off, srcs[src_i++],
+                                        std::min(chunk, bytes - off), l.h2d))) {
+        ok = false;
+        break;
+      }
+      cu::CUevent ev = free_evs.back();
+      if (!check("raw xfer-mgr cuEventRecord", api_.cuEventRecord(ev, l.h2d))) {
+        ok = false;
+        quiesce = true;  // a copy runs with no event behind it
+        break;
+      }
+      free_evs.pop_back();
+      b.evs.push_back(ev);
+    }
+    inflight += b.evs.size();
+    blocks.push_back(std::move(b));  // a partial block is drained too
+    sent += bytes;
+    while (inflight >= (uint64_t)depth && !blocks.empty()) drainFront();
+  }
+  while (!blocks.empty()) drainFront();
+  if (quiesce || !ok) api_.cuStreamSynchronize(l.h2d);
+  return ok;
+}
+
+void CudaPath::rawH2DStream(int lane, uint64_t sn, uint64_t chunk, int depth,
+                            int tier, uint64_t seed, size_t max_srcs,
+                            const std::function<bool(bool ok)>& gate,
+                            const std::function<void(bool ok)>& done) {
+  Lane& l = *lanes_[lane];
+  const size_t nsrcs = (size_t)std::min<uint64_t>(sn, max_srcs);
+  const RawHostBufs srcs(nsrcs, chunk, seed);
+  std::vector<void*> pinned;
+  std::vector<cu::CUevent> evs;
+  cu::CUdeviceptr dst = 0;  // tiers 0/1: one device slot per pipeline slot
+  bool ok = makeCurrent(lane, false);
+  if (ok && srcs.size() != nsrcs) {
+    latchXferError("raw ceiling: cannot allocate the host sources");
+    ok = false;
+  }
+  if (ok && tier == 1) {
+    // pinned before the clock, as the engine registers its buffers at
+    // preparation; straight through the driver, so the registration cache
+    // never sees them
+    for (size_t i = 0; i < srcs.size(); i++) {
+      cu::CUresult rc = api_.cuMemHostRegister(
+          srcs[i], chunk, cu::CU_MEMHOSTREGISTER_PORTABLE);
+      if (rc) {
+        latchXferError("zero-copy ceiling: " +
+                       cu::errorText(api_, "cuMemHostRegister", rc));
+        ok = false;
+        break;
+      }
+      pinned.push_back(srcs[i]);
+    }
+  }
+  if (ok && tier == 2) {
+    // enough events for the chunks in flight plus one whole block
+    const uint64_t per_block = (rawBlockBytes(chunk) + chunk - 1) / chunk;
+    ok = rawEvents(lane, (size_t)(depth + per_block), &evs);
+  } else if (ok) {
+    ok = rawEvents(lane, (size_t)depth, &evs) &&
+         check("raw ceiling cuMemAlloc",
+               api_.cuMemAlloc(&dst, (size_t)depth * chunk));
+  }
+  if (gate(ok)) {
+    if (tier == 2)
+      ok = rawXferMgrLoop(lane, sn, chunk, depth, srcs, evs);
+    else
+      ok = rawPipeline(lane, l.h2d, sn, evs, [&](uint64_t i, size_t slot) {
+        return check("raw ceiling cuMemcpyHtoDAsync",
+                     api_.cuMemcpyHtoDAsync(dst + slot * chunk, srcs[i],
+                                            chunk, l.h2d));
+      });
+    done(ok);
+  }
+  makeCurrent(lane, false);
+  if (dst) api_.cuMemFree(dst);
+  rawFreeEvents(lane, &evs);
+  for (void* p : pinned) api_.cuMemHostUnregister(p);
+}
+
+double CudaPath::rawH2DCeiling(uint64_t total_bytes, int depth,
+                               int device_idx, uint64_t chunk_bytes, int tier,
+                               int streams) {
+  // every early exit leaves its cause, so "raw ceiling transfer failed: "
+  // never ends in an empty message
+  if (!ok()) {
+    setRawError("path not initialized: " + init_error_);
+    return -1.0;
+  }
+  if (tier == 1 && !dma_ok_) {
+    setRawError("zero-copy ceiling requested but the devices do not "
+                "support cuMemHostRegister (or EBT_PJRT_NO_DMAMAP is set)");
+    return -1.0;
+  }
+  if (tier == 2 && !xm_ok_) {
+    setRawError("transfer-manager ceiling requested but the tier is not "
+                "active (needs EBT_PJRT_XFER_MGR + probed capability)");
+    return -1.0;
+  }
+  if (streams > 1 && tier == 2) {
+    setRawError("multi-stream ceiling supports the staged and zero-copy "
+                "tiers only (the transfer-manager's one-buffer-per-block "
+                "topology has no per-thread analogue)");
+    return -1.0;
+  }
+  RawErrorScope scope(this);
+  if (depth < 1) depth = 1;
+  if (streams < 1) streams = 1;
+  const uint64_t chunk = chunk_bytes ? chunk_bytes : chunk_bytes_;
+  const uint64_t n = total_bytes / chunk;
+  if (n == 0) {
+    setRawError("total_bytes (" + std::to_string(total_bytes) +
+                ") smaller than chunk (" + std::to_string(chunk) + ")");
+    return -1.0;
+  }
+  const int lane0 = laneIndex(device_idx);
+  const int ndev = (int)lanes_.size();
+  if (streams == 1) {
+    Clock::time_point t0{}, t1{};
+    bool ok = false;
+    rawH2DStream(lane0, n, chunk, depth, tier,
+                 0x9E3779B97F4A7C15ULL ^ total_bytes, 64,
+                 [&](bool prep_ok) {
+                   t0 = Clock::now();
+                   return prep_ok;
+                 },
+                 [&](bool done_ok) {
+                   t1 = Clock::now();
+                   ok = done_ok;
+                 });
+    return ok ? mibPerSec(n * chunk, t0, t1) : -1.0;
+  }
+  // streams submitters, each with its own sources and pipeline, the lanes in
+  // turn from device_idx as worker ranks take them: the denominator of a
+  // -t N phase, where N workers each keep a pipeline in flight
+  const uint64_t sn = n / (uint64_t)streams;
+  if (sn == 0) {
+    setRawError("total_bytes (" + std::to_string(total_bytes) +
+                ") smaller than " + std::to_string(streams) +
+                " streams x chunk (" + std::to_string(chunk) + ")");
+    return -1.0;
+  }
+  std::mutex gate_m;
+  std::condition_variable gate_cv;
+  int ready = 0, finished = 0;
+  bool go = false, all_ok = true;
+  Clock::time_point t1{};
+  std::vector<std::thread> threads;
+  for (int s = 0; s < streams; s++) {
+    threads.emplace_back([&, s] {
+      rawH2DStream(
+          (lane0 + s) % ndev, sn, chunk, depth, tier,
+          0x9E3779B97F4A7C15ULL ^ total_bytes ^ ((uint64_t)(s + 1) << 48), 16,
+          [&](bool prep_ok) {
+            std::unique_lock<std::mutex> lk(gate_m);
+            if (!prep_ok) all_ok = false;
+            ready++;
+            gate_cv.notify_all();
+            gate_cv.wait(lk, [&] { return go; });
+            return all_ok;  // no copies once a submitter failed to prepare
+          },
+          [&](bool ok) {
+            std::lock_guard<std::mutex> lk(gate_m);
+            if (!ok) all_ok = false;
+            if (++finished == streams) t1 = Clock::now();
+            gate_cv.notify_all();
+          });
+    });
+  }
+  Clock::time_point t0{};
+  {
+    std::unique_lock<std::mutex> lk(gate_m);
+    gate_cv.wait(lk, [&] { return ready == streams; });
+    t0 = Clock::now();
+    go = true;
+    gate_cv.notify_all();
+  }
+  for (auto& t : threads) t.join();
+  if (!all_ok) return -1.0;
+  return mibPerSec(sn * chunk * (uint64_t)streams, t0, t1);
+}
+
+double CudaPath::rawD2HCeiling(uint64_t total_bytes, int depth,
+                               int device_idx, uint64_t chunk_bytes) {
+  if (!ok()) {
+    setRawError("path not initialized: " + init_error_);
+    return -1.0;
+  }
+  RawErrorScope scope(this);
+  if (depth < 1) depth = 1;
+  const uint64_t chunk = chunk_bytes ? chunk_bytes : chunk_bytes_;
+  const uint64_t n = total_bytes / chunk;
+  if (n == 0) {
+    setRawError("total_bytes (" + std::to_string(total_bytes) +
+                ") smaller than chunk (" + std::to_string(chunk) + ")");
+    return -1.0;
+  }
+  const int li = laneIndex(device_idx);
+  Lane& l = *lanes_[li];
+  // before the clock: device-resident sources of distinct random content,
+  // distinct host destinations (never two fetches in flight into one), the
+  // events
+  const size_t nbufs = (size_t)std::min<uint64_t>(n, 16);
+  const size_t ndst = (size_t)std::max(depth + 1, 4);
+  std::vector<cu::CUdeviceptr> srcs;
+  const RawHostBufs dsts(ndst, chunk, 0);
+  std::vector<void*> pinned;
+  std::vector<cu::CUevent> evs;
+  bool ok = makeCurrent(li, false);
+  if (ok && dsts.size() != ndst) {
+    latchXferError("raw d2h ceiling: cannot allocate the host destinations");
+    ok = false;
+  }
+  if (ok) {
+    RandAlgoXoshiro rng(0xD021ULL ^ (total_bytes * 0x9E3779B97F4A7C15ULL));
+    std::vector<char> host(chunk);
+    for (size_t i = 0; i < nbufs && ok; i++) {
+      rng.fillBuf(host.data(), host.size());
+      cu::CUdeviceptr p = 0;
+      ok = check("raw d2h stage cuMemAlloc", api_.cuMemAlloc(&p, chunk));
+      if (!ok) break;
+      srcs.push_back(p);
+      ok = check("raw d2h stage cuMemcpyHtoDAsync",
+                 api_.cuMemcpyHtoDAsync(p, host.data(), chunk, l.h2d)) &&
+           check("raw d2h stage cuStreamSynchronize",
+                 api_.cuStreamSynchronize(l.h2d));
+    }
+  }
+  // the write leg fetches into the engine's I/O buffers, which are
+  // registered on the zero-copy tier: the destinations are pinned too where
+  // the tier is available (a refused pin leaves that one pageable)
+  if (ok && dma_ok_) {
+    for (size_t i = 0; i < ndst; i++)
+      if (api_.cuMemHostRegister(dsts[i], chunk,
+                                 cu::CU_MEMHOSTREGISTER_PORTABLE) == 0)
+        pinned.push_back(dsts[i]);
+  }
+  if (ok) ok = rawEvents(li, (size_t)depth, &evs);
+  double rate = -1.0;
+  if (ok) {
+    const auto t0 = Clock::now();
+    ok = rawPipeline(li, l.d2h, n, evs, [&](uint64_t i, size_t) {
+      return check("raw d2h cuMemcpyDtoHAsync",
+                   api_.cuMemcpyDtoHAsync(dsts[i], srcs[i % nbufs], chunk,
+                                          l.d2h));
+    });
+    if (ok) rate = mibPerSec(n * chunk, t0, Clock::now());
+  }
+  makeCurrent(li, false);
+  rawFreeEvents(li, &evs);
+  for (void* p : pinned) api_.cuMemHostUnregister(p);
+  for (cu::CUdeviceptr p : srcs) api_.cuMemFree(p);
+  return rate;
+}
+
+double CudaPath::rawD2DCeiling(uint64_t total_bytes, int depth, int src_device,
+                               int dst_device, uint64_t chunk_bytes) {
+  RawErrorScope scope(this);
+  if (!ok()) {
+    setRawError("raw d2d ceiling on a failed path");
+    return -1.0;
+  }
+  if (!d2d_ok_) {
+    setRawError("raw d2d ceiling: native device-to-device copy "
+                "unavailable (driver lacks cuMemcpyPeerAsync or "
+                "EBT_D2D_DISABLE=1 forces the bounce control)");
+    return -1.0;
+  }
+  const int ndev = (int)lanes_.size();
+  if (src_device < 0 || dst_device < 0 || src_device >= ndev ||
+      dst_device >= ndev || src_device == dst_device) {
+    setRawError("raw d2d ceiling: src/dst must be distinct in-range "
+                "device indices");
+    return -1.0;
+  }
+  if (depth < 1) depth = 1;
+  uint64_t chunk = chunk_bytes ? (chunk_bytes & ~7ull) : chunk_bytes_;
+  if (!chunk) chunk = chunk_bytes_;
+  if (total_bytes < chunk) total_bytes = chunk;
+  const uint64_t n = (total_bytes + chunk - 1) / chunk;  // whole chunks
+  Lane& sl = *lanes_[src_device];
+  Lane& dl = *lanes_[dst_device];
+  // before the clock: depth + 1 distinct sources on the src lane (the
+  // pattern of their offsets), the dst lane's slots and events
+  const int nbufs = depth + 1;
+  std::vector<cu::CUdeviceptr> srcs;
+  bool ok = makeCurrent(src_device, false);
+  {
+    std::vector<char> host((size_t)chunk);
+    for (int i = 0; i < nbufs && ok; i++) {
+      fillVerifyPattern(host.data(), chunk, (uint64_t)i * chunk, 0xD2DCE11);
+      cu::CUdeviceptr p = 0;
+      ok = check("raw d2d staging cuMemAlloc", api_.cuMemAlloc(&p, chunk));
+      if (!ok) break;
+      srcs.push_back(p);
+      ok = check("raw d2d staging cuMemcpyHtoDAsync",
+                 api_.cuMemcpyHtoDAsync(p, host.data(), chunk, sl.h2d)) &&
+           check("raw d2d staging cuStreamSynchronize",
+                 api_.cuStreamSynchronize(sl.h2d));
+    }
+  }
+  std::vector<cu::CUevent> evs;
+  cu::CUdeviceptr dst = 0;
+  if (ok)
+    ok = rawEvents(dst_device, (size_t)depth, &evs) &&
+         check("raw d2d cuMemAlloc",
+               api_.cuMemAlloc(&dst, (size_t)depth * chunk));
+  double rate = -1.0;
+  if (ok) {
+    // as d2dCopy: two lanes of one device share its context (a device-local
+    // copy), else a peer copy on the destination's H2D stream
+    const bool local = sl.dev == dl.dev;
+    const auto t0 = Clock::now();
+    ok = rawPipeline(dst_device, dl.h2d, n, evs, [&](uint64_t i, size_t slot) {
+      const cu::CUdeviceptr to = dst + slot * chunk, from = srcs[i % nbufs];
+      return check(
+          "raw d2d copy",
+          local ? api_.cuMemcpyDtoDAsync(to, from, chunk, dl.h2d)
+                : api_.cuMemcpyPeerAsync(to, dl.ctx, from, sl.ctx, chunk,
+                                         dl.h2d));
+    });
+    if (ok) rate = mibPerSec(n * chunk, t0, Clock::now());
+  }
+  makeCurrent(dst_device, false);
+  rawFreeEvents(dst_device, &evs);
+  if (dst) api_.cuMemFree(dst);
+  makeCurrent(src_device, false);
+  for (cu::CUdeviceptr p : srcs) api_.cuMemFree(p);
+  return rate;
 }
 
 }  // namespace ebt

@@ -152,6 +152,7 @@
 #include <chrono>
 #include <condition_variable>
 #include <cstdint>
+#include <functional>
 #include <map>
 #include <memory>
 #include <string>
@@ -455,6 +456,54 @@ class CudaPath {
   int settleAllShards();
   void drainAll();
 
+  // ---- in-session raw transport ceilings (the original's rawH2DCeiling,
+  // rawD2HCeiling, rawD2DCeiling) ----
+  // Pipelined copies with no engine, ledger or storage behind them, `depth`
+  // in flight on the lane's stream, each copy's arrival confirmed by an
+  // event before its slot is reused. The clock covers the first submit to
+  // the last arrival: sources, registrations and events are made before it
+  // and released after it. The loops call the driver directly, so the lane
+  // counters, transferred bytes, latency histograms, the registration cache
+  // and the kernel launch counters never move. MiB/s; <= 0 on failure with
+  // the cause in rawError(), never in firstTransferError(). Call between
+  // phases, never beside one.
+  //
+  // rawH2DCeiling: chunk-sized copies from distinct pre-faulted host
+  // sources in the submission topology of CudaPath::copy's tier:
+  //   0 staged: cuMemcpyHtoDAsync from pageable sources;
+  //   1 zero copy: from sources pinned with cuMemHostRegister before the
+  //     clock (refused when dmaSupported() is false);
+  //   2 transfer manager: one cuMemAllocAsync buffer per block, its chunks
+  //     copied at their offsets, freed stream-ordered once they arrived
+  //     (refused when the tier is not active, and with streams > 1); depth
+  //     counts chunks and whole blocks drain at the front.
+  // streams > 1 (tiers 0 and 1): that many submitter threads behind one
+  // start gate, each with its own sources and depth-`depth` pipeline, on
+  // the lanes from device_idx in turn as worker ranks are; the clock runs
+  // from the gate to the last pipeline drained.
+  double rawH2DCeiling(uint64_t total_bytes, int depth, int device_idx = 0,
+                       uint64_t chunk_bytes = 0, int tier = 0,
+                       int streams = 1) EBT_EXCLUDES(err_mutex_);
+  // device-resident sources with distinct content, staged before the clock,
+  // fetched with cuMemcpyDtoHAsync into distinct host destinations (pinned
+  // before the clock when dmaSupported(), as the engine's I/O buffers the
+  // write leg fetches into are)
+  double rawD2HCeiling(uint64_t total_bytes, int depth, int device_idx = 0,
+                       uint64_t chunk_bytes = 0) EBT_EXCLUDES(err_mutex_);
+  // pre-staged chunk buffers on lane src_device copied onto lane dst_device
+  // (cuMemcpyPeerAsync, cuMemcpyDtoDAsync between two lanes of one device)
+  // on dst's H2D stream; refused without the device-to-device tier
+  // (d2dSupported()) or unless src and dst are distinct lanes in range
+  double rawD2DCeiling(uint64_t total_bytes, int depth, int src_device,
+                       int dst_device, uint64_t chunk_bytes = 0)
+      EBT_EXCLUDES(err_mutex_);
+  // the last raw-ceiling failure ("" if none)
+  std::string rawError() const EBT_EXCLUDES(err_mutex_);
+  // at least one reshard chunk move settled device to device
+  bool d2dEngaged() const {
+    return d2d_moves_.load(std::memory_order_relaxed) > 0;
+  }
+
  private:
   using Clock = std::chrono::steady_clock;
 
@@ -589,8 +638,11 @@ class CudaPath {
 
   static void hostFnTrampoline(void* arg);
   void addDevLatency(int device_idx, uint64_t us);
+  // wake_reactor: the host function also signals the submitting worker's
+  // reactor (a completion the worker will not await in this call)
   void attachCompletion(Pending& p, int lane, cu::CUstream stream,
-                        int device_idx, Clock::time_point t0);
+                        int device_idx, Clock::time_point t0,
+                        bool wake_reactor = true);
   int awaitRelease(Pending& p);
   int syncStream(int lane, cu::CUstream stream);  // all work enqueued so far
   // stripe_unit / ckpt_shard / reshard_unit >= 0 tag the pendings as they
@@ -775,6 +827,52 @@ class CudaPath {
   int settle(void* buf, int device_idx, bool d2h_barrier);
   void waitShardDrained(QueueShard& shard, uint64_t key) const;
 
+  // ---- raw-ceiling internals ----
+  // diverts the errors a raw loop latches into raw_error_ and restores the
+  // session's first transfer error on exit
+  class RawErrorScope;
+  // the raw loops' host buffers: page-aligned and page-rounded, so each can
+  // be pinned on its own (a page takes one registration only); distinct
+  // random content from `seed`, pre-faulted by the fill
+  class RawHostBufs {
+   public:
+    RawHostBufs(size_t n, uint64_t bytes, uint64_t seed);
+    ~RawHostBufs();
+    RawHostBufs(const RawHostBufs&) = delete;
+    RawHostBufs& operator=(const RawHostBufs&) = delete;
+    char* operator[](size_t i) const { return bufs_[i % bufs_.size()]; }
+    size_t size() const { return bufs_.size(); }
+
+   private:
+    std::vector<char*> bufs_;
+  };
+  void setRawError(const std::string& msg) EBT_EXCLUDES(err_mutex_);
+  // `n` events on lane `lane`'s context (false with the cause latched)
+  bool rawEvents(int lane, size_t n, std::vector<cu::CUevent>* out);
+  void rawFreeEvents(int lane, std::vector<cu::CUevent>* evs);
+  // copies 0..n-1 on `stream`, copy(i, slot) enqueuing copy i into ring
+  // slot i % evs.size(); an event behind each copy is synchronised before
+  // its slot is reused. false when a copy, record or arrival failed (the
+  // cause latched); every enqueued copy is waited out either way.
+  bool rawPipeline(int lane, cu::CUstream stream, uint64_t n,
+                   const std::vector<cu::CUevent>& evs,
+                   const std::function<bool(uint64_t, size_t)>& copy);
+  // tier 2's block: the block size rounded down to whole chunks
+  uint64_t rawBlockBytes(uint64_t chunk) const;
+  // tier 2's loop: one cuMemAllocAsync buffer per block on lane `lane`,
+  // its chunks' arrivals confirmed by events from `pool`
+  bool rawXferMgrLoop(int lane, uint64_t n, uint64_t chunk, int depth,
+                      const RawHostBufs& srcs,
+                      const std::vector<cu::CUevent>& pool);
+  // one submitter of rawH2DCeiling: `sn` chunk copies onto lane `lane` in
+  // `tier`'s topology from at most max_srcs pre-faulted sources; gate(ok)
+  // after the preparation (ok false when it failed) says whether to copy,
+  // done(ok) follows the last arrival, before the sources are released
+  void rawH2DStream(int lane, uint64_t sn, uint64_t chunk, int depth,
+                    int tier, uint64_t seed, size_t max_srcs,
+                    const std::function<bool(bool ok)>& gate,
+                    const std::function<void(bool ok)>& done);
+
   int hostRegister(void* buf, uint64_t len, bool window, bool reserved)
       EBT_EXCLUDES(reg_mutex_);
   void hostUnregister(void* buf);
@@ -818,6 +916,7 @@ class CudaPath {
 
   mutable Mutex err_mutex_;
   std::string xfer_error_ EBT_GUARDED_BY(err_mutex_);
+  std::string raw_error_ EBT_GUARDED_BY(err_mutex_);
 
   // stripe plan: the policy is read lock-free per block; the geometry is
   // written once by setStripePlan before the path is sealed

@@ -6,8 +6,8 @@ CUDA driver API with no Python on the hot path. The flag keeps the original
 package's name for CLI and result-tree parity; this module is the port's
 counterpart of the original's tpu/native.py (NativePjrtPath) with its
 stripe-tier, checkpoint-restore, reshard, serving-rotation and ingest
-ledgers, its device fault policy and its transfer-manager tier, without its
-raw-ceiling parts.
+ledgers, its device fault policy, its transfer-manager tier and its
+in-session raw transport ceilings.
 
 This module resolves WHICH driver library the engine loads, makes sure the
 kernel library is built when on-device verify or write generation is on,
@@ -424,6 +424,27 @@ class NativeCudaPath:
         EBT_D2D_DISABLE=1 does not force the bounce control."""
         return bool(self._lib.ebt_cuda_d2d_supported(self._h))
 
+    @property
+    def d2d_engaged(self) -> bool:
+        """True when at least one reshard chunk move settled device to
+        device (CudaPath::d2dEngaged)."""
+        return bool(self._lib.ebt_cuda_d2d_engaged(self._h))
+
+    def raw_d2d_ceiling(self, total_bytes: int, depth: int = 8,
+                        src_device: int = 0, dst_device: int = 1,
+                        chunk_bytes: int = 0) -> float:
+        """Raw device-to-device ceiling (MiB/s): pre-staged chunk buffers
+        on lane src_device copied onto lane dst_device, depth in flight,
+        each arrival confirmed (CudaPath::rawD2DCeiling). Raises on failure,
+        also under the EBT_D2D_DISABLE=1 bounce control, which has no
+        device-to-device copy to price."""
+        v = self._lib.ebt_cuda_raw_d2d(self._h, total_bytes, depth,
+                                       src_device, dst_device, chunk_bytes)
+        if v <= 0:
+            raise ProgException(
+                f"raw d2d ceiling transfer failed: {self.raw_last_error()}")
+        return v
+
     def peer_access(self) -> tuple[int, int]:
         """(ordered pairs of distinct selected devices with peer access
         enabled at init, all such pairs)."""
@@ -690,8 +711,53 @@ class NativeCudaPath:
         self._lib.ebt_cuda_last_error(self._h, buf, len(buf))
         return buf.value.decode()
 
+    def raw_last_error(self) -> str:
+        """The last raw-ceiling failure, kept out of last_error() so a
+        failed ceiling never stands as the cause of a later phase's
+        error."""
+        buf = ctypes.create_string_buffer(1024)
+        self._lib.ebt_cuda_raw_last_error(self._h, buf, len(buf))
+        return buf.value.decode()
+
     def drain(self) -> None:
         self._lib.ebt_cuda_drain(self._h)
+
+    # the submission topology of each data-path tier a ceiling can price
+    RAW_TIERS = {"staged": 0, "zero_copy": 1, "xfer_mgr": 2}
+
+    def raw_h2d_ceiling(self, total_bytes: int, depth: int = 8,
+                        device: int = 0, chunk_bytes: int = 0,
+                        tier: str = "staged", streams: int = 1) -> float:
+        """In-session host-to-device ceiling (MiB/s, CudaPath::
+        rawH2DCeiling): chunk copies from distinct pre-faulted sources,
+        depth in flight, each arrival confirmed, on this live path and
+        between its phases, so it is the denominator of the phases' rates.
+        tier picks the submission topology of the data-path tier it prices:
+        "staged" (pageable sources), "zero_copy" (sources pinned with
+        cuMemHostRegister) or "xfer_mgr" (one cuMemAllocAsync buffer per
+        block). streams > 1 runs that many submitters, each its own
+        pipeline, over the lanes in turn from device: the denominator of a
+        -t N phase (staged and zero_copy only). chunk_bytes 0 takes the
+        path's chunk. Raises on failure with the cause."""
+        v = self._lib.ebt_cuda_raw_h2d(self._h, total_bytes, depth, device,
+                                       chunk_bytes, self.RAW_TIERS[tier],
+                                       max(1, int(streams)))
+        if v <= 0:
+            raise ProgException(
+                f"raw ceiling transfer failed: {self.raw_last_error()}")
+        return v
+
+    def raw_d2h_ceiling(self, total_bytes: int, depth: int = 1,
+                        device: int = 0, chunk_bytes: int = 0) -> float:
+        """In-session device-to-host ceiling (MiB/s, CudaPath::
+        rawD2HCeiling): device-resident chunk sources fetched into distinct
+        host destinations, depth in flight, each completion confirmed."""
+        v = self._lib.ebt_cuda_raw_d2h(self._h, total_bytes, depth, device,
+                                       chunk_bytes)
+        if v <= 0:
+            raise ProgException(
+                f"raw d2h ceiling transfer failed: {self.raw_last_error()}")
+        return v
 
     def close(self) -> None:
         if self._h:

@@ -12,7 +12,9 @@ native CUDA transfer engine (csrc/cuda_*.cpp, `--tpubackend pjrt`), into
 build/torch_core/libebtcore.so on first use, with the Makefile's compiler
 flags, and never loads the original package's library. The CPU tests' mock
 CUDA driver (csrc/cuda_mock.cpp) is built beside it into
-build/torch_core/libebtcudamock.so by build_mock().
+build/torch_core/libebtcudamock.so by build_mock(), and the standalone copy
+probe (csrc/cuda_probe.cpp) into build/torch_core/cuda_probe by
+build_probe().
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_core")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libebtcore.so")
 MOCK_DRIVER_PATH = os.path.join(_BUILD_DIR, "libebtcudamock.so")
+PROBE_PATH = os.path.join(_BUILD_DIR, "cuda_probe")
 # the Makefile's CORE_SRCS, CPPFLAGS, CXXFLAGS and LDFLAGS (make core), plus
 # the port's CUDA engine, which must share the engine's singletons
 _CORE_SRCS = tuple(f"core/src/{s}.cpp" for s in (
@@ -38,6 +41,8 @@ _CORE_SRCS = tuple(f"core/src/{s}.cpp" for s in (
     f"elbencho_tpu_torch/csrc/{s}.cpp" for s in (
         "cuda_api", "cuda_path", "cuda_capi"))
 _MOCK_SRC = "elbencho_tpu_torch/csrc/cuda_mock.cpp"
+_PROBE_SRCS = ("elbencho_tpu_torch/csrc/cuda_probe.cpp",
+               "elbencho_tpu_torch/csrc/cuda_api.cpp")
 _CPPFLAGS = ("-Icore/include", "-Icore/third_party")
 _CXXFLAGS = ("-O3", "-std=c++17", "-Wall", "-Wextra", "-fPIC", "-pthread")
 _LDFLAGS = ("-shared", "-pthread", "-ldl")
@@ -65,10 +70,11 @@ def _fresh(out: str) -> bool:
     return True
 
 
-def _build(out: str, srcs) -> None:
-    """Compile `srcs` into the shared library `out`. A file lock serialises
-    concurrent first uses (test workers, several processes); the library
-    appears atomically, so a reader never loads a half-written file."""
+def _build(out: str, srcs, ldflags=_LDFLAGS) -> None:
+    """Compile `srcs` into `out` (a shared library with the default
+    `ldflags`). A file lock serialises concurrent first uses (test workers,
+    several processes); the file appears atomically, so a reader never
+    loads a half-written one."""
     os.makedirs(_BUILD_DIR, exist_ok=True)
     with open(os.path.join(_BUILD_DIR, "build.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -78,7 +84,7 @@ def _build(out: str, srcs) -> None:
         # nice: a low priority keeps the ~25 s compile from disturbing work
         # that runs beside a first use (other benchmark or test processes)
         cmd = ["nice", "-n", "10", os.environ.get("CXX", "g++"), *_CPPFLAGS,
-               *_CXXFLAGS, *srcs, *_LDFLAGS, "-o", tmp]
+               *_CXXFLAGS, *srcs, *ldflags, "-o", tmp]
         subprocess.run(cmd, cwd=_REPO_ROOT, check=True, capture_output=True)
         os.replace(tmp, out)
 
@@ -89,6 +95,14 @@ def build_mock() -> str:
     if not _fresh(MOCK_DRIVER_PATH):
         _build(MOCK_DRIVER_PATH, [_MOCK_SRC])
     return MOCK_DRIVER_PATH
+
+
+def build_probe() -> str:
+    """The standalone copy probe executable (built on first use); returns
+    its path."""
+    if not _fresh(PROBE_PATH):
+        _build(PROBE_PATH, _PROBE_SRCS, ("-pthread", "-ldl"))
+    return PROBE_PATH
 
 
 def load_lib() -> ctypes.CDLL:
@@ -589,7 +603,13 @@ def _declare_cuda(lib: ctypes.CDLL) -> None:
             ("reshard_barrier", [vp], i32),
             ("reshard_error", [vp, s, i32], None),
             ("d2d_supported", [vp], i32),
+            ("d2d_engaged", [vp], i32),
             ("peer_access", [vp, ctypes.POINTER(ctypes.c_int)], None),
+            # the in-session raw transport ceilings
+            ("raw_h2d", [vp, u64, i32, i32, u64, i32, i32], ctypes.c_double),
+            ("raw_d2h", [vp, u64, i32, i32, u64], ctypes.c_double),
+            ("raw_d2d", [vp, u64, i32, i32, i32, u64], ctypes.c_double),
+            ("raw_last_error", [vp, s, i32], None),
             # serving rotation and the ingest ledger, with the ebt_pjrt_*
             # twins' signatures, plus the rotation read-back
             ("set_bg_budget", [vp, u64], None),

@@ -11,7 +11,10 @@ and the native pjrt path (`--tpubackend pjrt`: the C++ CUDA transfer engine
 of csrc/cuda_path.cpp, installed as a C function pointer) with its stripe
 planner, checkpoint restore, N->M reshard, device fault policy, serving
 rotation, DL-ingestion ledger and transfer-manager tier (EBT_PJRT_XFER_MGR),
-and arms --chaos seams at prepare.
+and arms --chaos seams at prepare. Between phases it measures the native
+path's in-session raw transport ceilings (native_raw_ceiling,
+native_raw_d2d_ceiling), the denominators its phases' rates are graded
+against.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from ..engine import NativeEngine
 from ..engine_stats import (engine_fault_stats, engine_numa_stats,
                             engine_reactor_stats, engine_serving_stats,
                             tenant_stats, uring_stats)
+from ..exceptions import ProgException
 from ..logger import LOGGER
 from .base import WorkerGroup, WorkerPhaseResult, WorkerSnapshot
 
@@ -50,6 +54,8 @@ class LocalWorkerGroup(WorkerGroup):
         # when records landed resident and the in-flight gauge peaked at
         # >= 2 batches, "serial" when it peaked at <= 1
         self._engaged_ingest_tier: str | None = None
+        # the tier whose submission topology the last h2d raw ceiling used
+        self._probe_tier: str | None = None
         self._tier_base: dict = {}
         # device FaultStats at the last start_phase: the native counters
         # are session-cumulative (ejection is sticky), the result tree
@@ -952,6 +958,12 @@ class LocalWorkerGroup(WorkerGroup):
     def data_path_tier(self) -> str | None:
         return self._engaged_tier
 
+    def probe_tier(self) -> str | None:
+        """The tier whose submission topology the last h2d raw ceiling
+        used, to be held against the engaged tier: a ceiling in another
+        topology misprices the phase's share by the gap between tiers."""
+        return self._probe_tier
+
     def reg_cache_stats(self) -> dict[str, int] | None:
         if self._native_path is None:
             return None
@@ -972,6 +984,69 @@ class LocalWorkerGroup(WorkerGroup):
         shape (the lane-split A/B control)."""
         return (self._native_path is not None
                 and self._native_path.single_lane)
+
+    def native_raw_ceiling(self, total_bytes: int, depth: int = 8,
+                           direction: str = "h2d",
+                           chunk_bytes: int = 0, streams: int = 1,
+                           device: int = 0) -> float:
+        """In-session raw transport ceiling (MiB/s) on this group's own
+        native path (NativeCudaPath.raw_h2d_ceiling / raw_d2h_ceiling).
+        Raises off the pjrt backend.
+
+        The h2d ceiling submits in the topology of the tier the data path
+        runs: the engagement-confirmed tier (confirm_engaged_tier), else,
+        before any h2d traffic, the capability prediction. A rung that fails
+        (its own registrations may fail where the init probe passed) is
+        left for the next of zero_copy -> xfer_mgr -> staged; xfer_mgr is
+        skipped for streams > 1. probe_tier() records the rung that gave
+        the number."""
+        if self._native_path is None:
+            raise ProgException("raw ceiling requires the pjrt backend")
+        np_ = self._native_path
+        if direction == "d2h":
+            return np_.raw_d2h_ceiling(total_bytes, depth, device=device,
+                                       chunk_bytes=chunk_bytes)
+        tier = self._engaged_tier
+        if tier is None:
+            if np_.zero_copy_engaged:
+                tier = "zero_copy"
+            elif np_.xfer_mgr_active:
+                tier = "xfer_mgr"
+            else:
+                tier = "staged"
+        ladder = ["zero_copy", "xfer_mgr", "staged"]
+        last_exc: Exception | None = None
+        for rung in ladder[ladder.index(tier):]:
+            if rung == "zero_copy" and not np_.dma_supported:
+                continue
+            if rung == "xfer_mgr" and (not np_.xfer_mgr_active
+                                       or streams > 1):
+                continue
+            try:
+                v = np_.raw_h2d_ceiling(total_bytes, depth, device=device,
+                                        chunk_bytes=chunk_bytes, tier=rung,
+                                        streams=streams)
+            except ProgException as e:
+                last_exc = e
+                LOGGER.info(f"raw ceiling {rung} probe failed ({e}); "
+                            "descending the tier ladder")
+                continue
+            self._probe_tier = rung
+            return v
+        raise last_exc if last_exc is not None else ProgException(
+            "raw ceiling: no data-path tier available")
+
+    def native_raw_d2d_ceiling(self, total_bytes: int, depth: int = 8,
+                               src_device: int = 0, dst_device: int = 1,
+                               chunk_bytes: int = 0) -> float:
+        """In-session raw device-to-device ceiling (MiB/s) on this group's
+        native path (NativeCudaPath.raw_d2d_ceiling). Raises off the pjrt
+        backend and without the device-to-device tier."""
+        if self._native_path is None:
+            raise ProgException("raw d2d ceiling requires the pjrt backend")
+        return self._native_path.raw_d2d_ceiling(
+            total_bytes, depth, src_device=src_device,
+            dst_device=dst_device, chunk_bytes=chunk_bytes)
 
     def device_latency(self) -> dict[str, "LatencyHistogram"]:
         """Per-chip transfer latency histograms, whichever backend ran the

@@ -56,6 +56,17 @@ TIMING_NESTED = {
     "UringStats": ("uring_register_ns",),
     "IngestStats": ("resident_wait_ns", "epoch_time_ns"),
 }
+# Open-loop arrivals (--arrival paced) on pjrt. The tenant latencies and
+# the schedule's lag are read off the clock against the scheduled arrival;
+# whether a wakeup finds a second event already pending (coalesced) depends
+# on when the completion lands against the next arrival. reactor_waits and
+# reactor_wakeups_onready stay compared: they count the waits and the
+# completions that signal the worker, which the code decides.
+TIMING_TOP_OPEN_LOOP = ("TenantLatHistos",)
+TIMING_NESTED_OPEN_LOOP = {
+    "TenantStats": ("sched_lag_ns",),
+    "ReactorStats": ("reactor_wakeups_coalesced", "spin_polls_avoided"),
+}
 # Serving rotation: how many rotations fit into the read phase follows the
 # clock, and with them every count the rotator adds to (the rotation
 # family, the lane bytes, the checkpoint ledger of an unfinished rotation).
@@ -72,6 +83,7 @@ BASE = ["-s", "4M", "-b", "256K", "--nolive"]
 # two workers' windows were pinned at the same time.
 PJRT = ["-t", "1", "--gpuids", "0,1"]
 STAGED = ["-t", "2", "--gpuids", "0,1"]
+PACED = ["--arrival", "paced", "--rate", "20"]
 
 # (id, backend, extra args, phases) — phases "w"/"r" of a file benchmark,
 # "c" the checkpoint restore, "s" the reshard
@@ -105,7 +117,19 @@ CASES = [
     ("pjrt-xfer-mgr", "pjrt", PJRT, "wr"),
     ("pjrt-xfer-mgr-checkpoint", "pjrt", PJRT + ["--checkpoint-shards", "4"],
      "c"),
+    # open-loop arrivals (OPEN_LOOP): a serial D2H fetch (--d2hdepth 1)
+    # must not wake the worker's reactor, a deferred one does
+    ("pjrt-paced-iodepth2-d2h1", "pjrt",
+     PJRT + PACED + ["--iodepth", "2", "--d2hdepth", "1"], "wr"),
+    ("pjrt-paced-iodepth2-d2h2", "pjrt",
+     PJRT + PACED + ["--iodepth", "2", "--d2hdepth", "2"], "wr"),
+    ("pjrt-paced-d2h1", "pjrt", PJRT + PACED + ["--d2hdepth", "1"], "wr"),
+    ("pjrt-paced-d2h2", "pjrt", PJRT + PACED + ["--d2hdepth", "2"], "wr"),
+    ("pjrt-paced-tenants", "pjrt",
+     ["-t", "2", "--gpuids", "0,1", "--arrival", "paced",
+      "--tenants", "fg:rate=20;bg:rate=20,bs=128K"], "wr"),
 ]
+OPEN_LOOP_TWO_WORKERS_CLOCKED = ("LaneStats",)
 # cases run with EBT_PJRT_XFER_MGR=1; besides the tree, the tier's block
 # counter and each device's latency sample count (one per block on the
 # tier) must equal the original's
@@ -137,19 +161,23 @@ def pkgs(monkeypatch):
              torch_engine_stats.uring_stats)))
 
 
-def _skip_key(family: str | None, key: str) -> bool:
+def _skip_key(family: str | None, key: str, open_loop: bool) -> bool:
     if family is None:
-        return key in TIMING_TOP or key.startswith(TIMING_PREFIX)
-    return key in TIMING_NESTED.get(family, ())
+        return (key in TIMING_TOP or key.startswith(TIMING_PREFIX)
+                or (open_loop and key in TIMING_TOP_OPEN_LOOP))
+    return (key in TIMING_NESTED.get(family, ())
+            or (open_loop and key in TIMING_NESTED_OPEN_LOOP.get(family, ())))
 
 
-def tree_diff(a, b, path="", family=None, clocked=()) -> list[str]:
+def tree_diff(a, b, path="", family=None, clocked=(),
+              open_loop=False) -> list[str]:
     """Every path where the two trees differ, timing fields left out (and
-    the `clocked` top-level families compared by their keys only)."""
+    the `clocked` top-level families compared by their keys only; with
+    `open_loop`, the open-loop clock fields left out too)."""
     if isinstance(a, dict) and isinstance(b, dict):
         out = []
         for k in sorted(set(a) | set(b)):
-            if _skip_key(family, k):
+            if _skip_key(family, k, open_loop):
                 continue
             if family is None and k in clocked and k in a and k in b:
                 out += key_diff(a[k], b[k], f"{path}/{k}")
@@ -159,12 +187,14 @@ def tree_diff(a, b, path="", family=None, clocked=()) -> list[str]:
                            f"{'original' if k in a else 'port'}")
                 continue
             out += tree_diff(a[k], b[k], f"{path}/{k}",
-                             k if family is None else family)
+                             k if family is None else family,
+                             open_loop=open_loop)
         return out
     if isinstance(a, list) and isinstance(b, list) and len(a) == len(b):
         out = []
         for i, (x, y) in enumerate(zip(a, b)):
-            out += tree_diff(x, y, f"{path}[{i}]", family)
+            out += tree_diff(x, y, f"{path}[{i}]", family,
+                             open_loop=open_loop)
         return out
     return [] if a == b else [f"{path}: {a!r} != {b!r}"]
 
@@ -234,6 +264,11 @@ def test_result_tree_matches_original(pkgs, tmp_path, monkeypatch, case):
         clocked = ROTATION_CLOCKED
         for k in ("EBT_MOCK_PJRT_XFER_US", "EBT_MOCK_CUDA_XFER_US"):
             monkeypatch.setenv(k, "25000")
+    open_loop = "--arrival" in extra
+    one_worker = extra[extra.index("-t") + 1] == "1"
+    if open_loop and not one_worker:
+        # two workers: the lanes' awaits follow their interleaving
+        clocked = OPEN_LOOP_TWO_WORKERS_CLOCKED
     xfer_mgr = name in XFER_MGR_CASES
     if xfer_mgr:
         monkeypatch.setenv("EBT_PJRT_XFER_MGR", "1")
@@ -256,9 +291,19 @@ def test_result_tree_matches_original(pkgs, tmp_path, monkeypatch, case):
         trees[pkg.name] = run_trees(pkg, args, phases, counters[pkg.name])
     assert len(trees["torch"]) == len(trees["jax"])
     for ph, jt, tt in zip(phases, trees["jax"], trees["torch"]):
-        diff = tree_diff(jt, tt, clocked=clocked)
+        diff = tree_diff(jt, tt, clocked=clocked, open_loop=open_loop)
         assert not diff, f"phase {ph}: " + "; ".join(diff)
-    if clocked:
+    if open_loop:
+        # one latency sample per chunk on both packages: a serial D2H fetch
+        # is sampled once whether or not its completion wakes the reactor
+        # (one chunk per 256 KiB block, 16 blocks per worker's 4 MiB)
+        for jt, tt in zip(trees["jax"], trees["torch"]):
+            counts = {k: h["count"] for k, h in tt["DevLatHistos"].items()}
+            assert counts == {k: h["count"]
+                              for k, h in jt["DevLatHistos"].items()}
+            if one_worker:
+                assert sum(counts.values()) == 16
+    if clocked == ROTATION_CLOCKED:
         for t in (trees["jax"][-1], trees["torch"][-1]):
             assert t["ServingStats"]["rotations_complete"] >= 1
             assert len(t["RotationRecords"]) == \

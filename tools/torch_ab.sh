@@ -6,9 +6,11 @@
 #   bash tools/torch_ab.sh PARENT_DIR [ROUNDS]
 #
 # Runs, from the repo root and from PARENT_DIR: the direct 4 GiB write+read
-# of chip_smoke.py's main path (2 x ROUNDS rounds), then a 1 GiB staged
-# --verify file written once and read in turns (3 x ROUNDS rounds), both
-# with 2 MiB chunks. Prints one line per run with the CSV's MiB/s.
+# of chip_smoke.py's main path (2 x ROUNDS rounds), the same on the native
+# engine (--tpubackend pjrt, chip_smoke.py phase 8's setting; ROUNDS
+# rounds), then a 1 GiB staged --verify file written once and read in turns
+# (3 x ROUNDS rounds), all with 2 MiB chunks. Prints one line per run with
+# the CSV's MiB/s.
 set -euo pipefail
 P=$(cd "$1" && pwd); C=$(pwd); ROUNDS=${2:-1}
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
@@ -45,6 +47,8 @@ turns() {  # label rounds args...
 }
 turns direct-4G $((2 * ROUNDS)) -w -r -t 4 -s 4G -b 8M --iodepth 4 \
   --gpuids 0 --tpubackend direct --lat "$D/f4g"
+turns native-4G "$ROUNDS" -w -r -t 4 -s 4G -b 8M --iodepth 4 \
+  --gpuids 0 --tpubackend pjrt --lat "$D/f4g"
 run "verify-write change" "$C" -w -t 2 -s 1G -b 4M --verify 42 --gpuids 0 \
   "$D/f1g"
 turns verify-read $((3 * ROUNDS)) -r -t 2 -s 1G -b 4M --verify 42 \

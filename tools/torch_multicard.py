@@ -16,8 +16,9 @@ and a checkpoint restore of meta-llama/Llama-3.1-8B's four shard sizes
 (16.1 GB) with shard i on card i mod n, then the same manifest resharded
 from n cards onto the first two (--reshard 2): the shards of the other
 cards move card to card over cuMemcpyPeerAsync (peer access state
-printed), with the reshard ledger checked as in chip_smoke.py. Prints the
-card's name and power limit and the GiB/s it measured.
+printed), with the reshard ledger checked as in chip_smoke.py, followed on
+the same group by the in-session device-to-device ceiling from card 0 onto
+card 1. Prints the card's name and power limit and the GiB/s it measured.
 """
 
 from __future__ import annotations
@@ -105,7 +106,7 @@ def main() -> int:
         chip_smoke.reshard(["-t", str(len(paths)), "--tpubackend", "pjrt",
                             "--checkpoint", man, "--reshard", "2", "--lat",
                             "--nolive"],
-                           f"{n} cards -> 2, card to card", "d2d")
+                           f"{n} cards -> 2, card to card", "d2d", (0, 1))
     print("torch_multicard: ok", flush=True)
     return 0
 
