@@ -169,6 +169,19 @@ Phases, each reported on its own line:
      device-to-device ceiling lane 1 -> lane 0 beside the RESHARD rate, and
      the refusals for src == dst and under EBT_D2D_DISABLE=1;
      tools/torch_multicard.py measures it between cards 0 and 1.
+ 27. the port's native selftest on the card (runs after phase 25; built in
+     phase 2 beside the engine): csrc/cuda_selftest.cpp, plain build, every
+     scope against libcuda.so.1 and the nvcc-built kernel library on four
+     lanes of device 0, one process per scope: every check passed, the
+     checks that need the mock driver's seams or counters counted and not
+     run, the path scope's B1 and B3 launched from C++ (3 verify, 1 fill),
+     the kernels scope's four entries held against plain host loops; one
+     line per scope with its checks, its time and its launches. Then the
+     kernels and path scopes under compute-sanitizer (memcheck, racecheck,
+     synccheck) with 0 errors required; where the tool is missing, or
+     refuses the card ("Device not supported"), the line says so and no
+     pass is claimed. Phase 27 alone:
+       python3 -c "import chip_smoke as c; c.selftest_on_card()"
 
 The second-to-last line is a JSON object describing each kernel of the path;
 the last line is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -184,6 +197,7 @@ import ctypes
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -219,6 +233,8 @@ SERVE_SECS = 70             # the rotation run (two swaps at up to 34 s of
                             # TTR each); the 1 GiB lasts 73 s
 PLAIN_SECS = 10             # the pass without rotation
 CEILING_BYTES = 4 << 30     # phase 26's windows: phase 8's file
+SANITIZER_TOOLS = ("memcheck", "racecheck", "synccheck")
+SANITIZED_SCOPES = ("kernels", "path")
 INGEST_ARGS = ["--ingestshards", "16", "-s", "256M", "--recordsize", "128K",
                "-b", "4M", "--epochs", "2", "--shufflewindow", "1024",
                "--tpubackend", "pjrt", "--nolive"]
@@ -236,20 +252,25 @@ def gpu_name_and_power() -> str:
 
 
 def build_all(engine, kernel_build, wrappers) -> None:
-    """The engine (g++) and the kernel library (one nvcc per source) in
-    parallel, then the wrappers' bindings."""
+    """The engine (g++), the kernel library (one nvcc per source) and the
+    native selftest (g++) in parallel, then the wrappers' bindings."""
+    from elbencho_tpu_torch import selftest
+
     def timed(fn):
         t0 = time.perf_counter()
         fn()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         core = pool.submit(timed, engine.load_lib)
         kern = pool.submit(timed, kernel_build.build_lib)
+        test = pool.submit(timed, selftest.build)
         phase("build", f"engine build/torch_core/libebtcore.so "
                        f"{core.result():.1f}s, kernels "
                        f"build/torch_kernels/libebt_torch_kernels.so "
-                       f"{kern.result():.1f}s")
+                       f"{kern.result():.1f}s, selftest "
+                       f"build/torch_core/cuda_selftest "
+                       f"{test.result():.1f}s")
     for w in wrappers:
         w.load_lib()
 
@@ -2451,6 +2472,121 @@ def campaign_on_card() -> None:
     phase("campaign", f"phase 25 took {time.perf_counter() - t0:.1f}s")
 
 
+def _compute_sanitizer() -> str | None:
+    """compute-sanitizer beside the nvcc the kernels are built with."""
+    from elbencho_tpu_torch.ops import kernel_build
+    nvcc = shutil.which(kernel_build._nvcc()) or kernel_build._nvcc()
+    cs = os.path.join(os.path.dirname(nvcc), "compute-sanitizer")
+    return cs if os.path.exists(cs) else shutil.which("compute-sanitizer")
+
+
+def _selftest_scope(argv: list[str], env: dict, scope: str) -> dict:
+    """One scope of the selftest in its own process: exit 0 and "all checks
+    passed" required; returns its scope line's numbers."""
+    t0 = time.perf_counter()
+    r = subprocess.run(argv[:3] + [scope], capture_output=True, text=True,
+                       timeout=600, env={**os.environ, **env})
+    wall = time.perf_counter() - t0
+    if r.returncode != 0 or "cuda selftest: all checks passed" not in \
+            r.stdout:
+        sys.stderr.write(r.stderr[-8000:])
+        raise AssertionError(f"selftest scope {scope}: exit {r.returncode}: "
+                             f"{r.stdout[-3000:]}")
+    m = re.search(r"^scope \w+: (\d+) checks passed, 0 failed, (\d+) need "
+                  r"the mock, ([0-9.]+) s, CudaPath kernel launches verify "
+                  r"(\d+) fill (\d+)$", r.stdout, re.M)
+    if not m:
+        raise AssertionError(f"selftest scope {scope}: no scope line in "
+                             f"{r.stdout[-2000:]}")
+    return {"passed": int(m[1]), "need_mock": int(m[2]), "secs": float(m[3]),
+            "wall": wall, "verify": int(m[4]), "fill": int(m[5]),
+            "stdout": r.stdout}
+
+
+def _sanitized(cs: str, tool: str, argv: list[str], env: dict,
+               scope: str) -> str:
+    """One scope under compute-sanitizer's `tool`: "0 errors" when the
+    selftest passed under it with an error summary of 0; the tool's own
+    refusal line when it cannot instrument the card (no pass claimed);
+    anything else raises."""
+    r = subprocess.run([cs, "--tool", tool, "--error-exitcode", "99",
+                        *argv[:3], scope], capture_output=True, text=True,
+                       timeout=900, env={**os.environ, **env})
+    out = r.stdout + r.stderr
+    refused = re.search(r"Error: (Device not supported[^\n]*)", out)
+    if refused:
+        return f"not run: compute-sanitizer refuses the card: {refused[1]}"
+    summary = re.search(r"(ERROR|RACECHECK) SUMMARY: (\d+) (error|hazard)",
+                        out)
+    if r.returncode == 0 and "cuda selftest: all checks passed" in out and \
+            summary and summary[2] == "0":
+        return "0 errors"
+    sys.stderr.write(out[-8000:])
+    raise AssertionError(f"compute-sanitizer --tool {tool} on scope {scope}: "
+                         f"exit {r.returncode}, "
+                         f"{summary[0] if summary else 'no summary'}")
+
+
+def selftest_on_card() -> dict:
+    """Phase 27: the native selftest (csrc/cuda_selftest.cpp) against the
+    real driver and the nvcc-built kernel library, every scope in its own
+    process, then the kernels and path scopes under compute-sanitizer.
+    Returns the per-scope numbers."""
+    from elbencho_tpu_torch import selftest
+
+    card = gpu_name_and_power()
+    t0 = time.perf_counter()
+    argv, env = selftest.command(mock=False, scope="all")
+    rows = {}
+    for scope in selftest.SCOPES:
+        row = rows[scope] = _selftest_scope(argv, env, scope)
+        need = re.findall(r"^needs the mock: (.*)$", row["stdout"], re.M)
+        extra = ""
+        if scope == "path":
+            m = re.search(r"^path: kernel launches from C\+\+: verify_u32 "
+                          r"(\d+) fill_u64 (\d+)$", row["stdout"], re.M)
+            if not m or int(m[1]) != 3 or int(m[2]) != 1:
+                raise AssertionError("selftest path: B1/B3 not launched from "
+                                     f"C++ as expected: {row['stdout']}")
+            extra = f", B1 {m[1]} and B3 {m[2]} launched from C++"
+        if scope == "kernels":
+            m = re.search(r"^kernels: held against host loops: verify_u32 "
+                          r"(\d+) fill_u64 (\d+) ingest_verify_u32 (\d+) "
+                          r"sum_rows_u64 (\d+) launches$", row["stdout"],
+                          re.M)
+            if not m or min(int(m[i]) for i in range(1, 5)) < 1:
+                raise AssertionError("selftest kernels: an entry was not "
+                                     f"held: {row['stdout']}")
+            extra = (f", held against host loops: verify_u32 {m[1]}, "
+                     f"fill_u64 {m[2]}, ingest_verify_u32 {m[3]}, "
+                     f"sum_rows_u64 {m[4]} launches")
+        phase("selftest", f"scope {scope}: {row['passed']} checks passed, "
+                          f"{row['need_mock']} need the mock"
+                          f"{' (' + '; '.join(need) + ')' if need else ''}, "
+                          f"{row['secs']:.3f} s in the scope, "
+                          f"{row['wall']:.3f} s wall, CudaPath launches "
+                          f"verify {row['verify']} fill {row['fill']}"
+                          f"{extra} [{card}]")
+    cs = _compute_sanitizer()
+    if not cs:
+        phase("selftest", "compute-sanitizer is not installed beside nvcc: "
+                          "the sanitized runs were not made")
+    else:
+        version = subprocess.run([cs, "--version"], capture_output=True,
+                                 text=True, timeout=60).stdout.split("\n")
+        phase("selftest", f"{cs}: {version[-1] or version[-2]}")
+        for tool in SANITIZER_TOOLS:
+            for scope in SANITIZED_SCOPES:
+                t1 = time.perf_counter()
+                verdict = _sanitized(cs, tool, argv, env, scope)
+                phase("selftest", f"compute-sanitizer --tool {tool} scope "
+                                  f"{scope}: {verdict} "
+                                  f"({time.perf_counter() - t1:.1f}s)")
+    phase("selftest", f"phase 27 took {time.perf_counter() - t0:.1f}s "
+                      f"[{card}]")
+    return rows
+
+
 def _check_campaign(spec: dict, report: dict, live: dict,
                     printed: str) -> None:
     if not report["ok"] or report["violations"]:
@@ -2595,6 +2731,7 @@ def main() -> int:
         slice_launches = slice_main_path(ik, integ, mesh, graft_entry)
         distributed_run(cli, d)
     campaign_on_card()
+    selftest_on_card()
     phase("launches", f"staged --verify run: {staged_launches} verify "
                       f"launches (Python wrapper); native --verify run: "
                       f"{launches} (C++ engine); native --stripe --verify "

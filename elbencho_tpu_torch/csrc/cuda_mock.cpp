@@ -36,6 +36,10 @@
  *                             (cuLaunchHostFunc or cuEventRecord, 1-based)
  *   EBT_MOCK_CUDA_HOSTFUNC_UNSUPPORTED  cuLaunchHostFunc returns
  *                             CUDA_ERROR_NOT_SUPPORTED
+ *   EBT_MOCK_CUDA_HOSTFUNC_DELAY_US  cuLaunchHostFunc waits N us before it
+ *                             enqueues the host function: another thread's
+ *                             copy can then land between a copy and its
+ *                             completion on one stream
  *   EBT_MOCK_CUDA_NO_HOSTREG  devices report no cuMemHostRegister support
  *   EBT_MOCK_CUDA_HOSTREG_FAIL        every cuMemHostRegister fails
  *   EBT_MOCK_CUDA_HOSTREG_FAIL_AT     the Nth cuMemHostRegister fails
@@ -574,6 +578,8 @@ CUresult cuEventSynchronize(void* event) {
 
 CUresult cuLaunchHostFunc(void* stream, void (*fn)(void*), void* arg) {
   if (env_int("EBT_MOCK_CUDA_HOSTFUNC_UNSUPPORTED")) return kNotSupported;
+  if (int us = env_int("EBT_MOCK_CUDA_HOSTFUNC_DELAY_US"))
+    std::this_thread::sleep_for(std::chrono::microseconds(us));
   uint64_t n = ++g_completion_calls;
   if (env_int("EBT_MOCK_CUDA_FAIL_READY_AT") == (long long)n)
     return inject("mock completion failure (EBT_MOCK_CUDA_FAIL_READY_AT)");

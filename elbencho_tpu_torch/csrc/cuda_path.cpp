@@ -271,6 +271,15 @@ CudaPath::~CudaPath() {
     if (l.h2d) api_.cuStreamSynchronize(l.h2d);
     if (l.d2h) api_.cuStreamSynchronize(l.d2h);
   }
+  // the lane streams are synchronized: a host function queued on them has
+  // run, or never will (cuLaunchHostFunc's function is not called once the
+  // context has an error), so no tracker an await gave up on is touched
+  // again
+  {
+    MutexLock lk(err_mutex_);
+    for (Tracker* t : orphan_trackers_) delete t;
+    orphan_trackers_.clear();
+  }
   // every tier block buffer was freed at its settle (drainAll above) and
   // the streams are idle: the pools go back to the default threshold and
   // hand their memory back
@@ -433,13 +442,19 @@ int CudaPath::awaitRelease(Pending& p) {
       }
     }
     if (dropped) {
+      // the query ran under t->m, which the host function takes: an idle
+      // stream with the tracker not done will never run it
       latchXferError("transfer completion: the copy's completion was "
                      "dropped by a stream fault");
-      rc = 1;  // the tracker leaks with its dropped host function
+      rc = 1;
+      delete t;
     } else if (q != cu::CUDA_SUCCESS) {
-      // the tracker stays with the stream, which may still run it
+      // the stream may still run the host function: the tracker is freed
+      // at teardown, once the lane streams are synchronized
       latchXferError(cu::errorText(api_, "transfer completion", q));
       rc = 1;
+      MutexLock elk(err_mutex_);
+      orphan_trackers_.push_back(t);
     } else {
       delete t;
     }

@@ -917,6 +917,10 @@ class CudaPath {
   mutable Mutex err_mutex_;
   std::string xfer_error_ EBT_GUARDED_BY(err_mutex_);
   std::string raw_error_ EBT_GUARDED_BY(err_mutex_);
+  // trackers whose await gave up on a stream error while the stream might
+  // still run their host function; freed in the destructor once the lane
+  // streams are synchronized
+  std::vector<Tracker*> orphan_trackers_ EBT_GUARDED_BY(err_mutex_);
 
   // stripe plan: the policy is read lock-free per block; the geometry is
   // written once by setStripePlan before the path is sealed

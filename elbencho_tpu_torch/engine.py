@@ -70,11 +70,11 @@ def _fresh(out: str) -> bool:
     return True
 
 
-def _build(out: str, srcs, ldflags=_LDFLAGS) -> None:
+def _build(out: str, srcs, ldflags=_LDFLAGS, cxxflags=_CXXFLAGS) -> None:
     """Compile `srcs` into `out` (a shared library with the default
-    `ldflags`). A file lock serialises concurrent first uses (test workers,
-    several processes); the file appears atomically, so a reader never
-    loads a half-written one."""
+    `ldflags` and `cxxflags`). A file lock serialises concurrent first uses
+    (test workers, several processes); the file appears atomically, so a
+    reader never loads a half-written one."""
     os.makedirs(_BUILD_DIR, exist_ok=True)
     with open(os.path.join(_BUILD_DIR, "build.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -84,7 +84,7 @@ def _build(out: str, srcs, ldflags=_LDFLAGS) -> None:
         # nice: a low priority keeps the ~25 s compile from disturbing work
         # that runs beside a first use (other benchmark or test processes)
         cmd = ["nice", "-n", "10", os.environ.get("CXX", "g++"), *_CPPFLAGS,
-               *_CXXFLAGS, *srcs, *ldflags, "-o", tmp]
+               *cxxflags, *srcs, *ldflags, "-o", tmp]
         subprocess.run(cmd, cwd=_REPO_ROOT, check=True, capture_output=True)
         os.replace(tmp, out)
 

@@ -66,12 +66,15 @@ NATIVE_MODULES = ("elbencho_tpu_torch/cuda/native.py",
                   "elbencho_tpu_torch/workers/remote.py",
                   "elbencho_tpu_torch/checkpoint.py",
                   "elbencho_tpu_torch/campaign.py",
-                  "elbencho_tpu_torch/tools/chart.py")
+                  "elbencho_tpu_torch/tools/chart.py",
+                  "elbencho_tpu_torch/selftest.py")
 # the port's command-line tools beside the original's in tools/
 PORT_TOOLS = ("tools/torch_multicard.py", "tools/torch_campaign.py",
               "tools/torch_chaos.py")
-# the kernel sources, which must be among the native sources scanned
-KERNEL_SOURCES = ("verify.cu", "fill.cu", "ingest.cu", "mesh_reduce.cu")
+# the kernel sources and the native selftest, which must be among the
+# native sources scanned
+KERNEL_SOURCES = ("verify.cu", "fill.cu", "ingest.cu", "mesh_reduce.cu",
+                  "cuda_selftest.cpp")
 
 
 def test_native_modules_are_scanned():
