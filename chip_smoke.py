@@ -182,6 +182,18 @@ Phases, each reported on its own line:
      refuses the card ("Device not supported"), the line says so and no
      pass is claimed. Phase 27 alone:
        python3 -c "import chip_smoke as c; c.selftest_on_card()"
+ 28. the port's headline bench (elbencho_tpu_torch/bench.py, runs after
+     phase 27) in a child process against libcuda.so.1, its pair counts
+     shrunk through module attributes (NUM_PAIRS 4, WRITE_PAIRS 5,
+     RAND_PAIRS 3, MIN_READ_PAIRS 2) and its ledger in a temp dir: rc 0,
+     backend pjrt with no fallback, tier zero_copy with no mismatch, no
+     wedge, read and write in (0, 1.05] of their in-session ceilings,
+     random IOPS, the scale and checkpoint legs clean, the stripe and
+     reshard legs run or skipped with their note, no kernel launched; its
+     read, write and random rates, ratios and device p50/p99 on one line
+     each, and the spread of each leg's graded pairs (from its --raw
+     lines). Phase 28 alone:
+       python3 -c "import chip_smoke as c; c.bench_on_card()"
 
 The second-to-last line is a JSON object describing each kernel of the path;
 the last line is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -2587,6 +2599,151 @@ def selftest_on_card() -> dict:
     return rows
 
 
+# phase 28: the port's headline bench in a child process (its watchdog ends
+# the process with os._exit(3)), its pair counts shrunk through module
+# attributes, its ledger under a temp dir; after main() the child writes the
+# engine's and the wrappers' kernel launches, which the bench must not move
+BENCH_CHILD = """
+import json, sys
+import elbencho_tpu_torch.bench as b
+from elbencho_tpu_torch.cuda import native
+from elbencho_tpu_torch.ops import fill_kernel, ingest_kernel, verify_kernel
+b.NUM_PAIRS, b.WRITE_PAIRS, b.RAND_PAIRS, b.MIN_READ_PAIRS = 4, 5, 3, 2
+b.REPO = sys.argv[1]
+sys.argv = [sys.argv[0], "--raw"]
+native.reset_kernel_launches()
+rc = b.main()
+launches = dict(native.kernel_launches())
+for m in (fill_kernel, ingest_kernel, verify_kernel):
+    launches.update(m.LAUNCHES)
+with open(b.REPO + "/launches.json", "w") as f:
+    json.dump(launches, f)
+sys.exit(rc)
+"""
+BENCH_TIMEOUT_S = 300
+# a graded pair's framework reading in the bench's --raw lines: read
+# "pair[i] framework(<backend>)", write "wpair[i] framework write", random
+# "rpair[i] framework rand"
+BENCH_PAIR_LINE = re.compile(
+    r"\] (w|r)?pair\[(\d+)\] framework(?:\(\w+\)| write| rand) = "
+    r"([0-9.]+) MiB/s")
+
+
+def bench_pair_spread(stdout: str) -> dict:
+    """MiB/s of each leg's graded pairs (the warm-up pair and discarded
+    ones left out) from the bench's --raw lines: {"read": [...], "write":
+    [...], "rand": [...]}."""
+    legs = {"read": [], "write": [], "rand": []}
+    for line in stdout.splitlines():
+        m = BENCH_PAIR_LINE.search(line)
+        if m and int(m.group(2)) > 0 and "discarded" not in line:
+            leg = {"w": "write", "r": "rand"}.get(m.group(1), "read")
+            legs[leg].append(float(m.group(3)))
+    return legs
+
+
+def bench_on_card() -> dict:
+    """Phase 28: python -m elbencho_tpu_torch.bench's main() on the card
+    (libcuda.so.1) with NUM_PAIRS 4, WRITE_PAIRS 5, RAND_PAIRS 3 and
+    MIN_READ_PAIRS 2. Its last line must grade the native path: rc 0,
+    backend pjrt with no fallback, tier zero_copy with no mismatch, no
+    wedge, both ceiling ratios in (0, 1.05], random IOPS, the scale and
+    checkpoint legs clean, the stripe and reshard legs run or skipped with
+    their note, and no kernel launched. Returns the report."""
+    card = gpu_name_and_power()
+    t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("EBT_TORCH_DEVICE", "EBT_CUDA_DRIVER")}
+    d = tempfile.mkdtemp(prefix="ebt_torch_bench_")
+    try:
+        r = subprocess.run([sys.executable, "-c", BENCH_CHILD, d], cwd=repo,
+                           env=env, capture_output=True, text=True,
+                           timeout=BENCH_TIMEOUT_S)
+        lines = r.stdout.strip().splitlines()
+        if r.returncode != 0 or not lines:
+            sys.stderr.write(r.stderr[-8000:])
+            raise AssertionError(f"bench: rc {r.returncode}, last line "
+                                 f"{lines[-1] if lines else None}")
+        rep = json.loads(lines[-1])
+        spread = bench_pair_spread(r.stdout)
+        with open(os.path.join(d, "launches.json")) as f:
+            launches = json.load(f)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    legs = rep["legs"]
+    checks = {
+        "backend pjrt": rep["backend"] == "pjrt",
+        "no fallback": rep["fallback_events"] == 0,
+        "tier zero_copy": rep["tier"] == "zero_copy",
+        "no tier mismatch": rep["tier_mismatch"] is None,
+        "not wedged": rep["wedged"] is None,
+        "0 < vs_baseline <= 1.05": 0 < rep["vs_baseline"] <= 1.05,
+        "0 < write_vs_d2h_ceiling <= 1.05":
+            0 < (rep["write_vs_d2h_ceiling"] or 0) <= 1.05,
+        "rand_iops > 0": (rep["rand_iops"] or 0) > 0,
+        "scale leg clean": rep["scale_error"] is None
+            and "error" not in legs.get("scale", {"error": "missing"}),
+        "ckpt leg clean": rep["ckpt_error"] is None
+            and "error" not in legs.get("ckpt", {"error": "missing"}),
+        "stripe leg ran or skipped": rep["stripe_error"] is None and (
+            "skipped" in legs.get("stripe", {})
+            or legs.get("stripe", {}).get("tier") == "striped"),
+        "reshard leg ran or skipped": rep["reshard_error"] is None and (
+            "skipped" in legs.get("reshard", {})
+            or legs.get("reshard", {}).get("engagement") == "confirmed"),
+        "no kernel launched": not any(launches.values()),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"bench: {failed}; report {json.dumps(rep)}")
+    gib = 1024.0
+    sl = legs["scale"]
+    ck = legs["ckpt"]
+    phase("bench", f"READ {rep['value'] / gib:.3f} GiB/s, "
+                   f"{rep['vs_baseline']} of the in-session H2D ceiling "
+                   f"({rep['native_ceiling_mib_s'] / gib:.3f} GiB/s), "
+                   f"pairs {rep['pairs']}, python pageable-copy ceiling "
+                   f"{rep['python_ceiling_mib_s'] / gib:.3f} GiB/s [{card}]")
+    phase("bench", f"WRITE {rep['write_value'] / gib:.3f} GiB/s, "
+                   f"{rep['write_vs_d2h_ceiling']} of the D2H ceiling "
+                   f"({rep['d2h_ceiling_mib_s'] / gib:.3f} GiB/s), "
+                   f"{rep['write_pairs']} pairs, tier {rep['write_tier']} "
+                   f"[{card}]")
+    phase("bench", f"RANDOM {rep['rand_block_kib']} KiB at iodepth "
+                   f"{rep['rand_iodepth']}: {rep['rand_value'] / gib:.3f} "
+                   f"GiB/s, {rep['rand_iops']} IOPS, "
+                   f"{rep['rand_vs_ceiling']} of its ceiling "
+                   f"({rep['rand_ceiling_mib_s'] / gib:.3f} GiB/s); device "
+                   f"p50 {rep['dev_p50_us']} us p99 {rep['dev_p99_us']} us "
+                   f"(n {rep['dev_lat_n']}, clock {rep['dev_lat_clock']}) "
+                   f"[{card}]")
+    phase("bench", f"SCALE -t 1 {sl['t1_value'] / gib:.3f} GiB/s, "
+                   f"-t {sl['threads']} {sl['value'] / gib:.3f} GiB/s "
+                   f"(efficiency {sl['efficiency']}), single lane "
+                   f"{sl['single_lane_value'] / gib:.3f} GiB/s, lock wait "
+                   f"{sl['lock_wait_ns']} ns, ceilings {sl['ceiling_mib_s']} "
+                   f"MiB/s [{card}]")
+    phase("bench", f"CKPT {ck['shards']} shards x {ck['shard_bytes']} B "
+                   f"on {ck['devices']} device(s): cold ttr p50 "
+                   f"{ck['cold']['ttr_p50_s']} s p99 "
+                   f"{ck['cold']['ttr_p99_s']} s "
+                   f"({ck['cold'].get('vs_device_ceiling_sum')} of the "
+                   f"ceiling floor), warm p50 {ck['warm']['ttr_p50_s']} s, "
+                   f"under load p50 {ck['under_load']['ttr_p50_s']} s; "
+                   f"stripe {legs['stripe']}; reshard {legs['reshard']} "
+                   f"[{card}]")
+    # the medians above stand on a few pairs of 128 MiB windows each: the
+    # spread of the pairs beside them says how far one reading can move
+    phase("bench", "graded pairs, MiB/s min-max (n): " + "; ".join(
+        f"{leg} {min(v)}-{max(v)} ({len(v)})" if v else f"{leg} none"
+        for leg, v in spread.items()) + f" [{card}]")
+    phase("bench", f"phase 28 took {time.perf_counter() - t0:.1f}s, file "
+                   f"window {rep['reg_window']} B registered, engine and "
+                   f"wrapper launches {launches} [{card}]")
+    return rep
+
+
 def _check_campaign(spec: dict, report: dict, live: dict,
                     printed: str) -> None:
     if not report["ok"] or report["violations"]:
@@ -2732,6 +2889,7 @@ def main() -> int:
         distributed_run(cli, d)
     campaign_on_card()
     selftest_on_card()
+    bench_on_card()
     phase("launches", f"staged --verify run: {staged_launches} verify "
                       f"launches (Python wrapper); native --verify run: "
                       f"{launches} (C++ engine); native --stripe --verify "

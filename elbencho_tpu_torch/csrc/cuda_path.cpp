@@ -346,15 +346,22 @@ void CudaPath::hostFnTrampoline(void* arg) {
   // lock per histogram and tracker, no driver API call
   Tracker* t = static_cast<Tracker*>(arg);
   if (t->device >= 0) t->path->addDevLatency(t->device, usSince(t->t0));
-  // capture the landing fd BEFORE flipping done: the waiter may delete the
-  // tracker the moment done is visible
-  const int reactor_fd = t->reactor_fd;
+  // wake the worker's reactor BEFORE flipping done (no lock held: the hub's
+  // leaf mutex is the only acquisition). This reverses the original's
+  // PjrtPath::onReadyTrampoline, which flips done first. A waiter that sees
+  // done then always finds the signal pending, so the worker's next reactor
+  // wait drains it beside whatever else is pending; flipped first, the
+  // worker could pass its pre-flush barrier and reach that wait before the
+  // signal landed, and pay a second wakeup for it. The cost: a worker woken
+  // by the signal may find the completion not yet visible. The engine's
+  // loops reap only the storage queue after a wakeup and await transfers
+  // at their barriers, so no wakeup reads done
+  reactorhub::signalFd(t->reactor_fd);
   {
     MutexLock lk(t->m);
     t->done = true;
     t->cv.notify_all();
   }
-  reactorhub::signalFd(reactor_fd);
 }
 
 void CudaPath::addDevLatency(int device_idx, uint64_t us) {

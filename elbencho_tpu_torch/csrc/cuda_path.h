@@ -106,9 +106,11 @@
  * block pending is the one that counts as retained.
  *
  * Completion. Each chunk's copy is followed on its stream by a host function
- * (cuLaunchHostFunc) that stamps the per-device latency, marks the chunk's
- * tracker done and wakes the submitting worker's reactor: the "onready"
- * clock. With EBT_PJRT_NO_READY / EBT_PJRT_NO_LATENCY, or a driver that
+ * (cuLaunchHostFunc) that stamps the per-device latency, wakes the
+ * submitting worker's reactor and then marks the chunk's tracker done: the
+ * "onready" clock. The original's OnReady callback marks done first; the
+ * port signals first so that a worker never reaches its next reactor wait
+ * ahead of the signal (hostFnTrampoline says why). With EBT_PJRT_NO_READY / EBT_PJRT_NO_LATENCY, or a driver that
  * refuses host functions, an event recorded behind the copy is awaited at the
  * barrier instead and latency is sampled there: the "await" clock.
  *

@@ -67,7 +67,8 @@ NATIVE_MODULES = ("elbencho_tpu_torch/cuda/native.py",
                   "elbencho_tpu_torch/checkpoint.py",
                   "elbencho_tpu_torch/campaign.py",
                   "elbencho_tpu_torch/tools/chart.py",
-                  "elbencho_tpu_torch/selftest.py")
+                  "elbencho_tpu_torch/selftest.py",
+                  "elbencho_tpu_torch/bench.py")
 # the port's command-line tools beside the original's in tools/
 PORT_TOOLS = ("tools/torch_multicard.py", "tools/torch_campaign.py",
               "tools/torch_chaos.py")

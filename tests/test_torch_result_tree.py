@@ -61,11 +61,18 @@ TIMING_NESTED = {
 # whether a wakeup finds a second event already pending (coalesced) depends
 # on when the completion lands against the next arrival. reactor_waits and
 # reactor_wakeups_onready stay compared: they count the waits and the
-# completions that signal the worker, which the code decides.
+# completions that signal the worker, which the code decides. On the engine's
+# io_uring emulation (URING_EMULATED_CASES) a storage write completes inside
+# its submit, so what one wakeup drains is the code's to decide too, and the
+# coalesced count is compared as well.
 TIMING_TOP_OPEN_LOOP = ("TenantLatHistos",)
 TIMING_NESTED_OPEN_LOOP = {
     "TenantStats": ("sched_lag_ns",),
     "ReactorStats": ("reactor_wakeups_coalesced", "spin_polls_avoided"),
+}
+TIMING_NESTED_OPEN_LOOP_EMULATED = {
+    "TenantStats": ("sched_lag_ns",),
+    "ReactorStats": ("spin_polls_avoided",),
 }
 # Serving rotation: how many rotations fit into the read phase follows the
 # clock, and with them every count the rotator adds to (the rotation
@@ -118,7 +125,9 @@ CASES = [
     ("pjrt-xfer-mgr-checkpoint", "pjrt", PJRT + ["--checkpoint-shards", "4"],
      "c"),
     # open-loop arrivals (OPEN_LOOP): a serial D2H fetch (--d2hdepth 1)
-    # must not wake the worker's reactor, a deferred one does
+    # must not wake the worker's reactor, a deferred one does. The
+    # iodepth-2 cases run on the engine's io_uring emulation
+    # (URING_EMULATED_CASES)
     ("pjrt-paced-iodepth2-d2h1", "pjrt",
      PJRT + PACED + ["--iodepth", "2", "--d2hdepth", "1"], "wr"),
     ("pjrt-paced-iodepth2-d2h2", "pjrt",
@@ -130,6 +139,21 @@ CASES = [
       "--tenants", "fg:rate=20;bg:rate=20,bs=128K"], "wr"),
 ]
 OPEN_LOOP_TWO_WORKERS_CLOCKED = ("LaneStats",)
+# the one-worker paced cases at --iodepth 2 run on the engine's io_uring
+# emulation (EBT_MOCK_URING=1), set for both packages. On the kernel's ring
+# a buffered write is handed to an io-wq thread, and whether it completes
+# before the worker's next reactor wait follows where the scheduler runs
+# that thread: a deferred fetch's signal then wakes the worker alone or is
+# drained beside the storage completion, and the last block's completion
+# is reaped before the loop ends or wakes one more wait, so reactor_waits,
+# reactor_wakeups_cq and reactor_wakeups_onready follow the scheduler in
+# either package. The emulation completes the write inside its submit; the
+# mocks keep no copy time, so the original's fetch signals inside its own
+# call and the port's before its completion is visible: every signal of a
+# block is then pending at one wait. (At --iodepth 1 the engine writes
+# synchronously: those cases stay on the kernel's ring.)
+URING_EMULATED_CASES = ("pjrt-paced-iodepth2-d2h1",
+                        "pjrt-paced-iodepth2-d2h2")
 # cases run with EBT_PJRT_XFER_MGR=1; besides the tree, the tier's block
 # counter and each device's latency sample count (one per block on the
 # tier) must equal the original's
@@ -161,19 +185,21 @@ def pkgs(monkeypatch):
              torch_engine_stats.uring_stats)))
 
 
-def _skip_key(family: str | None, key: str, open_loop: bool) -> bool:
+def _skip_key(family: str | None, key: str, open_loop: dict) -> bool:
     if family is None:
         return (key in TIMING_TOP or key.startswith(TIMING_PREFIX)
-                or (open_loop and key in TIMING_TOP_OPEN_LOOP))
+                or (bool(open_loop) and key in TIMING_TOP_OPEN_LOOP))
     return (key in TIMING_NESTED.get(family, ())
-            or (open_loop and key in TIMING_NESTED_OPEN_LOOP.get(family, ())))
+            or key in open_loop.get(family, ()))
 
 
 def tree_diff(a, b, path="", family=None, clocked=(),
-              open_loop=False) -> list[str]:
+              open_loop=None) -> list[str]:
     """Every path where the two trees differ, timing fields left out (and
     the `clocked` top-level families compared by their keys only; with
-    `open_loop`, the open-loop clock fields left out too)."""
+    `open_loop`, the nested open-loop clock fields to leave out, the
+    open-loop top-level ones are left out too)."""
+    open_loop = open_loop or {}
     if isinstance(a, dict) and isinstance(b, dict):
         out = []
         for k in sorted(set(a) | set(b)):
@@ -264,8 +290,11 @@ def test_result_tree_matches_original(pkgs, tmp_path, monkeypatch, case):
         clocked = ROTATION_CLOCKED
         for k in ("EBT_MOCK_PJRT_XFER_US", "EBT_MOCK_CUDA_XFER_US"):
             monkeypatch.setenv(k, "25000")
-    open_loop = "--arrival" in extra
+    open_loop = TIMING_NESTED_OPEN_LOOP if "--arrival" in extra else {}
     one_worker = extra[extra.index("-t") + 1] == "1"
+    if name in URING_EMULATED_CASES:
+        monkeypatch.setenv("EBT_MOCK_URING", "1")
+        open_loop = TIMING_NESTED_OPEN_LOOP_EMULATED
     if open_loop and not one_worker:
         # two workers: the lanes' awaits follow their interleaving
         clocked = OPEN_LOOP_TWO_WORKERS_CLOCKED
@@ -323,3 +352,43 @@ def test_result_tree_matches_original(pkgs, tmp_path, monkeypatch, case):
         for tt in trees["torch"]:
             assert tt["FaultStats"] is not None
             assert tt["EjectedDevices"] == ""
+
+
+@pytest.mark.parametrize("d2h", ["1", "2"])
+def test_paced_fetch_signals_reach_the_reactor(pkgs, tmp_path, monkeypatch,
+                                               d2h):
+    """On the kernel's io_uring, with both mocks at one copy time, every
+    signal a write phase sends the worker's reactor is drained by its waits:
+    the 16 storage completions, and at --d2hdepth 2 the 16 deferred fetches;
+    a serial fetch sends none. Whether a fetch's signal wakes the worker
+    alone (reactor_wakeups_onready) or beside a storage completion
+    (reactor_wakeups_coalesced) follows where the scheduler runs the io-wq
+    thread that completes the write, so the test holds the sum: cq + onready
+    + coalesced counts each signal drained once. The last block's signals
+    are left to the next phase's rearm when its write completes before the
+    loop's last reap. Both packages hold this, the port's parent commit too:
+    the order of a fetch's signal and its completion, which the deferred
+    tree case [pjrt-paced-iodepth2-d2h2] holds, does not show here."""
+    for k in ("EBT_MOCK_PJRT_XFER_US", "EBT_MOCK_CUDA_XFER_US"):
+        monkeypatch.setenv(k, "2000")
+    monkeypatch.delenv("EBT_MOCK_URING", raising=False)
+    data = np.random.default_rng(7).integers(0, 256, 4 << 20,
+                                             dtype=np.uint8).tobytes()
+    for pkg in pkgs:
+        d = tmp_path / pkg.name
+        d.mkdir()
+        (d / "f").write_bytes(data)
+        args = (["-w"] + BASE + ["--tpubackend", "pjrt"] + PJRT + PACED
+                + ["--iodepth", "2", "--d2hdepth", d2h, str(d / "f")])
+        rs = run_trees(pkg, args, "w")[0]["ReactorStats"]
+        assert rs["reactor_waits"] == sum(rs[k] for k in (
+            "reactor_wakeups_cq", "reactor_wakeups_onready",
+            "reactor_wakeups_arrival", "reactor_wakeups_timeout",
+            "reactor_wakeups_interrupt")), (pkg.name, rs)
+        drained = (rs["reactor_wakeups_cq"] + rs["reactor_wakeups_onready"]
+                   + rs["reactor_wakeups_coalesced"])
+        if d2h == "1":
+            assert rs["reactor_wakeups_onready"] == 0, (pkg.name, rs)
+            assert drained in (15, 16), (pkg.name, rs)
+        else:
+            assert drained in (30, 31, 32), (pkg.name, rs)
