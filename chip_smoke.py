@@ -185,14 +185,24 @@ Phases, each reported on its own line:
  28. the port's headline bench (elbencho_tpu_torch/bench.py, runs after
      phase 27) in a child process against libcuda.so.1, its pair counts
      shrunk through module attributes (NUM_PAIRS 4, WRITE_PAIRS 5,
-     RAND_PAIRS 3, MIN_READ_PAIRS 2) and its ledger in a temp dir: rc 0,
-     backend pjrt with no fallback, tier zero_copy with no mismatch, no
-     wedge, read and write in (0, 1.05] of their in-session ceilings,
-     random IOPS, the scale and checkpoint legs clean, the stripe and
-     reshard legs run or skipped with their note, no kernel launched; its
-     read, write and random rates, ratios and device p50/p99 on one line
-     each, and the spread of each leg's graded pairs (from its --raw
-     lines). Phase 28 alone:
+     RAND_PAIRS 3, MIN_READ_PAIRS 2), every other constant the bench's
+     own, and its ledger in a temp dir. Its thirteen legs, in the bench's
+     order: write, read, random, scale, stripe, checkpoint, metadata,
+     io_uring A/B, offered load, serving under rotation, faults, ingest
+     and reshard. Checks: rc 0, backend pjrt with no fallback, tier
+     zero_copy with no mismatch, no wedge, read and write in (0, 1.05] of
+     their in-session ceilings, random IOPS, the scale and checkpoint legs
+     clean, the stripe and reshard legs run or skipped with their note,
+     the metadata leg clean above 0 of its raw-syscall ceiling, the
+     io_uring leg on aio with its cause (where the host has io_uring:
+     uring with a ratio, or the original's engagement refusal, printed
+     beside the host's kernel), the load leg clean with a monotone curve
+     and a byte-identical A/B, the serving leg clean with its engagement
+     confirmed, the faults leg's mock-only skip, the ingest leg clean
+     (tier pipelined or serial, records/s above 0), and no kernel
+     launched; one line per leg with its rates, ratios and device
+     p50/p99, and the spread of each paired leg's graded pairs (from its
+     --raw lines). Phase 28 alone:
        python3 -c "import chip_smoke as c; c.bench_on_card()"
 
 The second-to-last line is a JSON object describing each kernel of the path;
@@ -209,6 +219,7 @@ import ctypes
 import io
 import json
 import os
+import platform
 import re
 import shutil
 import subprocess
@@ -2642,14 +2653,44 @@ def bench_pair_spread(stdout: str) -> dict:
     return legs
 
 
+def _uring_leg_ok(rep: dict) -> tuple[bool, str]:
+    """The io_uring A/B leg, the one leg whose outcome depends on the host:
+    aio with its cause where the kernel refuses io_uring (the card's
+    machine), else uring with a ratio, or the original's engagement
+    refusal. Returns (ok, which branch ran)."""
+    ur = rep["legs"].get("uring", {})
+    engine = ur.get("ioengine")
+    if engine == "aio":
+        return (bool(ur.get("ioengine_cause")) and rep["uring_error"] is None
+                and (ur.get("aio_mib_s") or 0) > 0,
+                f"aio ({ur.get('ioengine_cause')})")
+    if engine == "uring":
+        if rep["uring_error"] is None:
+            return ((ur.get("uring_vs_aio") or 0) > 0,
+                    f"uring, uring_vs_aio {ur.get('uring_vs_aio')}")
+        return (rep["uring_error"] == URING_REFUSAL,
+                f"uring refused on kernel {platform.release()}: "
+                f"{rep['uring_error']}")
+    return False, f"no resolved engine ({ur})"
+
+
+# the original bench's io_uring engagement refusal, word for word
+URING_REFUSAL = ("uring engagement not confirmed: resolved backend is uring "
+                 "but uring_fixed_hits did not move")
+FAULTS_SKIP = ("fault seams are mock-only (EBT_CUDA_DRIVER must point at "
+               "libebtcudamock.so)")
+
+
 def bench_on_card() -> dict:
     """Phase 28: python -m elbencho_tpu_torch.bench's main() on the card
     (libcuda.so.1) with NUM_PAIRS 4, WRITE_PAIRS 5, RAND_PAIRS 3 and
-    MIN_READ_PAIRS 2. Its last line must grade the native path: rc 0,
-    backend pjrt with no fallback, tier zero_copy with no mismatch, no
-    wedge, both ceiling ratios in (0, 1.05], random IOPS, the scale and
-    checkpoint legs clean, the stripe and reshard legs run or skipped with
-    their note, and no kernel launched. Returns the report."""
+    MIN_READ_PAIRS 2, all thirteen legs. Its last line must grade the
+    native path: rc 0, backend pjrt with no fallback, tier zero_copy with
+    no mismatch, no wedge, both ceiling ratios in (0, 1.05], random IOPS,
+    the scale and checkpoint legs clean, the stripe and reshard legs run or
+    skipped with their note, the metadata, load, serving and ingest legs
+    clean, the io_uring leg on its host's branch, the faults leg's
+    mock-only skip, and no kernel launched. Returns the report."""
     card = gpu_name_and_power()
     t0 = time.perf_counter()
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -2672,6 +2713,7 @@ def bench_on_card() -> dict:
     finally:
         shutil.rmtree(d, ignore_errors=True)
     legs = rep["legs"]
+    uring_ok, uring_branch = _uring_leg_ok(rep)
     checks = {
         "backend pjrt": rep["backend"] == "pjrt",
         "no fallback": rep["fallback_events"] == 0,
@@ -2692,6 +2734,19 @@ def bench_on_card() -> dict:
         "reshard leg ran or skipped": rep["reshard_error"] is None and (
             "skipped" in legs.get("reshard", {})
             or legs.get("reshard", {}).get("engagement") == "confirmed"),
+        "meta leg clean": rep["meta_error"] is None
+            and (rep["meta_vs_ceiling"] or 0) > 0,
+        "uring leg on its host's branch": uring_ok,
+        "load leg clean": rep["load_error"] is None
+            and legs.get("load", {}).get("curve_monotone") is True
+            and legs.get("load", {}).get("ab_bytes_identical") is True,
+        "serving leg confirmed": rep["serving_error"] is None
+            and rep["serving_engagement"] == "confirmed",
+        "faults leg skipped (mock-only)": rep["faults_error"] is None
+            and legs.get("faults") == {"skipped": FAULTS_SKIP},
+        "ingest leg clean": rep["ingest_error"] is None
+            and rep["ingest_tier"] in ("pipelined", "serial")
+            and (rep["ingest_records_s"] or 0) > 0,
         "no kernel launched": not any(launches.values()),
     }
     failed = [k for k, ok in checks.items() if not ok]
@@ -2733,6 +2788,45 @@ def bench_on_card() -> dict:
                    f"under load p50 {ck['under_load']['ttr_p50_s']} s; "
                    f"stripe {legs['stripe']}; reshard {legs['reshard']} "
                    f"[{card}]")
+    me, ld, sv, ig = (legs["meta"], legs["load"], legs["serving"],
+                      legs["ingest"])
+    phase("bench", f"META {me['total_files']} files at -t {me['threads']}: "
+                   f"mkdirs {me['mkdirs_per_s']}/s, stat "
+                   f"{me['stat_per_s']}/s, delfiles {me['delfiles_per_s']}"
+                   f"/s, median {me['vs_ceiling']} of the raw-syscall "
+                   f"ceilings {me['ceiling_per_s']} [{card}]")
+    phase("bench", f"URING branch {uring_branch}: aio "
+                   f"{legs['uring'].get('aio_mib_s')} MiB/s "
+                   f"({legs['uring'].get('aio_vs_raw')} of raw pread "
+                   f"{legs['uring'].get('raw_pread_mib_s')} MiB/s) [{card}]")
+    phase("bench", f"LOAD closed loop {ld['closed_loop_iops']} IOPS, knee "
+                   f"{ld['knee_frac']}, offered/achieved IOPS "
+                   + ", ".join(f"{p['offered_frac']}x "
+                               f"{p['offered_iops']}/{p['achieved_iops']}"
+                               for p in ld["points"])
+                   + "; worst class p99 us "
+                   + "/".join(str(max(c["p99_us"]
+                                      for c in p["classes"].values()))
+                              for p in ld["points"])
+                   + f"; reactor {ld['reactor_enabled']}, mid-grid "
+                   f"sched_lag {rep['reactor_sched_lag_ns']} ns vs poll "
+                   f"{rep['poll_sched_lag_ns']} ns [{card}]")
+    phase("bench", f"SERVING closed loop {sv['closed_loop_iops']} IOPS, "
+                   f"baseline p99 {sv['baseline_p99_us']} us, slo "
+                   f"{sv['slo_target_ms']} ms; " + "; ".join(
+                       f"budget {p['bgbudget']} B/s: goodput "
+                       f"{p['goodput']}, p99 {p['p99_us']} us, "
+                       f"{p['rotations']} rotation(s), ttr "
+                       f"{p['ttr_mean_s']} s, throttle "
+                       f"{p['bg_throttle_ms']} ms"
+                       for p in sv["frontier"]) + f" [{card}]")
+    phase("bench", f"FAULTS {legs['faults']}; INGEST "
+                   f"{ig['ingest_records_s']} records/s ({ig['tier']}, "
+                   f"epoch p50 {ig['epoch_p50_s']} s, "
+                   f"{ig['vs_ceiling']} of the raw record ceiling "
+                   f"{ig['ceiling_records_s']}/s), records "
+                   f"{ig['ingest']['records_read']} read / "
+                   f"{ig['ingest']['records_resident']} resident [{card}]")
     # the medians above stand on a few pairs of 128 MiB windows each: the
     # spread of the pairs beside them says how far one reading can move
     phase("bench", "graded pairs, MiB/s min-max (n): " + "; ".join(

@@ -34,10 +34,11 @@ windows, and the reported ratio is the median over pairs.
 
 The write direction (device-born bytes -> storage) is measured the same
 way in a leg before the read pairs, against the in-session raw D2H
-ceiling ("write_vs_d2h_ceiling"). The random leg, the thread-scaling leg,
-the mesh-striped fill leg, the checkpoint-restore leg and the reshard leg
-follow. The original's metadata, io_uring, offered-load, serving, faults
-and ingest legs are not ported yet: their fields are absent.
+ceiling ("write_vs_d2h_ceiling"). The random, thread-scaling,
+mesh-striped fill, checkpoint-restore, metadata, io_uring A/B,
+offered-load, serving-under-rotation, faults, ingest and reshard legs
+follow, in that order, each with the original's fields, budgets and
+refusals.
 
 Prints ONE JSON line:
 {"metric", "value", "unit", "vs_baseline", "backend", "fallback_events",
@@ -105,6 +106,141 @@ STRIPE_POLICY = "rr"
 CKPT_LEG_BUDGET_CAP_S = 180
 CKPT_SHARDS = 8
 CKPT_SESSIONS = 5  # restore sessions per variant (p50/p99 across them)
+# many-files metadata leg (mkdirs/stat/delfiles — the dir-mode phase
+# family): per-phase entries/s graded against a raw-syscall ceiling run at
+# the same concurrency.
+META_LEG_BUDGET_CAP_S = 90
+META_THREADS = 2
+META_DIRS = 4     # dirs per thread
+META_FILES = 64   # files per dir
+META_FILE_BYTES = 4096
+# storage-backend A/B leg (--ioengine): the SAME sequential-read traffic
+# through the auto-resolved backend and through the EBT_URING_DISABLE=1
+# kernel-AIO control (byte-identical, the EBT_PJRT_SINGLE_LANE discipline
+# applied to the storage side), both graded against one raw-pread ceiling
+# at the same concurrency. The uring side is engagement-CONFIRMED from
+# uring_fixed_hits deltas (a "uring" claim without fixed-op traffic is a
+# probe artifact, not a backend win); on kernels without io_uring the leg
+# records the AIO fallback with its logged cause instead of a ratio.
+URING_LEG_BUDGET_CAP_S = 90
+URING_THREADS = 2
+URING_DEPTH = 8
+URING_FILE_BYTES = 64 << 20
+URING_BLOCK_BYTES = 1 << 20
+URING_READ_REPS = 3
+# open-loop offered-load sweep leg (--arrival/--tenants): the same
+# sequential-read traffic issued on a virtual-time schedule at a grid of
+# offered rates (fractions of the closed-loop ceiling measured first on
+# byte-identical traffic), two tenant classes with separate histograms.
+# Per step and class: achieved iops + p50/p99 measured from the SCHEDULED
+# arrival (queueing delay counts), with knee detection (first step that
+# can't sustain its offered rate or inflates p99 past the low-rate
+# baseline) and an EBT_LOAD_CLOSED_LOOP=1 A/B re-run proving
+# byte-identical traffic. No device path — the leg runs on every backend.
+LOAD_LEG_BUDGET_CAP_S = 120
+LOAD_THREADS = 2          # one worker per tenant class
+LOAD_IODEPTH = 4          # the ASYNC loop: the shape the completion
+                          # reactor unifies (CQ eventfd + arrival timeout)
+LOAD_FILE_BYTES = 16 << 20
+LOAD_BLOCK_BYTES = 128 << 10
+LOAD_TENANT_BS = 64 << 10  # class "hot" issues at half the block size
+LOAD_GRID = (0.25, 0.5, 0.75, 1.0, 1.25)  # fractions of the closed ceiling
+LOAD_KNEE_SUSTAIN = 0.9   # knee: achieved < 90% of offered ...
+LOAD_KNEE_P99_X = 4.0     # ... or p99 > 4x the lowest-rate baseline
+# serving-under-rotation leg (--arrival trace + --rotate + --bgbudget):
+# trace-scheduled traffic near the knee races a recurring manifest restore
+# at several background budgets; the goodput-vs-ttr frontier grades the
+# QoS class (per-class fraction of completions under the SLO target on
+# the scheduled-arrival clock vs the rotation's time-to-resident). The
+# SLO target self-calibrates from a no-rotation baseline's p99, and the
+# mock driver's per-copy service time makes device-channel interference
+# real on the CPU (the same env both sides of the A/B share; the real
+# driver ignores it).
+SERVING_LEG_BUDGET_CAP_S = 150
+SERVING_THREADS = 1
+SERVING_FILE_BYTES = 24 << 20
+SERVING_BLOCK_BYTES = 64 << 10
+SERVING_RAND_BYTES = 192 << 20  # random-read op count (ops = amount/bs):
+                                # the serving phase must outlast several
+                                # rotation periods, independent of file
+                                # size (the file itself stays cache-warm)
+SERVING_SHARDS = 8              # rotation payload: shards x blocks each
+SERVING_SHARD_BLOCKS = 16       # 8 MiB per rotation
+SERVING_ROTATE_S = 0.4
+SERVING_BG_BUDGETS = (0, 16 << 20, 6 << 20)  # bytes/s; 0 = unthrottled A/B
+SERVING_SLO_HEADROOM = 1.5      # slo target = headroom x baseline p99
+SERVING_XFER_US = 1000          # mock per-copy service time: slow enough
+                                # that an unthrottled dump QUEUES on the
+                                # channel
+# the diurnal schedule as fractions of the closed-loop rate: (at s, kind,
+# fraction, end fraction of a ramp) — ramp into a near-knee steady state,
+# cross a flash burst, settle
+SERVING_TRACE = ((0.0, "ramp", 0.12, 0.3), (1.0, "step", 0.3, None),
+                 (2.4, "burst", 0.42, None), (2.9, "step", 0.25, None))
+
+
+def serving_trace_ops(per_worker: float, secs: float) -> float:
+    """Arrivals SERVING_TRACE schedules in its first `secs` seconds at a
+    closed-loop rate of `per_worker` ops/s (a ramp contributes its mean
+    rate over the part of it that has run)."""
+    ops = 0.0
+    for i, (at, _kind, frac, end_frac) in enumerate(SERVING_TRACE):
+        stop = SERVING_TRACE[i + 1][0] if i + 1 < len(SERVING_TRACE) \
+            else float("inf")
+        span = max(0.0, min(secs, stop) - at)
+        if end_frac is not None and span:
+            end_frac = frac + (end_frac - frac) * span / (stop - at)
+            frac = (frac + end_frac) / 2
+        ops += frac * per_worker * span
+    return ops
+
+
+def serving_rand_bytes(per_worker: float) -> int:
+    """The serving variants' random-read bytes: SERVING_RAND_BYTES, or more
+    where the device is fast enough that its ops would end a variant
+    before the slowest budget's first rotation could complete. A rotation
+    starts one period in and, its bucket starting empty, moves the payload
+    at the budget: the variant must outlast SERVING_ROTATE_S plus twice
+    that. At the mock's 1 ms per copy (about 1000 ops/s) the original's
+    192 MiB last about 10 s and are kept; on an H100 (9072 ops/s closed
+    loop) they last about 1.4 s, under the 1.73 s that an 8 MiB rotation
+    at 6 MiB/s needs."""
+    payload = SERVING_SHARDS * SERVING_SHARD_BLOCKS * SERVING_BLOCK_BYTES
+    slowest = min(b for b in SERVING_BG_BUDGETS if b)
+    need_s = SERVING_ROTATE_S + 2 * payload / slowest
+    ops = int(serving_trace_ops(per_worker, need_s)) + 1
+    return max(SERVING_RAND_BYTES, ops * SERVING_BLOCK_BYTES)
+# degraded-mode leg (--retry/--maxerrors + the chaos seams): a striped
+# read with faults injected on >= 2 layers at FAULTS_RATE (one stripe-unit
+# device failure in flight + one uring fixed-buffer registration failure)
+# must complete BYTE-EXACT via device ejection + live replanning, with
+# ejected_devices >= 1 and "device N: cause" attribution, and its
+# throughput is reported as a fraction of the clean (fault-free) pass. A
+# --maxerrors 0 A/B with the SAME injection must reproduce the first-error
+# abort. Mock-only: the seams live in the mock driver / uring shim.
+FAULTS_LEG_BUDGET_CAP_S = 90
+FAULTS_RATE = 0.05
+FAULTS_SEED = 7
+FAULTS_BLOCKS = 32
+FAULTS_BLOCK_BYTES = 256 << 10
+# DL-ingestion leg (--ingestshards): shuffled small-record reads over a
+# generated sharded dataset, records batched into blocks for the deferred
+# H2D path, multi-epoch pipelined prefetch. Headline ingest_records_s +
+# per-epoch times, graded against a SAME-CONCURRENCY raw small-record
+# ceiling (python threads pread-ing the identical shuffled record order
+# with no device path); the ingest tier is engagement-confirmed from
+# counter deltas and the per-epoch records_read == resident + dropped
+# invariant is asserted per run. pjrt-only (the ingest ledger lives in
+# the native path).
+INGEST_LEG_BUDGET_CAP_S = 90
+INGEST_THREADS = 2
+INGEST_SHARDS_N = 4
+INGEST_SHARD_BYTES = 4 << 20
+INGEST_RECORD_BYTES = 4096
+INGEST_BLOCK_BYTES = 256 << 10
+INGEST_EPOCHS = 2
+INGEST_WINDOW = 1024
+INGEST_SEED = 11
 # consolidated onto M = ndev//2 target devices, so half the shards MOVE
 # device->device through HBM (the D2D tier). The RESHARD phase's clock —
 # sealed by the direction-15 all-resharded barrier — IS
@@ -651,6 +787,249 @@ def measure_checkpoint_leg(group, sizes: Sizes,
     return entry
 
 
+def measure_meta_leg(workdir: str, rawlog=lambda m: None,
+                     budget_s: float | None = None) -> dict:
+    """Many-files metadata leg (mkdirs/stat/delfiles): the dir-mode phase
+    family through the engine at -t META_THREADS, each phase's entries/s
+    graded against a raw-syscall ceiling (os.mkdir/os.stat/os.unlink tight
+    loops at the SAME concurrency over an equivalent tree — Python-loop
+    overhead makes it a floor-ish ceiling; metadata syscalls release the
+    GIL, so the threads genuinely overlap). No device path — the leg runs
+    on every backend."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .common import BenchPhase
+    from .config import config_from_args
+    from .workers.local import LocalWorkerGroup
+
+    leg_t0 = time.monotonic()
+
+    def check_budget(next_step: str) -> None:
+        if budget_s is not None and time.monotonic() - leg_t0 > budget_s:
+            raise TransportStalled(
+                f"metadata leg outran its budget before {next_step}")
+
+    base = os.path.join(workdir, "ebt_meta_leg")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    cfg = config_from_args([
+        "-d", "-w", "--stat", "-F", "-D",
+        "-t", str(META_THREADS), "-n", str(META_DIRS),
+        "-N", str(META_FILES), "-s", str(META_FILE_BYTES),
+        "-b", str(META_FILE_BYTES), "--nolive", base,
+    ])
+    group = LocalWorkerGroup(cfg)
+    group.prepare()
+
+    def phase_entries_per_s(phase, bench_id: str) -> float:
+        agg = _wait_phase_aggregate(group, phase, bench_id,
+                                    PHASE_DEADLINE_S)
+        secs = agg.last_elapsed_us / 1e6
+        return agg.last_ops.entries / secs if secs else 0.0
+
+    entry: dict = {"threads": META_THREADS, "dirs_per_thread": META_DIRS,
+                   "files_per_dir": META_FILES,
+                   "total_files": META_THREADS * META_DIRS * META_FILES}
+    try:
+        entry["mkdirs_per_s"] = round(
+            phase_entries_per_s(BenchPhase.CREATEDIRS, "mmk"), 1)
+        check_budget("the write phase")
+        phase_entries_per_s(BenchPhase.CREATEFILES, "mwr")  # tree setup
+        check_budget("the stat phase")
+        entry["stat_per_s"] = round(
+            phase_entries_per_s(BenchPhase.STATFILES, "mst"), 1)
+        check_budget("the delete phase")
+        entry["delfiles_per_s"] = round(
+            phase_entries_per_s(BenchPhase.DELETEFILES, "mdf"), 1)
+        phase_entries_per_s(BenchPhase.DELETEDIRS, "mdd")  # cleanup
+    finally:
+        group.teardown()
+
+    # raw-syscall ceilings at the same concurrency over an equivalent tree
+    check_budget("the raw-syscall ceilings")
+    raw = os.path.join(base, "raw")
+    per_thread_dirs = [[os.path.join(raw, f"r{t}", f"d{d}")
+                        for d in range(META_DIRS)]
+                       for t in range(META_THREADS)]
+    per_thread_files = [[os.path.join(d, f"f{i}") for d in dirs
+                         for i in range(META_FILES)]
+                        for dirs in per_thread_dirs]
+    for t in range(META_THREADS):
+        os.makedirs(os.path.join(raw, f"r{t}"))
+
+    def timed_op(per_thread_paths, op) -> float:
+        def worker(paths: list[str]) -> float:
+            t0 = time.perf_counter()
+            for p in paths:
+                op(p)
+            return time.perf_counter() - t0
+
+        with ThreadPoolExecutor(META_THREADS) as ex:
+            times = list(ex.map(worker, per_thread_paths))
+        total = sum(len(p) for p in per_thread_paths)
+        return total / max(times) if max(times) else 0.0
+
+    ceilings: dict[str, float] = {}
+    ceilings["mkdirs"] = timed_op(per_thread_dirs, os.mkdir)
+    blk = b"\0" * META_FILE_BYTES
+
+    def touch(p: str) -> None:
+        with open(p, "wb") as f:
+            f.write(blk)
+
+    timed_op(per_thread_files, touch)  # tree setup (not a ceiling)
+    ceilings["stat"] = timed_op(per_thread_files, os.stat)
+    ceilings["delfiles"] = timed_op(per_thread_files, os.unlink)
+    shutil.rmtree(base, ignore_errors=True)
+
+    entry["ceiling_per_s"] = {k: round(v, 1) for k, v in ceilings.items()}
+    ratios = []
+    for phase_key, ceil_key in (("mkdirs_per_s", "mkdirs"),
+                                ("stat_per_s", "stat"),
+                                ("delfiles_per_s", "delfiles")):
+        c = ceilings.get(ceil_key, 0.0)
+        if c and entry.get(phase_key):
+            r = round(entry[phase_key] / c, 3)
+            entry[f"{ceil_key}_vs_ceiling"] = r
+            ratios.append(r)
+    if ratios:
+        entry["vs_ceiling"] = round(sorted(ratios)[len(ratios) // 2], 3)
+    rawlog(f"meta: mkdirs {entry.get('mkdirs_per_s')}/s, stat "
+           f"{entry.get('stat_per_s')}/s, delfiles "
+           f"{entry.get('delfiles_per_s')}/s (median vs raw-syscall "
+           f"ceiling {entry.get('vs_ceiling')})")
+    return entry
+
+
+def measure_ingest_leg(workdir: str, rawlog=lambda m: None,
+                       budget_s: float | None = None) -> dict:
+    """DL-ingestion leg (--ingestshards): the INGEST phase over a generated
+    sharded dataset — shuffled record reads batched into blocks riding the
+    deferred H2D path across INGEST_EPOCHS epochs — graded against a raw
+    small-record ceiling at the SAME concurrency reading the IDENTICAL
+    shuffled record order (the native shuffle seam supplies it, so the
+    numerator and denominator walk one access pattern). The per-epoch
+    records_read == resident + dropped invariant is asserted; a violation
+    lands in reconcile_error and fails the leg's grade."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .common import BenchPhase
+    from .config import config_from_args
+    from .engine_stats import shuffle_sample
+    from .workers.local import LocalWorkerGroup
+
+    leg_t0 = time.monotonic()
+
+    def check_budget(next_step: str) -> None:
+        if budget_s is not None and time.monotonic() - leg_t0 > budget_s:
+            raise TransportStalled(
+                f"ingest leg outran its budget before {next_step}")
+
+    base = os.path.join(workdir, "ebt_ingest_leg")
+    os.makedirs(base, exist_ok=True)
+    cfg = config_from_args([
+        "--ingestshards", str(INGEST_SHARDS_N), "-w",
+        "-s", str(INGEST_SHARD_BYTES), "-b", str(INGEST_BLOCK_BYTES),
+        "--recordsize", str(INGEST_RECORD_BYTES),
+        "--epochs", str(INGEST_EPOCHS),
+        "--shufflewindow", str(INGEST_WINDOW),
+        "--shuffleseed", str(INGEST_SEED),
+        "-t", str(INGEST_THREADS), "--tpubackend", "pjrt", "--nolive",
+        base,
+    ])
+    total_records = cfg.ingest_total_records()
+    entry: dict = {"threads": INGEST_THREADS, "shards": INGEST_SHARDS_N,
+                   "record_bytes": INGEST_RECORD_BYTES,
+                   "records_per_epoch": total_records,
+                   "epochs": INGEST_EPOCHS,
+                   "shuffle_window": INGEST_WINDOW}
+    group = LocalWorkerGroup(cfg)
+    try:
+        group.prepare()
+        check_budget("the ingest phase")
+        agg = _wait_phase_aggregate(group, BenchPhase.INGEST, "ingleg",
+                                    PHASE_DEADLINE_S)
+        secs = agg.last_elapsed_us / 1e6
+        istats = group.ingest_stats() or {}
+        entry["ingest"] = istats
+        entry["tier"] = group.ingest_tier()
+        ierr = group.ingest_error()
+        if ierr:
+            entry["ingest_failure"] = ierr
+        # the honesty invariant, per epoch AND in total: records the
+        # pipeline read must be resident or accounted dropped once the
+        # direction-12 barrier sealed the phase
+        bad = []
+        if istats.get("records_read", 0) != \
+                istats.get("records_resident", 0) + \
+                istats.get("records_dropped", 0):
+            bad.append("total")
+        for i, e in enumerate(istats.get("epochs", [])):
+            if e.get("read", 0) != e.get("resident", 0) + e.get(
+                    "dropped", 0):
+                bad.append(f"epoch {i}")
+        if bad:
+            entry["reconcile_error"] = (
+                "records_read != resident + dropped (" + ", ".join(bad)
+                + ")")
+        if istats.get("records_resident", 0) <= 0:
+            # no resident records = nothing engagement-confirmed to grade
+            entry.setdefault("reconcile_error",
+                             "no records reached device residency")
+        ingested = istats.get("records_read", 0)
+        if secs > 0 and ingested and "reconcile_error" not in entry:
+            entry["ingest_records_s"] = round(ingested / secs, 1)
+        times = [t / 1e9 for t in istats.get("epoch_time_ns", [])]
+        if times:
+            st = sorted(times)
+            entry["epoch_p50_s"] = round(st[len(st) // 2], 4)
+            entry["epoch_times_s"] = [round(t, 4) for t in times]
+    finally:
+        group.teardown()
+
+    # raw small-record ceiling at the SAME concurrency: python threads
+    # pread the IDENTICAL shuffled record order (one epoch's pattern from
+    # the shipped shuffle seam) straight from the shard files — no device
+    # path, no engine; the honest denominator for a records/s claim
+    check_budget("the raw record ceiling")
+    paths = cfg.ingest_paths()
+    rps = cfg.ingest_records_per_shard()
+    ndt = max(1, cfg.num_dataset_threads)
+    per = total_records // ndt
+
+    def raw_worker(rank: int) -> tuple[int, float]:
+        start = rank * per
+        end = total_records if rank == ndt - 1 else start + per
+        recs = shuffle_sample(INGEST_SEED, 0, rank, start, end,
+                              INGEST_WINDOW)
+        fds = [os.open(p, os.O_RDONLY) for p in paths]
+        try:
+            t0 = time.perf_counter()
+            for r in recs:
+                os.pread(fds[r // rps], INGEST_RECORD_BYTES,
+                         (r % rps) * INGEST_RECORD_BYTES)
+            return len(recs), time.perf_counter() - t0
+        finally:
+            for fd in fds:
+                os.close(fd)
+
+    with ThreadPoolExecutor(INGEST_THREADS) as ex:
+        sides = list(ex.map(raw_worker, range(ndt)))
+    slowest = max(t for _, t in sides) if sides else 0.0
+    raw_total = sum(n for n, _ in sides)
+    if slowest > 0:
+        entry["ceiling_records_s"] = round(raw_total / slowest, 1)
+        if entry.get("ingest_records_s"):
+            entry["vs_ceiling"] = round(
+                entry["ingest_records_s"] / entry["ceiling_records_s"], 3)
+    shutil.rmtree(base, ignore_errors=True)
+    rawlog(f"ingest: {entry.get('ingest_records_s')} records/s over "
+           f"{INGEST_EPOCHS} epochs (epoch p50 "
+           f"{entry.get('epoch_p50_s')}s, tier {entry.get('tier')}, "
+           f"vs raw record ceiling {entry.get('vs_ceiling')})")
+    return entry
+
+
 
 
 def measure_reshard_leg(workdir: str, sizes: Sizes,
@@ -875,6 +1254,672 @@ def measure_reshard_leg(workdir: str, sizes: Sizes,
     return entry
 
 
+def measure_uring_leg(workdir: str, rawlog=lambda m: None,
+                      budget_s: float | None = None) -> dict:
+    """Storage-backend A/B leg (--ioengine auto vs the EBT_URING_DISABLE=1
+    kernel-AIO control): sequential reads at --iodepth URING_DEPTH over one
+    bench file, byte-identical traffic on both sides, both graded against
+    ONE raw-pread ceiling at the same concurrency. The uring side is
+    engagement-confirmed from uring_fixed_hits deltas (unified-pin fixed
+    ops actually rode the ring) and records the double_pin_avoided_bytes
+    delta as the one-pin evidence; a probe fallback records the AIO shape
+    with its logged cause instead of a ratio. No device path — the leg
+    runs on every backend."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .common import BenchPhase
+    from .config import config_from_args
+    from .engine_stats import uring_stats
+    from .workers.local import LocalWorkerGroup
+
+    leg_t0 = time.monotonic()
+
+    def check_budget(next_step: str) -> None:
+        if budget_s is not None and time.monotonic() - leg_t0 > budget_s:
+            raise TransportStalled(
+                f"uring leg outran its budget before {next_step}")
+
+    path = os.path.join(workdir, "ebt_uring_leg.bin")
+    args = ["-w", "-r", "-s", str(URING_FILE_BYTES),
+            "-b", str(URING_BLOCK_BYTES), "-t", str(URING_THREADS),
+            "--iodepth", str(URING_DEPTH), "--nolive", path]
+
+    def run_side(disable: bool, prefix: str) -> dict:
+        """One A/B side: write (setup) + URING_READ_REPS timed read phases
+        on a fresh engine whose backend resolution saw the given
+        EBT_URING_DISABLE state. Returns rate/engine/cause/counter deltas."""
+        old = os.environ.get("EBT_URING_DISABLE")
+        if disable:
+            os.environ["EBT_URING_DISABLE"] = "1"
+        else:
+            os.environ.pop("EBT_URING_DISABLE", None)
+        try:
+            group = LocalWorkerGroup(config_from_args(list(args)))
+            group.prepare()
+            try:
+                _run_phase(group, BenchPhase.CREATEFILES, f"{prefix}w")
+                base = uring_stats()
+                rates = []
+                for i in range(URING_READ_REPS):
+                    check_budget(f"{prefix} read rep {i}")
+                    rates.append(_run_phase(group, BenchPhase.READFILES,
+                                            f"{prefix}r{i}"))
+                now = uring_stats()
+                side = {
+                    "mib_s": round(sorted(rates)[len(rates) // 2], 1),
+                    "ioengine": group.io_engine(),
+                    "cause": group.io_engine_cause() or None,
+                    "uring": {k: now[k] - base[k] for k in now},
+                }
+            finally:
+                group.teardown()
+            return side
+        finally:
+            if old is None:
+                os.environ.pop("EBT_URING_DISABLE", None)
+            else:
+                os.environ["EBT_URING_DISABLE"] = old
+
+    primary = run_side(disable=False, prefix="ur")
+    entry: dict = {
+        "threads": URING_THREADS, "iodepth": URING_DEPTH,
+        "block_kib": URING_BLOCK_BYTES >> 10,
+        "file_mib": URING_FILE_BYTES >> 20,
+        "ioengine": primary["ioengine"],
+        "ioengine_cause": primary["cause"],
+        "uring": primary["uring"],
+    }
+    if primary["ioengine"] == "uring":
+        # engagement confirmation, same discipline as the data-path tiers:
+        # a resolved-uring side whose reads produced no fixed-op hits did
+        # not actually ride the unified pin — the ratio would grade the
+        # wrong backend, so the leg refuses it loudly
+        if primary["uring"].get("uring_fixed_hits", 0) <= 0:
+            entry["error"] = ("uring engagement not confirmed: resolved "
+                              "backend is uring but uring_fixed_hits did "
+                              "not move")
+            rawlog(f"uring leg: {entry['error']}")
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+            return entry
+        check_budget("the AIO control side")
+        control = run_side(disable=True, prefix="ua")
+        entry["uring_mib_s"] = primary["mib_s"]
+        entry["aio_mib_s"] = control["mib_s"]
+        entry["aio_cause"] = control["cause"]
+        if control["mib_s"]:
+            entry["uring_vs_aio"] = round(
+                primary["mib_s"] / control["mib_s"], 3)
+    else:
+        # probe fallback (this kernel has no io_uring) or explicit A/B
+        # disable: the AIO shape IS the measurement; the cause is the
+        # evidence that the fallback was deliberate, not silent
+        entry["aio_mib_s"] = primary["mib_s"]
+
+    # one raw ceiling for BOTH sides: concurrent plain-pread loops at the
+    # same thread count and block size over the same bytes (no queue depth
+    # — a floor-ish ceiling; both backends are graded against the same
+    # denominator so the A/B ratio stays comparable across sessions)
+    check_budget("the raw-pread ceiling")
+
+    def pread_worker(t: int) -> float:
+        span = URING_FILE_BYTES // URING_THREADS
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            t0 = time.perf_counter()
+            off = t * span
+            end = off + span
+            while off < end:
+                os.pread(fd, URING_BLOCK_BYTES, off)
+                off += URING_BLOCK_BYTES
+            return time.perf_counter() - t0
+        finally:
+            os.close(fd)
+
+    with ThreadPoolExecutor(URING_THREADS) as ex:
+        times = list(ex.map(pread_worker, range(URING_THREADS)))
+    if max(times) > 0:
+        raw = (URING_FILE_BYTES / (1 << 20)) / max(times)
+        entry["raw_pread_mib_s"] = round(raw, 1)
+        for key in ("uring_mib_s", "aio_mib_s"):
+            if entry.get(key):
+                entry[key.replace("_mib_s", "_vs_raw")] = round(
+                    entry[key] / raw, 3)
+    try:
+        os.unlink(path)
+    except OSError:
+        pass
+    rawlog(f"uring: resolved {entry['ioengine']}"
+           + (f", uring {entry.get('uring_mib_s')} vs aio "
+              f"{entry.get('aio_mib_s')} MiB/s "
+              f"(ratio {entry.get('uring_vs_aio')})"
+              if entry["ioengine"] == "uring" else
+              f" ({entry.get('ioengine_cause')}), aio "
+              f"{entry.get('aio_mib_s')} MiB/s"))
+    return entry
+
+
+def measure_load_leg(workdir: str, rawlog=lambda m: None,
+                     budget_s: float | None = None) -> dict:
+    """Open-loop offered-load sweep: two tenant classes ("hot":
+    small-block, "bulk": full-block) read one bench file on a paced
+    arrival schedule at LOAD_GRID fractions of the closed-loop ceiling
+    measured first on the same traffic. Emits the per-class
+    throughput-vs-p50/p99 curve (latency clocked from the SCHEDULED
+    arrival, so queueing delay and coordinated omission are measured, not
+    masked), detects the knee, and re-runs one grid point under
+    EBT_LOAD_CLOSED_LOOP=1 as the byte-identical A/B control."""
+    from .common import BenchPhase
+    from .config import config_from_args
+    from .workers.local import LocalWorkerGroup
+
+    leg_t0 = time.monotonic()
+
+    def check_budget(next_step: str) -> None:
+        if budget_s is not None and time.monotonic() - leg_t0 > budget_s:
+            raise TransportStalled(
+                f"load leg outran its budget before {next_step}")
+
+    path = os.path.join(workdir, "ebt_load_leg.bin")
+    base_args = ["-r", "-s", str(LOAD_FILE_BYTES),
+                 "-b", str(LOAD_BLOCK_BYTES), "-t", str(LOAD_THREADS),
+                 "--iodepth", str(LOAD_IODEPTH), "--nolive", path]
+
+    def tenants_arg(hot_rate: float, bulk_rate: float) -> list[str]:
+        return ["--arrival", "paced", "--tenants",
+                f"hot:rate={hot_rate:.2f},bs={LOAD_TENANT_BS};"
+                f"bulk:rate={bulk_rate:.2f}"]
+
+    def run_read(extra: list[str], bench_id: str):
+        group = LocalWorkerGroup(config_from_args(base_args[:-1] + extra +
+                                                  [path]))
+        group.prepare()
+        try:
+            agg = _wait_phase_aggregate(group, BenchPhase.READFILES,
+                                        bench_id, PHASE_DEADLINE_S)
+            stats = group.tenant_stats()
+            lat = group.tenant_latency()
+            mode = group.arrival_mode()
+            # reactor engagement evidence: phase-scoped wakeup counters,
+            # so the post-phase read IS the delta (the same counter-delta
+            # discipline every tier/backend claim rides on)
+            reactor = {"enabled": group.reactor_enabled(),
+                       "cause": group.reactor_cause() or None,
+                       "stats": group.reactor_stats()}
+        finally:
+            group.teardown()
+        return agg, stats, lat, mode, reactor
+
+    def sweep(label: str, per_worker_closed: float):
+        """One pass over LOAD_GRID: per-step per-class achieved/latency
+        points, knee detection, and the mid-grid step's aggregate
+        sched_lag + reactor evidence (the reactor_vs_poll comparison
+        side)."""
+        points: list[dict] = []
+        baseline_p99 = None
+        knee = None
+        mid = {"bytes": 0, "sched_lag_ns": 0, "reactor": None}
+        for frac in LOAD_GRID:
+            check_budget(f"the {label} {frac:g}x grid step")
+            # "hot" issues 2x the ops for the same bytes (half-size
+            # blocks): offer it the fraction at its own op size, "bulk"
+            # at full blocks
+            hot_rate = frac * per_worker_closed * \
+                (LOAD_BLOCK_BYTES / LOAD_TENANT_BS)
+            bulk_rate = frac * per_worker_closed
+            agg, stats, lat, mode, reactor = run_read(
+                tenants_arg(hot_rate, bulk_rate), f"l{label}{frac:g}")
+            secs = agg.last_elapsed_us / 1e6
+            point: dict = {"offered_frac": frac,
+                           "offered_iops": round(hot_rate + bulk_rate, 1),
+                           "achieved_iops":
+                               round(agg.last_ops.iops / secs, 1) if secs
+                               else 0.0,
+                           "arrival_mode": mode, "classes": {}}
+            for st in stats or []:
+                lbl = "hot" if st["tenant"] == 0 else "bulk"
+                histo = lat.get(lbl)
+                point["classes"][lbl] = {
+                    "offered_iops": round(hot_rate if lbl == "hot"
+                                          else bulk_rate, 1),
+                    "achieved_iops": round(st["completions"] / secs, 1)
+                    if secs else 0.0,
+                    "p50_us": histo.percentile_us(50.0) if histo else 0,
+                    "p99_us": histo.percentile_us(99.0) if histo else 0,
+                    "sched_lag_ms": round(st["sched_lag_ns"] / 1e6, 1),
+                    "backlog_peak": st["backlog_peak"],
+                    "dropped": st["dropped"],
+                }
+            if frac == LOAD_GRID[len(LOAD_GRID) // 2]:
+                mid["bytes"] = agg.last_ops.bytes
+                mid["sched_lag_ns"] = sum(
+                    st["sched_lag_ns"] for st in stats or [])
+                mid["reactor"] = reactor
+            worst_p99 = max((c["p99_us"]
+                             for c in point["classes"].values()),
+                            default=0)
+            if baseline_p99 is None:
+                baseline_p99 = max(worst_p99, 1)
+            sustained = point["achieved_iops"] >= \
+                LOAD_KNEE_SUSTAIN * point["offered_iops"]
+            inflated = worst_p99 > LOAD_KNEE_P99_X * baseline_p99
+            point["sustained"] = sustained
+            if knee is None and (not sustained or inflated):
+                knee = frac
+            points.append(point)
+            rawlog(f"load[{label}] {frac:g}x: offered "
+                   f"{point['offered_iops']}/s, achieved "
+                   f"{point['achieved_iops']}/s, worst p99 {worst_p99}us"
+                   + (" [knee]" if knee == frac else ""))
+        return points, knee, mid
+
+    # setup file (closed loop, untimed) + closed-loop ceiling on the SAME
+    # traffic shape: total iops the storage path sustains unpaced — the
+    # grid's anchor and the "closed-loop ceiling" the curve is graded vs
+    setup = LocalWorkerGroup(config_from_args(["-w"] + base_args[1:-1] +
+                                              [path]))
+    setup.prepare()
+    try:
+        _wait_phase_aggregate(setup, BenchPhase.CREATEFILES, "lw",
+                              PHASE_DEADLINE_S)
+    finally:
+        setup.teardown()
+    check_budget("the closed-loop ceiling")
+    agg, _, _, _, _ = run_read([], "lc")
+    closed_secs = agg.last_elapsed_us / 1e6
+    closed_iops = agg.last_ops.iops / closed_secs if closed_secs else 0.0
+    per_worker_closed = closed_iops / LOAD_THREADS
+    entry: dict = {
+        "threads": LOAD_THREADS, "iodepth": LOAD_IODEPTH,
+        "block_kib": LOAD_BLOCK_BYTES >> 10,
+        "hot_bs_kib": LOAD_TENANT_BS >> 10,
+        "file_mib": LOAD_FILE_BYTES >> 20, "arrival": "paced",
+        "closed_loop_iops": round(closed_iops, 1),
+    }
+    if per_worker_closed <= 0:
+        entry["error"] = "closed-loop ceiling measured zero iops"
+        return entry
+
+    # the sweep: offered rate steps the grid; per class the achieved rate
+    # and scheduled-arrival p50/p99 form the offered-load curve
+    points, knee, mid = sweep("s", per_worker_closed)
+    ab_open_bytes = mid["bytes"]  # the A/B's open side IS the mid-grid
+    # step (same rates, same deterministic full-file traffic)
+    entry["points"] = points
+
+    # reactor engagement (the unified arrival/CQ/OnReady wait): confirmed
+    # from the mid-grid step's wakeup-counter deltas — an enabled reactor
+    # whose counters did not move never actually slept in the unified
+    # wait, and grading a reactor-vs-poll pair on it would compare the
+    # polling shape against itself. Same refuse-loudly discipline as the
+    # uring leg's fixed-hit gate.
+    reactor_mid = mid["reactor"] or {}
+    entry["reactor_enabled"] = bool(reactor_mid.get("enabled"))
+    entry["reactor_cause"] = reactor_mid.get("cause")
+    entry["reactor"] = reactor_mid.get("stats")
+    if entry["reactor_enabled"] and \
+            (reactor_mid.get("stats") or {}).get("reactor_waits", 0) <= 0:
+        entry["error"] = ("reactor engagement not confirmed: reactor "
+                          "enabled but reactor_waits did not move at the "
+                          "mid-grid step")
+        rawlog(f"load leg: {entry['error']}")
+    entry["knee_frac"] = knee
+    entry["knee_offered_iops"] = next(
+        (p["offered_iops"] for p in points if p["offered_frac"] == knee),
+        None)
+    # monotone-in-rate evidence: offered increases by construction; the
+    # achieved side must not regress before the knee (a non-monotone
+    # pre-knee curve means the pacer, not the storage path, was the limit)
+    pre_knee = [p for p in points
+                if knee is None or p["offered_frac"] < knee] or points[:1]
+    entry["curve_monotone"] = all(
+        b["achieved_iops"] >= a["achieved_iops"] * 0.9
+        for a, b in zip(pre_knee, pre_knee[1:]))
+
+    # byte-identical A/B: the mid-grid step re-run with the pacer forced
+    # off (EBT_LOAD_CLOSED_LOOP=1) must move exactly the same bytes — the
+    # schedule changes WHEN ops issue, never WHAT they issue. The open
+    # side's bytes were recorded during the sweep (same rates, same
+    # traffic — no duplicate paced phase).
+    check_budget("the closed-loop A/B")
+    ab_frac = LOAD_GRID[len(LOAD_GRID) // 2]
+    hot_rate = ab_frac * per_worker_closed * \
+        (LOAD_BLOCK_BYTES / LOAD_TENANT_BS)
+    bulk_rate = ab_frac * per_worker_closed
+    old = os.environ.get("EBT_LOAD_CLOSED_LOOP")
+    os.environ["EBT_LOAD_CLOSED_LOOP"] = "1"
+    try:
+        agg_ab, _, _, ab_mode, _ = run_read(
+            tenants_arg(hot_rate, bulk_rate), "lac")
+    finally:
+        if old is None:
+            os.environ.pop("EBT_LOAD_CLOSED_LOOP", None)
+        else:
+            os.environ["EBT_LOAD_CLOSED_LOOP"] = old
+    entry["ab_frac"] = ab_frac
+    entry["ab_open_bytes"] = ab_open_bytes
+    entry["ab_closed_bytes"] = agg_ab.last_ops.bytes
+    entry["ab_closed_mode"] = ab_mode
+    entry["ab_bytes_identical"] = ab_open_bytes == agg_ab.last_ops.bytes
+    if not entry["ab_bytes_identical"]:
+        entry["error"] = ("open/closed A/B moved different bytes: "
+                          f"{ab_open_bytes} vs "
+                          f"{agg_ab.last_ops.bytes}")
+
+    # reactor-vs-poll comparison pair: the SAME grid swept with
+    # EBT_REACTOR_DISABLE=1 (byte-identical traffic; the reactor changes
+    # when a worker sleeps/wakes, never what it issues): the reactor
+    # side's knee must be no lower and its mid-grid sched_lag lower than
+    # the polling control's. Skipped when the reactor never ran —
+    # comparing the polling shape against itself grades nothing.
+    if entry["reactor_enabled"] and not entry.get("error"):
+        check_budget("the reactor-vs-poll control sweep")
+        old_dis = os.environ.get("EBT_REACTOR_DISABLE")
+        os.environ["EBT_REACTOR_DISABLE"] = "1"
+        try:
+            poll_points, poll_knee, poll_mid = sweep("p", per_worker_closed)
+        finally:
+            if old_dis is None:
+                os.environ.pop("EBT_REACTOR_DISABLE", None)
+            else:
+                os.environ["EBT_REACTOR_DISABLE"] = old_dis
+        grid_end = LOAD_GRID[-1] + (LOAD_GRID[1] - LOAD_GRID[0])
+        entry["reactor_vs_poll"] = {
+            "reactor_knee_frac": knee,
+            "poll_knee_frac": poll_knee,
+            "reactor_sched_lag_ns": mid["sched_lag_ns"],
+            "poll_sched_lag_ns": poll_mid["sched_lag_ns"],
+            "poll_points": poll_points,
+            # no-knee sweeps compare as one step past the grid end
+            "knee_no_lower": (knee if knee is not None else grid_end) >=
+                             (poll_knee if poll_knee is not None
+                              else grid_end),
+            "sched_lag_lower":
+                mid["sched_lag_ns"] < poll_mid["sched_lag_ns"],
+        }
+        rawlog(f"load: reactor knee {knee} vs poll knee {poll_knee}, "
+               f"mid-grid sched_lag {mid['sched_lag_ns']} vs "
+               f"{poll_mid['sched_lag_ns']} ns")
+
+    try:
+        os.unlink(path)
+    except OSError:
+        pass
+    rawlog(f"load: closed ceiling {entry['closed_loop_iops']}/s, knee at "
+           f"{entry['knee_frac']}x, A/B identical "
+           f"{entry['ab_bytes_identical']}")
+    return entry
+
+
+def measure_serving_leg(workdir: str, rawlog=lambda m: None,
+                        budget_s: float | None = None) -> dict:
+    """SLO-graded serving under live model rotation: trace-scheduled
+    traffic (diurnal ramp -> steady -> flash burst, rates anchored to the
+    closed-loop ceiling) reads one bench file while --rotate re-restores a
+    shard manifest every period. Three variants on BYTE-IDENTICAL traffic
+    — unthrottled rotation plus two --bgbudget points — emit the
+    goodput-vs-ttr frontier: per-class fraction of completions under the
+    SLO target (self-calibrated at SERVING_SLO_HEADROOM x a no-rotation
+    baseline's p99, both on the scheduled-arrival clock) against the
+    rotation's mean time-to-resident. Engagement-gated like every tier
+    claim: REFUSED when rotation never completed or a throttled variant's
+    token buckets never throttled; a rotation record that does not
+    reconcile (shards resident != expected, submitted != resident bytes)
+    fails the leg."""
+    from .checkpoint import CheckpointShard, write_manifest
+    from .common import BenchPhase
+    from .config import config_from_args
+    from .workers.local import LocalWorkerGroup
+
+    leg_t0 = time.monotonic()
+
+    def check_budget(next_step: str) -> None:
+        if budget_s is not None and time.monotonic() - leg_t0 > budget_s:
+            raise TransportStalled(
+                f"serving leg outran its budget before {next_step}")
+
+    path = os.path.join(workdir, "ebt_serving_leg.bin")
+    shard_bytes = SERVING_SHARD_BLOCKS * SERVING_BLOCK_BYTES
+    model_dir = os.path.join(workdir, "ebt_serving_model")
+    os.makedirs(model_dir, exist_ok=True)
+    shards = []
+    for i in range(SERVING_SHARDS):
+        sp = os.path.join(model_dir, f"shard.{i}")
+        with open(sp, "wb") as fh:
+            fh.write(os.urandom(shard_bytes))
+        shards.append(CheckpointShard(path=sp, bytes=shard_bytes,
+                                      devices=[0]))
+    manifest = os.path.join(workdir, "ebt_serving_manifest.json")
+    write_manifest(manifest, shards)
+    trace_path = os.path.join(workdir, "ebt_serving_trace.json")
+
+    base_args = ["-r", "-s", str(SERVING_FILE_BYTES),
+                 "-b", str(SERVING_BLOCK_BYTES), "--rand",
+                 "--randamount", str(SERVING_RAND_BYTES),
+                 "-t", str(SERVING_THREADS), "--tpubackend", "pjrt",
+                 "--nolive", path]
+
+    def run_read(extra: list[str], bench_id: str):
+        group = LocalWorkerGroup(config_from_args(base_args[:-1] + extra +
+                                                  [path]))
+        group.prepare()
+        try:
+            agg = _wait_phase_aggregate(group, BenchPhase.READFILES,
+                                        bench_id, PHASE_DEADLINE_S)
+            tstats = group.tenant_stats()
+            tlat = group.tenant_latency()
+            serving = group.serving_stats()
+            records = group.rotation_records()
+            ttrs = group.rotation_ttr_ns()
+        finally:
+            group.teardown()
+        return agg, tstats, tlat, serving, records, ttrs
+
+    # device-channel interference is the phenomenon under test: give the
+    # mock driver a per-copy service time so background H2D copies
+    # genuinely occupy the channels the foreground's copies ride (the real
+    # driver ignores the env — harmless), and run the foreground on the
+    # BUFFER path — its pre-reuse barrier is where device-channel
+    # backpressure reaches the op latency clock (the zero-copy mmap path
+    # defers settles past the clock entirely, which would hide exactly the
+    # interference this leg exists to measure). Same env on every side of
+    # the A/B.
+    old_xfer = os.environ.get("EBT_MOCK_CUDA_XFER_US")
+    old_mmap = os.environ.get("EBT_TPU_NO_MMAP")
+    os.environ["EBT_MOCK_CUDA_XFER_US"] = str(SERVING_XFER_US)
+    os.environ["EBT_TPU_NO_MMAP"] = "1"
+    try:
+        # setup file + closed-loop ceiling on the same traffic (the trace
+        # schedule's rate anchor, like the load leg's grid anchor); a
+        # plain sequential write creates the file (the --rand/--randamount
+        # pair is read-phase geometry, not setup geometry)
+        setup = LocalWorkerGroup(config_from_args(
+            ["-w", "-s", str(SERVING_FILE_BYTES),
+             "-b", str(SERVING_BLOCK_BYTES), "-t", str(SERVING_THREADS),
+             "--tpubackend", "pjrt", "--nolive", path]))
+        setup.prepare()
+        try:
+            _wait_phase_aggregate(setup, BenchPhase.CREATEFILES, "sw",
+                                  PHASE_DEADLINE_S)
+        finally:
+            setup.teardown()
+        check_budget("the closed-loop ceiling")
+        agg, _, _, _, _, _ = run_read([], "sc")
+        closed_secs = agg.last_elapsed_us / 1e6
+        closed_iops = agg.last_ops.iops / closed_secs if closed_secs else 0
+        per_worker = closed_iops / SERVING_THREADS
+        entry: dict = {
+            "threads": SERVING_THREADS,
+            "block_kib": SERVING_BLOCK_BYTES >> 10,
+            "file_mib": SERVING_FILE_BYTES >> 20,
+            "shards": SERVING_SHARDS,
+            "shard_kib": shard_bytes >> 10,
+            "rotate_period_s": SERVING_ROTATE_S,
+            "closed_loop_iops": round(closed_iops, 1),
+        }
+        if per_worker <= 0:
+            entry["error"] = "closed-loop ceiling measured zero iops"
+            return entry
+        # the variants read long enough for the slowest budget's rotation
+        base_args[base_args.index("--randamount") + 1] = str(
+            serving_rand_bytes(per_worker))
+        # the diurnal schedule, anchored to the ceiling — tails are
+        # rate-sensitive exactly where rotation interference lands
+        with open(trace_path, "w") as fh:
+            # fractions sit well under the PACED path's effective
+            # capacity (the paced loop issues in bursts, so its
+            # sustainable rate is a fraction of the tight closed loop):
+            # the clean tail stays stable and rotation interference is
+            # the only thing the SLO grade can see
+            json.dump({"segments": [
+                {"at": at, "kind": kind, "rate": frac * per_worker,
+                 **({"rate_end": end * per_worker} if end is not None
+                    else {})}
+                for at, kind, frac, end in SERVING_TRACE]}, fh)
+        trace_args = ["--arrival", "trace", "--ratetrace", trace_path]
+
+        # no-rotation baseline: the SLO target self-calibrates off its
+        # p99 (headroom above the clean tail, so rotation interference is
+        # the only violator the grade can see)
+        check_budget("the no-rotation baseline")
+        agg_b, tstats_b, tlat_b, _, _, _ = run_read(trace_args, "sb")
+        base_p99_us = max((h.percentile_us(99.0)
+                           for h in tlat_b.values() if h.count),
+                          default=0)
+        if base_p99_us <= 0:
+            entry["error"] = "baseline p99 measured zero"
+            return entry
+        # floor guards a pathologically tight baseline: a sub-5ms target
+        # would grade scheduler jitter, not rotation interference
+        slo_ms = max(SERVING_SLO_HEADROOM * base_p99_us / 1000.0, 5.0)
+        entry["baseline_p99_us"] = base_p99_us
+        entry["slo_target_ms"] = round(slo_ms, 3)
+        entry["baseline_bytes"] = agg_b.last_ops.bytes
+        rawlog(f"serving: ceiling {closed_iops:.0f}/s, baseline p99 "
+               f"{base_p99_us}us -> slo {slo_ms:.1f}ms")
+
+        rotate_args = trace_args + [
+            "--slotarget", f"{slo_ms:.3f}", "--checkpoint", manifest,
+            "--rotate", str(SERVING_ROTATE_S)]
+        frontier: list[dict] = []
+        reconcile_error = None
+        for budget in SERVING_BG_BUDGETS:
+            label = "unthrottled" if not budget else f"{budget >> 20}M"
+            check_budget(f"the {label} rotation variant")
+            extra = list(rotate_args)
+            if budget:
+                extra += ["--bgbudget", str(budget)]
+            agg_v, tstats_v, tlat_v, svs, records, ttrs = run_read(
+                extra, f"sv{label}")
+            goodputs = {}
+            ledger_exact = True
+            for st in tstats_v or []:
+                comp = st["completions"]
+                goodputs[st["tenant"]] = (st["slo_ok"] / comp) if comp \
+                    else 0.0
+                if st["arrivals"] != st["completions"] + st["dropped"]:
+                    ledger_exact = False
+            svs = svs or {}
+            records = records or []
+            for r in records:
+                if r["shards_resident"] != r["shards_total"] or \
+                        r["bytes_submitted"] != r["bytes_resident"]:
+                    reconcile_error = (
+                        f"{label}: rotation gen {r['generation']} did not "
+                        f"reconcile ({r['shards_resident']}/"
+                        f"{r['shards_total']} shards, "
+                        f"{r['bytes_resident']}/{r['bytes_submitted']} "
+                        "bytes)")
+            rotations = svs.get("rotations_complete", 0)
+            throttle_ns = svs.get("bg_throttle_ns", 0) + \
+                svs.get("bg_lane_throttle_ns", 0)
+            point = {
+                "bgbudget": budget,
+                "goodput": round(min(goodputs.values(), default=0.0), 4),
+                "p99_us": max((h.percentile_us(99.0)
+                               for h in tlat_v.values() if h.count),
+                              default=0),
+                "rotations": rotations,
+                "rotations_failed": svs.get("rotations_failed", 0),
+                "ttr_mean_s": round(sum(ttrs) / len(ttrs) / 1e9, 3)
+                if ttrs else None,
+                "bg_throttle_ms": round(throttle_ns / 1e6, 1),
+                "bg_adapt_downs": svs.get("bg_adapt_downs", 0),
+                "bytes": agg_v.last_ops.bytes,
+                "ledger_exact": ledger_exact,
+            }
+            frontier.append(point)
+            rawlog(f"serving[{label}]: goodput {point['goodput']}, p99 "
+                   f"{point['p99_us']}us, {rotations} rotation(s), ttr "
+                   f"{point['ttr_mean_s']}s, throttle "
+                   f"{point['bg_throttle_ms']}ms")
+        entry["frontier"] = frontier
+
+        # engagement + invariants gate the grade (REFUSED, not a silent
+        # number): rotation must have completed everywhere, throttled
+        # variants must show bucket evidence, traffic must be
+        # byte-identical across variants, ledgers exact, records
+        # reconciled
+        engagement = "confirmed"
+        if any(p["rotations"] <= 0 for p in frontier):
+            engagement = "refused: rotation never completed in a variant"
+        elif all(p["bg_throttle_ms"] <= 0
+                 for p in frontier if p["bgbudget"]):
+            engagement = ("refused: no throttled variant's token buckets "
+                          "ever throttled")
+        entry["engagement"] = engagement
+        bytes_set = {p["bytes"] for p in frontier} | \
+            {entry["baseline_bytes"]}
+        entry["ab_bytes_identical"] = len(bytes_set) == 1
+        if not entry["ab_bytes_identical"]:
+            entry["error"] = (f"variants moved different bytes: "
+                              f"{sorted(bytes_set)}")
+        elif reconcile_error:
+            entry["reconcile_error"] = reconcile_error
+            entry["error"] = reconcile_error
+        elif any(not p["ledger_exact"] for p in frontier):
+            entry["error"] = ("open-loop ledger broken in a rotation "
+                              "variant (arrivals != completions + "
+                              "dropped)")
+        elif engagement != "confirmed":
+            entry["error"] = engagement
+        else:
+            unthrottled = next(p for p in frontier if not p["bgbudget"])
+            throttled = [p for p in frontier if p["bgbudget"]]
+            best = max(throttled, key=lambda p: p["goodput"])
+            entry["goodput_unthrottled"] = unthrottled["goodput"]
+            entry["goodput_throttled"] = best["goodput"]
+            entry["serving_ttr_s"] = best["ttr_mean_s"]
+            entry["throttled_beats_unthrottled"] = \
+                best["goodput"] > unthrottled["goodput"]
+            rawlog(f"serving: throttled goodput "
+                   f"{best['goodput']} vs unthrottled "
+                   f"{unthrottled['goodput']} "
+                   f"({'beats' if entry['throttled_beats_unthrottled'] else 'does NOT beat'})")
+        return entry
+    finally:
+        if old_xfer is None:
+            os.environ.pop("EBT_MOCK_CUDA_XFER_US", None)
+        else:
+            os.environ["EBT_MOCK_CUDA_XFER_US"] = old_xfer
+        if old_mmap is None:
+            os.environ.pop("EBT_TPU_NO_MMAP", None)
+        else:
+            os.environ["EBT_TPU_NO_MMAP"] = old_mmap
+        for f in [path, trace_path, manifest] + \
+                [s.path for s in shards]:
+            try:
+                os.unlink(f)
+            except OSError:
+                pass
+        try:
+            os.rmdir(model_dir)
+        except OSError:
+            pass
+
+
 
 PHASE_DEADLINE_S = 240  # a fully stalled transport must not hang the bench
 # post-interrupt grace: must cover ONE in-flight block's transfer at a
@@ -882,6 +1927,175 @@ PHASE_DEADLINE_S = 240  # a fully stalled transport must not hang the bench
 # completion await is unbounded) — 120s means >= ~70KiB/s finishes an
 # 8MiB block
 DRAIN_DEADLINE_S = 120
+
+
+def measure_faults_leg(workdir: str, rawlog=lambda m: None,
+                       budget_s: float | None = None) -> dict:
+    """Degraded-mode leg: a striped read run three times — clean, under
+    injected faults with --retry/--maxerrors (must complete byte-exact via
+    ejection + replanning), and under the SAME injection with the
+    --maxerrors 0 default (must abort on the first error, the A/B proving
+    default semantics are untouched). The headline is
+    throughput-under-faults as a fraction of the clean pass. Mock-only:
+    the chaos seams live in the mock driver (EBT_CUDA_DRIVER naming
+    chaos.MOCK_DRIVER_NAME) / uring shim."""
+    import ctypes
+
+    from .chaos import MOCK_DRIVER_NAME, SEAMS, ChaosSpec, derive_env
+    from .common import BenchPhase
+    from .config import config_from_args
+    from .workers.local import LocalWorkerGroup
+
+    leg_t0 = time.monotonic()
+
+    def check_budget(next_step: str) -> None:
+        if budget_s is not None and time.monotonic() - leg_t0 > budget_s:
+            raise TransportStalled(
+                f"faults leg outran its budget before {next_step}")
+
+    driver = os.environ.get("EBT_CUDA_DRIVER", "")
+    if os.path.basename(driver) != MOCK_DRIVER_NAME:
+        return {"skipped": "fault seams are mock-only (EBT_CUDA_DRIVER "
+                           f"must point at {MOCK_DRIVER_NAME})"}
+    mock = ctypes.CDLL(driver)
+    mock.ebt_mock_reset.argtypes = []
+    mock.ebt_mock_reset.restype = None
+
+    def reset_mock() -> None:
+        # seam op counters are process-global; each side of the A/B needs
+        # a deterministic injection point
+        mock.ebt_mock_reset()
+
+    nblocks, blk = FAULTS_BLOCKS, FAULTS_BLOCK_BYTES
+    path = os.path.join(workdir, "elbencho_tpu_faults.bin")
+    with open(path, "wb") as fh:
+        fh.write(os.urandom(nblocks * blk))
+
+    def build(extra: list[str]) -> LocalWorkerGroup:
+        cfg = config_from_args(
+            ["-r", "-t", "1", "-s", str(nblocks * blk), "-b", str(blk),
+             "--tpubackend", "pjrt", "--stripe", "rr",
+             "--regwindow", str(2 * blk), "--nolive"] + extra + [path])
+        g = LocalWorkerGroup(cfg)
+        g.prepare()
+        return g
+
+    def read_pass(g: LocalWorkerGroup, bench_id: str) -> float:
+        t0 = time.monotonic()
+        g.start_phase(BenchPhase.READFILES, bench_id)
+        while not g.wait_done(1000):
+            pass
+        dt = time.monotonic() - t0
+        return (nblocks * blk / float(1 << 20)) / dt if dt > 0 else 0.0
+
+    # ---- clean side: the fault-free throughput the degraded pass is
+    # graded against (warm + measured, same discipline as the other legs)
+    reset_mock()
+    group = build([])
+    try:
+        ndev = group.native_device_count()
+        if ndev < 2:
+            return {"skipped": f"{ndev} device(s) — ejection + replanning "
+                               "need >= 2 (CI uses EBT_MOCK_CUDA_DEVICES)"}
+        read_pass(group, "fwarm")
+        check_budget("the clean pass")
+        clean = read_pass(group, "fclean")
+        clean_err = group.first_error()
+    finally:
+        group.teardown()
+    if clean_err:
+        return {"error": f"clean pass failed: {clean_err}"}
+
+    # ---- seam derivation: FAULTS_RATE on two layers (stripe in-flight
+    # device failure + uring fixed-buffer registration failure). The
+    # geometric draw is conditioned on the stripe injection landing inside
+    # the measured window (seed searched deterministically) so the leg
+    # always exercises the ejection path instead of occasionally drawing
+    # an injection point past the end of the run.
+    per_dev = 1 + nblocks // ndev  # warmup copy is each device's op #1
+    stripe_env = SEAMS["stripe"].env  # the port's per-device seam
+    env: dict[str, str] = {}
+    seed = FAULTS_SEED
+    for s in range(FAULTS_SEED, FAULTS_SEED + 500):
+        cand = derive_env(ChaosSpec(
+            probs={"stripe": FAULTS_RATE, "uring": FAULTS_RATE},
+            seed=s, devices=ndev))
+        sf = cand.get(stripe_env, "")
+        if ":" in sf and 2 <= int(sf.split(":")[1]) <= per_dev:
+            env, seed = cand, s
+            break
+    if not env:
+        return {"error": "no in-window injection point found (seed search "
+                         "exhausted)"}
+    entry: dict = {
+        "devices": ndev,
+        "rate": FAULTS_RATE,
+        "seed": seed,
+        "seams": dict(sorted(env.items())),
+        "clean_mib_s": round(clean, 1),
+    }
+    os.environ.update(env)
+    try:
+        # ---- degraded side: same traffic, faults armed, budget on
+        check_budget("the degraded pass")
+        reset_mock()
+        group = build(["--retry", "1", "--maxerrors", "5%"])
+        try:
+            faulted = read_pass(group, "ffaults")
+            ferr = group.first_error()
+            fstats = group.fault_stats() or {}
+            estats = group.engine_fault_stats() or {}
+            ejected = group.ejected_devices() or ""
+            st = group.stripe_stats() or {}
+        finally:
+            group.teardown()
+        entry.update({
+            "faults_mib_s": round(faulted, 1),
+            "under_faults_vs_clean": round(faulted / clean, 3)
+            if clean else None,
+            "completed_under_faults": ferr == "",
+            "fault": fstats,
+            "engine_fault": estats,
+            "ejected": ejected,
+            # byte-exactness evidence: every planner-routed unit settled
+            "reconciled": st.get("units_awaited") ==
+            st.get("units_submitted"),
+        })
+        if ferr:
+            entry["error"] = f"degraded pass did not complete: {ferr}"
+        elif not fstats.get("ejected_devices"):
+            entry["error"] = ("degraded pass completed without an "
+                              "ejection — the injection never fired")
+        # ---- A/B: the --maxerrors 0 default must reproduce the
+        # first-error abort with the SAME injection
+        check_budget("the maxerrors-0 A/B")
+        reset_mock()
+        group = build([])
+        try:
+            read_pass(group, "fab")
+            ab_err = group.first_error()
+        finally:
+            group.teardown()
+        entry["ab_default_aborts"] = ab_err != ""
+        if not ab_err and "error" not in entry:
+            entry["error"] = ("--maxerrors 0 A/B completed despite the "
+                              "injection — default semantics changed")
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+    rawlog("faults: clean %.1f MiB/s, under %d%% faults %.1f MiB/s "
+           "(ratio %s), ejected=%s replanned=%s ab_aborts=%s" % (
+               entry["clean_mib_s"], int(FAULTS_RATE * 100),
+               entry.get("faults_mib_s", 0.0),
+               entry.get("under_faults_vs_clean"),
+               entry.get("fault", {}).get("ejected_devices"),
+               entry.get("fault", {}).get("replanned_units"),
+               entry.get("ab_default_aborts")))
+    return entry
 
 
 
@@ -1040,8 +2254,20 @@ def main() -> int:
     stripe_error: str | None = None
     # checkpoint-restore cold-start leg (--checkpoint-shards manifest)
     ckpt_error: str | None = None
+    # many-files metadata leg (mkdirs/stat/delfiles)
+    meta_error: str | None = None
+    # storage-backend A/B leg (--ioengine uring vs EBT_URING_DISABLE=1)
+    uring_error: str | None = None
+    # open-loop offered-load sweep leg (--arrival/--tenants)
+    load_error: str | None = None
+    # degraded-mode leg (--retry/--maxerrors + chaos seams)
+    faults_error: str | None = None
+    # DL-ingestion leg (--ingestshards shuffled small-record reads)
+    ingest_error: str | None = None
     # topology-shift reshard leg (--reshard N->M + the D2D tier A/B)
     reshard_error: str | None = None
+    # serving-under-rotation leg (--arrival trace + --rotate + --bgbudget)
+    serving_error: str | None = None
     # capability probes of the session's driver library (registration
     # present? host-function clock? mock?): recorded per run so ledger
     # comparisons never mix mock-only zero-copy runs with the card's
@@ -1190,6 +2416,63 @@ def main() -> int:
             "ckpt_vs_device_ceiling_sum": legs.get("ckpt", {}).get(
                 "cold", {}).get("vs_device_ceiling_sum"),
             "ckpt_error": ckpt_error,
+            # metadata leg: the dir-mode phase family's entries/s vs the
+            # raw-syscall ceiling at the same concurrency
+            "meta_mkdirs_per_s": legs.get("meta", {}).get("mkdirs_per_s"),
+            "meta_stat_per_s": legs.get("meta", {}).get("stat_per_s"),
+            "meta_delfiles_per_s": legs.get("meta", {}).get(
+                "delfiles_per_s"),
+            "meta_vs_ceiling": legs.get("meta", {}).get("vs_ceiling"),
+            "meta_error": meta_error,
+            # storage-backend A/B leg: the RESOLVED --ioengine backend
+            # (what the async loop actually rode — a probe fallback
+            # records "aio" + its cause, never a silent uring claim) and
+            # the byte-identical uring-vs-AIO ratio
+            "ioengine": legs.get("uring", {}).get("ioengine"),
+            "uring_vs_aio": legs.get("uring", {}).get("uring_vs_aio"),
+            "uring_error": uring_error,
+            "load_error": load_error,
+            # completion reactor (legs.load): engagement confirmed from
+            # the mid-grid wakeup-counter deltas + the reactor-vs-poll
+            # knee/sched_lag comparison pair
+            "load_knee_frac": legs.get("load", {}).get("knee_frac"),
+            "reactor_enabled": legs.get("load", {}).get("reactor_enabled"),
+            "reactor_sched_lag_ns": legs.get("load", {}).get(
+                "reactor_vs_poll", {}).get("reactor_sched_lag_ns"),
+            "poll_sched_lag_ns": legs.get("load", {}).get(
+                "reactor_vs_poll", {}).get("poll_sched_lag_ns"),
+            # serving-under-rotation leg: the best throttled budget's
+            # per-class goodput against the unthrottled A/B on
+            # byte-identical traffic, engagement-gated (REFUSED when
+            # rotation never ran); legs.serving carries the per-budget
+            # points + the rotation reconciliation evidence
+            "serving_goodput": legs.get("serving", {}).get(
+                "goodput_throttled"),
+            "serving_goodput_unthrottled": legs.get("serving", {}).get(
+                "goodput_unthrottled"),
+            "serving_ttr_s": legs.get("serving", {}).get("serving_ttr_s"),
+            "serving_engagement": legs.get("serving", {}).get(
+                "engagement"),
+            "serving_error": serving_error,
+            # degraded-mode leg: throughput under N% injected faults as a
+            # fraction of the clean pass, with the ejection/replanning
+            # evidence (legs.faults carries the FaultStats families, the
+            # "device N: cause" attribution and the maxerrors-0 A/B)
+            "under_faults_vs_clean": legs.get("faults", {}).get(
+                "under_faults_vs_clean"),
+            "faults_ejected_devices": legs.get("faults", {}).get(
+                "fault", {}).get("ejected_devices"),
+            "faults_error": faults_error,
+            # DL-ingestion leg: shuffled small-record records/s + per-epoch
+            # times vs the same-concurrency raw record ceiling, with the
+            # engagement-confirmed tier and the per-epoch reconciliation
+            # (legs.ingest carries the IngestStats family)
+            "ingest_records_s": legs.get("ingest", {}).get(
+                "ingest_records_s"),
+            "ingest_epoch_p50_s": legs.get("ingest", {}).get("epoch_p50_s"),
+            "ingest_vs_ceiling": legs.get("ingest", {}).get("vs_ceiling"),
+            "ingest_tier": legs.get("ingest", {}).get("tier"),
+            "ingest_error": ingest_error,
             # topology-shift reshard leg: moved-HBM-bytes /
             # time-to-all-M-resident, graded vs the summed per-pair raw
             # D2D interconnect ceilings; d2d_vs_bounce is the
@@ -1248,8 +2531,8 @@ def main() -> int:
         """Read the committed per-session ledger and summarize EVERY graded
         leg: recorded session medians plus a median-of-medians for the
         read leg (the headline, field names unchanged for consumers), and
-        the same aggregate for the write, rand, ckpt and reshard legs (one
-        slow session must not misprice a round). Returns empty-ish fields
+        the same aggregate for every other graded leg (one slow session
+        must not misprice a round). Returns empty-ish fields
         when no ledger exists yet."""
         entries = []
         try:
@@ -1281,9 +2564,15 @@ def main() -> int:
         for leg, key in (("write", "write_vs_ceiling"),
                          ("rand", "rand_vs_ceiling"),
                          ("ckpt", "ckpt_vs_ceiling"),
+                         ("meta", "meta_vs_ceiling"),
+                         ("ingest", "ingest_vs_ceiling"),
                          # reshard's headline is the ratio vs the summed
-                         # per-pair D2D interconnect ceiling
-                         ("reshard", "reshard_vs_d2d_ceiling")):
+                         # per-pair D2D interconnect ceiling, load's the
+                         # knee fraction, serving's the throttled goodput
+                         # fraction at the self-calibrated SLO target
+                         ("reshard", "reshard_vs_d2d_ceiling"),
+                         ("load", "load_knee_frac"),
+                         ("serving", "serving_goodput")):
             leg_meds = leg_medians(key)
             agg[f"{leg}_session_medians"] = [round(m, 3) for m in leg_meds]
             agg[f"{leg}_median_of_medians"] = med_of(leg_meds)
@@ -1333,13 +2622,36 @@ def main() -> int:
                 "warm", {}).get("ttr_p50_s"),
             "ckpt_vs_ceiling": legs.get("ckpt", {}).get(
                 "cold", {}).get("vs_device_ceiling_sum"),
+            "meta_mkdirs_per_s": legs.get("meta", {}).get("mkdirs_per_s"),
+            "meta_stat_per_s": legs.get("meta", {}).get("stat_per_s"),
+            "meta_delfiles_per_s": legs.get("meta", {}).get(
+                "delfiles_per_s"),
+            "meta_vs_ceiling": legs.get("meta", {}).get("vs_ceiling"),
+            "ioengine": legs.get("uring", {}).get("ioengine"),
+            "uring_vs_aio": legs.get("uring", {}).get("uring_vs_aio"),
             "ckpt_cold_mode": legs.get("ckpt", {}).get("ckpt_cold_mode"),
+            "ingest_records_s": legs.get("ingest", {}).get(
+                "ingest_records_s"),
+            "ingest_vs_ceiling": legs.get("ingest", {}).get("vs_ceiling"),
+            "ingest_tier": legs.get("ingest", {}).get("tier"),
+            "load_knee_frac": legs.get("load", {}).get("knee_frac"),
+            "reactor_enabled": legs.get("load", {}).get("reactor_enabled"),
+            "reactor_sched_lag_ns": legs.get("load", {}).get(
+                "reactor_vs_poll", {}).get("reactor_sched_lag_ns"),
+            "poll_sched_lag_ns": legs.get("load", {}).get(
+                "reactor_vs_poll", {}).get("poll_sched_lag_ns"),
             # reshard leg headline figures
             "hbm_reshard_gib_s": legs.get("reshard", {}).get(
                 "hbm_reshard_gib_s"),
             "reshard_vs_d2d_ceiling": legs.get("reshard", {}).get(
                 "vs_d2d_ceiling"),
             "d2d_vs_bounce": legs.get("reshard", {}).get("d2d_vs_bounce"),
+            # serving-rotation leg headline figures
+            "serving_goodput": legs.get("serving", {}).get(
+                "goodput_throttled"),
+            "serving_goodput_unthrottled": legs.get("serving", {}).get(
+                "goodput_unthrottled"),
+            "serving_ttr_s": legs.get("serving", {}).get("serving_ttr_s"),
             "plugin_caps": plugin_caps_info,
             "regime_mib_s": round(burn_rate, 1),
             # the card's name and power limit (nvidia-smi), beside every
@@ -2113,6 +3425,148 @@ def main() -> int:
                 ckpt_error = f"{type(e).__name__}: {str(e)[:160]}"
                 rawlog(f"checkpoint leg aborted: {ckpt_error}")
                 legs.setdefault("ckpt", {})["error"] = ckpt_error
+
+        # ---- many-files metadata leg (mkdirs/stat/delfiles): no device
+        # path, so it runs on every backend — additive, cheap.
+        meta_budget = max(30.0, min(
+            float(META_LEG_BUDGET_CAP_S),
+            SOFT_BUDGET_S - (time.monotonic() - run_t0)))
+        try:
+            rawlog(f"metadata leg: -t {META_THREADS}, "
+                   f"{META_THREADS * META_DIRS * META_FILES} files, "
+                   f"budget {meta_budget:.0f}s")
+            legs["meta"] = measure_meta_leg(workdir, rawlog,
+                                            budget_s=meta_budget)
+        except TransportWedged:
+            raise
+        except Exception as e:
+            meta_error = f"{type(e).__name__}: {str(e)[:160]}"
+            rawlog(f"metadata leg aborted: {meta_error}")
+            legs.setdefault("meta", {})["error"] = meta_error
+
+        # ---- storage-backend A/B leg (--ioengine): uring vs the
+        # EBT_URING_DISABLE=1 kernel-AIO control, byte-identical traffic,
+        # one raw-pread ceiling for both sides. No device path — runs on
+        # every backend; a probe fallback records the AIO shape + cause.
+        uring_budget = max(30.0, min(
+            float(URING_LEG_BUDGET_CAP_S),
+            SOFT_BUDGET_S - (time.monotonic() - run_t0)))
+        try:
+            rawlog(f"uring leg: -t {URING_THREADS} iodepth {URING_DEPTH}, "
+                   f"{URING_FILE_BYTES >> 20} MiB, "
+                   f"budget {uring_budget:.0f}s")
+            legs["uring"] = measure_uring_leg(workdir, rawlog,
+                                              budget_s=uring_budget)
+            if legs["uring"].get("error") and not uring_error:
+                uring_error = legs["uring"]["error"]
+        except TransportWedged:
+            raise
+        except Exception as e:
+            uring_error = f"{type(e).__name__}: {str(e)[:160]}"
+            rawlog(f"uring leg aborted: {uring_error}")
+            legs.setdefault("uring", {})["error"] = uring_error
+
+        # ---- open-loop offered-load sweep leg (--arrival/--tenants):
+        # the throughput-vs-p50/p99 curve per tenant class at a grid of
+        # offered rates, knee detection, and the EBT_LOAD_CLOSED_LOOP=1
+        # byte-identical A/B. No device path — runs on every backend.
+        load_budget = max(45.0, min(
+            float(LOAD_LEG_BUDGET_CAP_S),
+            SOFT_BUDGET_S - (time.monotonic() - run_t0)))
+        try:
+            rawlog(f"load leg: -t {LOAD_THREADS}, grid "
+                   f"{'x/'.join(str(f) for f in LOAD_GRID)}x, "
+                   f"budget {load_budget:.0f}s")
+            legs["load"] = measure_load_leg(workdir, rawlog,
+                                            budget_s=load_budget)
+            if legs["load"].get("error") and not load_error:
+                load_error = legs["load"]["error"]
+        except TransportWedged:
+            raise
+        except Exception as e:
+            load_error = f"{type(e).__name__}: {str(e)[:160]}"
+            rawlog(f"load leg aborted: {load_error}")
+            legs.setdefault("load", {})["error"] = load_error
+
+        # ---- serving-under-rotation leg (--arrival trace + --rotate +
+        # --bgbudget): the goodput-vs-ttr frontier of the background QoS
+        # class — trace-scheduled traffic near the knee racing a
+        # recurring manifest restore at several budgets, graded on
+        # byte-identical traffic with per-rotation reconciliation.
+        # pjrt-only (the rotation ledger lives in the native path).
+        serving_budget = max(45.0, min(
+            float(SERVING_LEG_BUDGET_CAP_S),
+            SOFT_BUDGET_S - (time.monotonic() - run_t0)))
+        if backend == "pjrt":
+            try:
+                rawlog(f"serving leg: {SERVING_SHARDS} shards x "
+                       f"{SERVING_SHARD_BLOCKS} blocks rotating every "
+                       f"{SERVING_ROTATE_S}s, budgets "
+                       f"{'/'.join(str(b >> 20) + 'M' if b else 'off' for b in SERVING_BG_BUDGETS)}, "
+                       f"budget {serving_budget:.0f}s")
+                legs["serving"] = measure_serving_leg(
+                    workdir, rawlog, budget_s=serving_budget)
+                if legs["serving"].get("error") and not serving_error:
+                    serving_error = legs["serving"]["error"]
+            except TransportWedged:
+                raise
+            except Exception as e:
+                serving_error = f"{type(e).__name__}: {str(e)[:160]}"
+                rawlog(f"serving leg aborted: {serving_error}")
+                legs.setdefault("serving", {})["error"] = serving_error
+
+        # ---- degraded-mode leg (--retry/--maxerrors + chaos seams): a
+        # striped read completing byte-exact under injected multi-layer
+        # faults via ejection + replanning, graded against its own clean
+        # pass, with the --maxerrors 0 first-error-abort A/B. Mock-only
+        # (the seams live in the mock driver / uring shim) — records an
+        # explicit skip on the real driver.
+        faults_budget = max(30.0, min(
+            float(FAULTS_LEG_BUDGET_CAP_S),
+            SOFT_BUDGET_S - (time.monotonic() - run_t0)))
+        if backend == "pjrt":
+            try:
+                rawlog(f"faults leg: {FAULTS_BLOCKS} blocks, rate "
+                       f"{FAULTS_RATE}, budget {faults_budget:.0f}s")
+                legs["faults"] = measure_faults_leg(
+                    workdir, rawlog, budget_s=faults_budget)
+                if legs["faults"].get("error") and not faults_error:
+                    faults_error = legs["faults"]["error"]
+            except TransportWedged:
+                raise
+            except Exception as e:
+                faults_error = f"{type(e).__name__}: {str(e)[:160]}"
+                rawlog(f"faults leg aborted: {faults_error}")
+                legs.setdefault("faults", {})["error"] = faults_error
+
+        # ---- DL-ingestion leg (--ingestshards): shuffled small-record
+        # reads batched into deferred H2D blocks across epochs, graded
+        # against the same-concurrency raw record ceiling over the
+        # IDENTICAL shuffled order. pjrt-only (the ingest ledger lives in
+        # the native path); additive.
+        ingest_budget = max(30.0, min(
+            float(INGEST_LEG_BUDGET_CAP_S),
+            SOFT_BUDGET_S - (time.monotonic() - run_t0)))
+        if backend == "pjrt":
+            try:
+                rawlog(f"ingest leg: {INGEST_SHARDS_N} shards x "
+                       f"{INGEST_SHARD_BYTES >> 20} MiB, record "
+                       f"{INGEST_RECORD_BYTES} B, {INGEST_EPOCHS} epochs, "
+                       f"budget {ingest_budget:.0f}s")
+                legs["ingest"] = measure_ingest_leg(
+                    workdir, rawlog, budget_s=ingest_budget)
+                if legs["ingest"].get("reconcile_error") and \
+                        not ingest_error:
+                    ingest_error = legs["ingest"]["reconcile_error"]
+                if legs["ingest"].get("ingest_failure") and \
+                        not ingest_error:
+                    ingest_error = legs["ingest"]["ingest_failure"]
+            except TransportWedged:
+                raise
+            except Exception as e:
+                ingest_error = f"{type(e).__name__}: {str(e)[:160]}"
+                rawlog(f"ingest leg aborted: {ingest_error}")
+                legs.setdefault("ingest", {})["error"] = ingest_error
 
         # ---- topology-shift reshard leg (--reshard): the N->M plan's
         # D2D moves clocked as time-to-all-M-resident, graded against

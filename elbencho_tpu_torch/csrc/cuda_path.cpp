@@ -426,18 +426,31 @@ int CudaPath::awaitRelease(Pending& p) {
     Tracker* t = p.tracker;
     cu::CUresult q = cu::CUDA_SUCCESS;
     bool dropped = false;
+    Lane& lane = laneFor(p.lane);
+    // on a lane that already reported a fault, query before the first
+    // poll slice: each wait on the faulted stream would otherwise pay a
+    // whole slice before its recovery starts. Only after a fault was
+    // reported: the mock's failed device-to-device copy reports its fault
+    // once, to whichever wait queries first, so an early query from a
+    // healthy copy's wait would take the fault from the failed one's
+    bool query_now = lane.stream_fault.load(std::memory_order_relaxed);
     {
       CondLock lk(t->m);
       while (!t->done) {
         // a sticky device error keeps the host function from ever running:
         // poll the stream while waiting, and give up on an error
-        if (t->cv.wait_for(lk.native(), std::chrono::milliseconds(50)) !=
-                std::cv_status::timeout ||
-            t->done)
+        if (!query_now &&
+            (t->cv.wait_for(lk.native(), std::chrono::milliseconds(50)) !=
+                 std::cv_status::timeout ||
+             t->done))
           continue;
+        query_now = false;
         makeCurrent(p.lane, false);
         q = api_.cuStreamQuery(p.stream);
-        if (q != cu::CUDA_SUCCESS && q != cu::CUDA_ERROR_NOT_READY) break;
+        if (q != cu::CUDA_SUCCESS && q != cu::CUDA_ERROR_NOT_READY) {
+          lane.stream_fault.store(true, std::memory_order_relaxed);
+          break;
+        }
         // an idle stream has run every host function enqueued on it: a
         // tracker still not done was dropped with a failed copy (the fault
         // was reported to another waiter), so it never will be

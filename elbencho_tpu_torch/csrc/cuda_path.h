@@ -597,6 +597,9 @@ class CudaPath {
     std::atomic<uint64_t> lock_wait_ns{0};
     std::atomic<uint64_t> bytes_to_hbm{0};
     std::atomic<uint64_t> bytes_from_hbm{0};
+    // a stream of this lane reported a fault to a completion wait: its
+    // host functions will not run, so later waits query it at once
+    std::atomic<bool> stream_fault{false};
     mutable Mutex histo_m;
     LatencyHistogram histo EBT_GUARDED_BY(histo_m);
   };

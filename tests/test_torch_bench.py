@@ -29,32 +29,19 @@ from elbencho_tpu_torch import engine as torch_engine
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_MOCK = os.path.join(REPO, "elbencho_tpu", "libebtpjrtmock.so")
 
-# The original's legs this slice does not port, each with the top-level
-# report fields it owns (its ledger aggregates are `<leg>_session_medians`
-# and `<leg>_median_of_medians`). Later slices empty this tuple.
-DEFERRED_LEGS = (
-    ("faults", ("under_faults_vs_clean", "faults_ejected_devices",
-                "faults_error")),
-    ("ingest", ("ingest_records_s", "ingest_epoch_p50_s",
-                "ingest_vs_ceiling", "ingest_tier", "ingest_error")),
-    ("serving", ("serving_goodput", "serving_goodput_unthrottled",
-                 "serving_ttr_s", "serving_engagement", "serving_error")),
-    ("load", ("load_error", "load_knee_frac", "reactor_enabled",
-              "reactor_sched_lag_ns", "poll_sched_lag_ns")),
-    ("uring", ("ioengine", "uring_vs_aio", "uring_error")),
-    ("meta", ("meta_mkdirs_per_s", "meta_stat_per_s",
-              "meta_delfiles_per_s", "meta_vs_ceiling", "meta_error")),
-)
-DEFERRED_FIELDS = {f for _leg, fields in DEFERRED_LEGS for f in fields} | {
-    f"{leg}_{k}" for leg, _f in DEFERRED_LEGS
-    for k in ("session_medians", "median_of_medians")}
-# the original's functions that run the deferred legs inside its main()
-DEFERRED_RUNNERS = ("measure_faults_leg", "measure_ingest_leg",
-                    "measure_serving_leg", "measure_load_leg",
-                    "measure_uring_leg", "measure_meta_leg")
 # the pair counts the original's end-to-end harness shrinks to
 SHRUNK = {"NUM_PAIRS": 4, "WRITE_PAIRS": 5, "RAND_PAIRS": 3,
           "MIN_READ_PAIRS": 2}
+# the serving leg's random-read op count in the end-to-end comparison, on
+# both sides alike: a third of the original's 192 MiB (1024 ops of 64 KiB
+# instead of 3072), so each of its four trace-paced phases takes about 4 s
+# on the mocks instead of 10 and the slowest budget still completes a
+# rotation
+# (tests/test_torch_bench_legs.py runs the leg at the original's constants)
+SERVING_SHRUNK = {"SERVING_RAND_BYTES": 64 << 20}
+# the thirteen legs of both reports
+LEGS = {"write", "read", "random", "scale", "stripe", "ckpt", "meta",
+        "uring", "load", "serving", "faults", "ingest", "reshard"}
 
 
 def _load_original_bench():
@@ -241,31 +228,40 @@ def _run_main(bench, monkeypatch, tmp_path, capsys, pairs=SHRUNK):
 
 def test_bench_main_matches_original(mocks, jax_bench, tmp_path, capsys):
     """One main() of each package on its one-device mock with the shrunk
-    pair counts: the same report shape (key sets, top level and per leg,
-    less the deferred legs'), the same tiers and leg shapes. The
-    original's deferred legs are replaced by a skip note: they have no
-    counterpart to compare."""
-    for name in DEFERRED_RUNNERS:
-        mocks.setattr(jax_bench, name,
-                      lambda *a, **k: {"skipped": "not ported"})
+    pair counts and serving op count: the same report shape (key sets,
+    top level and per leg, all thirteen legs), the same ledger entry
+    shape, and the same tiers, leg shapes and refusals."""
     reps = {}
     for name, b in (("jax", jax_bench), ("torch", torch_bench)):
         d = tmp_path / name
         d.mkdir()
-        rc, reps[name] = _run_main(b, mocks, d, capsys)
+        rc, reps[name] = _run_main(b, mocks, d, capsys,
+                                   {**SHRUNK, **SERVING_SHRUNK})
         assert rc == 0, (name, reps[name])
     jr, tr = reps["jax"], reps["torch"]
-    assert set(jr) - DEFERRED_FIELDS == set(tr)
-    deferred = {leg for leg, _f in DEFERRED_LEGS}
-    assert set(jr["legs"]) - deferred == set(tr["legs"])
+    assert set(jr) == set(tr)
+    assert set(jr["legs"]) == set(tr["legs"]) == LEGS
     for leg in tr["legs"]:
-        assert set(jr["legs"][leg]) == set(tr["legs"][leg]), leg
+        assert set(jr["legs"][leg]) == set(tr["legs"][leg]), (
+            leg, jr["legs"][leg].get("error"), tr["legs"][leg].get("error"))
     for k in ("backend", "fallback_events", "tier", "dev_lat_clock",
               "rand_block_kib", "rand_iodepth", "write_tier", "d2h_depth",
               "tier_mismatch", "wedged", "ceiling", "ceiling_fallback",
               "stripe_devices", "stripe_tier", "ckpt_shards",
-              "ckpt_devices", "ckpt_cold_mode", "scale_threads"):
+              "ckpt_devices", "ckpt_cold_mode", "scale_threads",
+              "ioengine", "uring_error", "ingest_tier",
+              "serving_engagement", "reactor_enabled"):
         assert jr[k] == tr[k], k
+    # the six host-heavy legs: clean where the original is, the same
+    # refusals where it refuses (the uring leg's engagement refusal on a
+    # kernel with io_uring), faults skipped on one device
+    for k in ("meta_error", "load_error", "serving_error", "ingest_error",
+              "faults_error"):
+        assert jr[k] is None and tr[k] is None, (k, jr[k], tr[k])
+    assert "skipped" in tr["legs"]["faults"]
+    assert tr["legs"]["ingest"]["ingest"]["records_read"] == \
+        jr["legs"]["ingest"]["ingest"]["records_read"]
+    assert tr["ingest_records_s"] > 0 and tr["meta_vs_ceiling"] > 0
     # graded pairs: the first of each leg is discarded, a pair with an
     # unusable ceiling window too (that follows the clock)
     for r in (jr, tr):
@@ -300,7 +296,10 @@ def test_bench_main_matches_original(mocks, jax_bench, tmp_path, capsys):
     entries = [json.loads(x) for x in led.read_text().splitlines()]
     assert len(entries) == 1
     assert entries[0]["read_vs_ceiling"] == tr["vs_baseline"]
-    assert "card" in entries[0]
+    # the original's entry, with the card's name and power limit beside it
+    jled = tmp_path / "jax" / "results" / "fastwindow" / "ledger.jsonl"
+    jentries = [json.loads(x) for x in jled.read_text().splitlines()]
+    assert set(entries[0]) == set(jentries[0]) | {"card"}
     assert not (tmp_path / "torch" / "results" / "fastwindow").exists()
     assert tr["session_medians"] == [tr["vs_baseline"]]
     # the port's run directory (under the temp dir here) is gone
@@ -317,7 +316,7 @@ def test_bench_tier_mismatch_exits_distinct(mocks, tmp_path, capsys):
     mocks.setenv("EBT_MOCK_CUDA_HOSTREG_MAX_BYTES", str(4 << 20))
     rc, rep = _run_main(torch_bench, mocks, tmp_path, capsys,
                         {"NUM_PAIRS": 3, "WRITE_PAIRS": 2, "RAND_PAIRS": 2,
-                         "MIN_READ_PAIRS": 2})
+                         "MIN_READ_PAIRS": 2, **SERVING_SHRUNK})
     assert rc == torch_bench.TIER_MISMATCH_EXIT, rep
     assert rep["tier"] == "staged"
     assert rep["tier_mismatch"]
