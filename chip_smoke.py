@@ -215,7 +215,6 @@ from __future__ import annotations
 
 import contextlib
 import csv
-import ctypes
 import io
 import json
 import os
@@ -1189,8 +1188,6 @@ def time_reduce(ik, integ, n: int, k: int) -> dict:
                                   torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"sum_rows kernel launch failed ({rc})")
-
-    lib.ebt_launch_floor.argtypes = [ctypes.c_void_p]
 
     def empty(_):  # an empty kernel of the same block shape: the floor
         rc = lib.ebt_launch_floor(torch.cuda.current_stream().cuda_stream)

@@ -13,6 +13,7 @@
 #include "ebt/engine.h"
 
 using ebt::CudaPath;
+using ebt::DevCopyFn;
 
 namespace {
 
@@ -48,7 +49,7 @@ void* ebt_cuda_create(const char* driver_path, uint64_t chunk_bytes,
 void ebt_cuda_destroy(void* p) { delete P(p); }
 
 // The DevCopyFn to pass to ebt_engine_set_dev_callback (ctx = the handle).
-ebt::DevCopyFn ebt_cuda_copy_fn() { return &CudaPath::copyTrampoline; }
+DevCopyFn ebt_cuda_copy_fn() { return &CudaPath::copyTrampoline; }
 
 int ebt_cuda_num_devices(void* p) { return P(p)->numDevices(); }
 

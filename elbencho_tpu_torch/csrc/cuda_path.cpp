@@ -153,6 +153,8 @@ CudaPath::CudaPath(const std::string& driver_path, uint64_t chunk_bytes,
         {"cuMemAlloc (landing buffer)",
          api_.cuMemAlloc(&l.landing, landing_cap_)},
     };
+    EBT_PAIR_BEGIN(dev_buf);   // the landing buffer, where it was made, is
+    EBT_PAIR_HOLDER(dev_buf);  // its lane's: teardown frees it
     for (const auto& s : steps) {
       if (s.rc) {
         init_error_ = cu::errorText(api_, s.what, s.rc);
@@ -277,7 +279,8 @@ CudaPath::~CudaPath() {
   // again
   {
     MutexLock lk(err_mutex_);
-    for (Tracker* t : orphan_trackers_) delete t;
+    for (ReadyTracker* t : orphan_trackers_) delete t;
+    EBT_PAIR_END(tracker);  // the trackers awaitTracker parked
     orphan_trackers_.clear();
   }
   // every tier block buffer was freed at its settle (drainAll above) and
@@ -292,42 +295,52 @@ CudaPath::~CudaPath() {
                                &threshold);
     api_.cuMemPoolTrimTo(l.pool, 0);
   }
+  // the ledgers' device memory is taken out under each one's leaf lock and
+  // freed outside it: makeCurrent may latch an error under err_mutex_, and
+  // no ledger lock nests with err_mutex_ (csrc/CONCURRENCY.md)
+  decltype(rank_bufs_) rank_bufs;
+  decltype(dev_src_) dev_src;
+  decltype(reshard_src_bufs_) reshard_src;
+  std::vector<char*> scratch;
   {
     MutexLock lk(rank_mutex_);
-    for (auto& kv : rank_bufs_) {
-      RankBufs& rb = *kv.second;
-      makeCurrent(rb.lane, true);
-      for (cu::CUdeviceptr p : {rb.verify, rb.staged, rb.gen, rb.result})
-        if (p) api_.cuMemFree(p);
-      if (rb.host) api_.cuMemFreeHost(rb.host);
-    }
-    rank_bufs_.clear();
+    rank_bufs.swap(rank_bufs_);
   }
   {
     MutexLock lk(src_mutex_);
-    for (auto& kv : dev_src_) {
-      makeCurrent(kv.second.first, true);
-      api_.cuMemFree(kv.second.second);
-    }
-    dev_src_.clear();
+    dev_src.swap(dev_src_);
   }
   {
     MutexLock lk(reshard_mutex_);
-    for (auto& kv : reshard_src_bufs_) {
-      makeCurrent(kv.second.lane, true);
-      api_.cuMemFree(kv.second.ptr);
-    }
-    reshard_src_bufs_.clear();
-    for (char* p : scratch_all_) api_.cuMemFreeHost(p);
-    scratch_all_.clear();
+    reshard_src.swap(reshard_src_bufs_);
+    scratch.swap(scratch_all_);
     scratch_free_.clear();
   }
+  for (auto& kv : rank_bufs) {
+    RankBufs& rb = *kv.second;
+    makeCurrent(rb.lane, true);
+    for (cu::CUdeviceptr p : {rb.verify, rb.staged, rb.gen, rb.result})
+      if (p) api_.cuMemFree(p);
+    if (rb.host) api_.cuMemFreeHost(rb.host);
+    EBT_PAIR_END(dev_buf);
+  }
+  for (auto& kv : dev_src) {
+    makeCurrent(kv.second.first, true);
+    api_.cuMemFree(kv.second.second);
+    EBT_PAIR_END(dev_buf);
+  }
+  for (auto& kv : reshard_src) {
+    makeCurrent(kv.second.lane, true);
+    api_.cuMemFree(kv.second.ptr);
+  }
+  for (char* p : scratch) api_.cuMemFreeHost(p);
   for (size_t d = 0; d < lanes_.size(); d++) {
     Lane& l = *lanes_[d];
     if (!l.ctx_retained) continue;
     makeCurrent((int)d, true);
     for (cu::CUdeviceptr p : {l.landing, l.verify_ws})
       if (p) api_.cuMemFree(p);
+    EBT_PAIR_END(dev_buf);
     if (l.h2d) api_.cuStreamDestroy(l.h2d);
     if (l.d2h) api_.cuStreamDestroy(l.d2h);
     api_.cuDevicePrimaryCtxRelease(l.dev);
@@ -344,7 +357,7 @@ CudaPath::~CudaPath() {
 void CudaPath::hostFnTrampoline(void* arg) {
   // runs on the driver's callback thread with the stream blocked: one leaf
   // lock per histogram and tracker, no driver API call
-  Tracker* t = static_cast<Tracker*>(arg);
+  ReadyTracker* t = static_cast<ReadyTracker*>(arg);
   if (t->device >= 0) t->path->addDevLatency(t->device, usSince(t->t0));
   // wake the worker's reactor BEFORE flipping done (no lock held: the hub's
   // leaf mutex is the only acquisition). This reverses the original's
@@ -383,7 +396,8 @@ void CudaPath::attachCompletion(Pending& p, int lane, cu::CUstream stream,
     p.t0 = t0;
   }
   if (onready_ok_.load(std::memory_order_relaxed)) {
-    auto* t = new Tracker();
+    auto* t = new ReadyTracker();
+    EBT_PAIR_BEGIN(tracker);
     t->path = this;
     t->device = p.device;
     t->t0 = p.t0;
@@ -391,9 +405,12 @@ void CudaPath::attachCompletion(Pending& p, int lane, cu::CUstream stream,
     cu::CUresult rc = api_.cuLaunchHostFunc(stream, &hostFnTrampoline, t);
     if (rc == cu::CUDA_SUCCESS) {
       p.tracker = t;
+      EBT_PAIR_HOLDER(tracker);  // parked on the pending: awaitTracker frees
+                                 // it or parks it on orphan_trackers_
       return;
     }
     delete t;
+    EBT_PAIR_END(tracker);
     if (rc != cu::CUDA_ERROR_NOT_SUPPORTED) {
       // completion can never be confirmed: the transfer counts as failed
       latchXferError(cu::errorText(api_, "completion (cuLaunchHostFunc)", rc));
@@ -420,66 +437,79 @@ void CudaPath::attachCompletion(Pending& p, int lane, cu::CUstream stream,
   p.ready_failed = true;
 }
 
-int CudaPath::awaitRelease(Pending& p) {
+// The onready clock's wait: until the host function behind the copy has
+// run, or the stream reports a fault or went idle without running it.
+int CudaPath::awaitTracker(Pending& p) {
   int rc = 0;
-  if (p.tracker) {
-    Tracker* t = p.tracker;
-    cu::CUresult q = cu::CUDA_SUCCESS;
-    bool dropped = false;
-    Lane& lane = laneFor(p.lane);
-    // on a lane that already reported a fault, query before the first
-    // poll slice: each wait on the faulted stream would otherwise pay a
-    // whole slice before its recovery starts. Only after a fault was
-    // reported: the mock's failed device-to-device copy reports its fault
-    // once, to whichever wait queries first, so an early query from a
-    // healthy copy's wait would take the fault from the failed one's
-    bool query_now = lane.stream_fault.load(std::memory_order_relaxed);
-    {
-      CondLock lk(t->m);
-      while (!t->done) {
-        // a sticky device error keeps the host function from ever running:
-        // poll the stream while waiting, and give up on an error
-        if (!query_now &&
-            (t->cv.wait_for(lk.native(), std::chrono::milliseconds(50)) !=
-                 std::cv_status::timeout ||
-             t->done))
-          continue;
-        query_now = false;
-        makeCurrent(p.lane, false);
-        q = api_.cuStreamQuery(p.stream);
-        if (q != cu::CUDA_SUCCESS && q != cu::CUDA_ERROR_NOT_READY) {
-          lane.stream_fault.store(true, std::memory_order_relaxed);
-          break;
-        }
-        // an idle stream has run every host function enqueued on it: a
-        // tracker still not done was dropped with a failed copy (the fault
-        // was reported to another waiter), so it never will be
-        if (q == cu::CUDA_SUCCESS && !t->done) {
-          dropped = true;
-          break;
-        }
-        q = cu::CUDA_SUCCESS;
+  ReadyTracker* t = p.tracker;
+  p.tracker = nullptr;
+  EBT_PAIR_BEGIN(tracker);  // taken off the pending: freed on every path
+                            // below, or parked for teardown
+  cu::CUresult q = cu::CUDA_SUCCESS;
+  bool dropped = false;
+  Lane& lane = laneFor(p.lane);
+  // on a lane that already reported a fault, query before the first
+  // poll slice: each wait on the faulted stream would otherwise pay a
+  // whole slice before its recovery starts. Only after a fault was
+  // reported: the mock's failed device-to-device copy reports its fault
+  // once, to whichever wait queries first, so an early query from a
+  // healthy copy's wait would take the fault from the failed one's
+  bool query_now = lane.stream_fault.load(std::memory_order_relaxed);
+  // the queries below need the lane's context; it is made current before
+  // the tracker lock, which ranks below err_mutex_ (a failed switch
+  // latches its error there)
+  makeCurrent(p.lane, false);
+  {
+    CondLock lk(t->m);
+    while (!t->done) {
+      // a sticky device error keeps the host function from ever running:
+      // poll the stream while waiting, and give up on an error
+      if (!query_now &&
+          (t->cv.wait_for(lk.native(), std::chrono::milliseconds(50)) !=
+               std::cv_status::timeout ||
+           t->done))
+        continue;
+      query_now = false;
+      q = api_.cuStreamQuery(p.stream);
+      if (q != cu::CUDA_SUCCESS && q != cu::CUDA_ERROR_NOT_READY) {
+        lane.stream_fault.store(true, std::memory_order_relaxed);
+        break;
       }
+      // an idle stream has run every host function enqueued on it: a
+      // tracker still not done was dropped with a failed copy (the fault
+      // was reported to another waiter), so it never will be
+      if (q == cu::CUDA_SUCCESS && !t->done) {
+        dropped = true;
+        break;
+      }
+      q = cu::CUDA_SUCCESS;
     }
-    if (dropped) {
-      // the query ran under t->m, which the host function takes: an idle
-      // stream with the tracker not done will never run it
-      latchXferError("transfer completion: the copy's completion was "
-                     "dropped by a stream fault");
-      rc = 1;
-      delete t;
-    } else if (q != cu::CUDA_SUCCESS) {
-      // the stream may still run the host function: the tracker is freed
-      // at teardown, once the lane streams are synchronized
-      latchXferError(cu::errorText(api_, "transfer completion", q));
-      rc = 1;
-      MutexLock elk(err_mutex_);
-      orphan_trackers_.push_back(t);
-    } else {
-      delete t;
-    }
-    p.tracker = nullptr;
   }
+  if (dropped) {
+    // the query ran under t->m, which the host function takes: an idle
+    // stream with the tracker not done will never run it
+    latchXferError("transfer completion: the copy's completion was "
+                   "dropped by a stream fault");
+    rc = 1;
+    delete t;
+    EBT_PAIR_END(tracker);
+  } else if (q != cu::CUDA_SUCCESS) {
+    // the stream may still run the host function: the tracker is freed
+    // at teardown, once the lane streams are synchronized
+    latchXferError(cu::errorText(api_, "transfer completion", q));
+    rc = 1;
+    MutexLock elk(err_mutex_);
+    orphan_trackers_.push_back(t);
+    EBT_PAIR_HOLDER(tracker);
+  } else {
+    delete t;
+    EBT_PAIR_END(tracker);
+  }
+  return rc;
+}
+
+int CudaPath::awaitRelease(Pending& p) {
+  int rc = p.tracker ? awaitTracker(p) : 0;
   if (p.event) {
     makeCurrent(p.lane, false);
     cu::CUresult e = api_.cuEventSynchronize(p.event);
@@ -533,6 +563,7 @@ int CudaPath::awaitRelease(Pending& p) {
     makeCurrent(p.lane, false);
     api_.cuMemFreeAsync(p.xm_buf, p.stream);
     p.xm_buf = 0;
+    EBT_PAIR_END(xfer_mgr);
   }
   return rc;
 }
@@ -559,28 +590,41 @@ void CudaPath::enqueue(void* buf, std::vector<Pending>& ps,
     // before enqueuing anything never strands the reconciliation
     p.stripe = stripe_unit >= 0;
     p.stripe_unit = first ? stripe_unit : -1;
-    if (first && stripe_unit >= 0)
+    if (first && stripe_unit >= 0) {
       stripe_units_submitted_.fetch_add(1, std::memory_order_relaxed);
+      EBT_PAIR_BEGIN(stripe_unit);
+      EBT_PAIR_HOLDER(stripe_unit);  // rides the tagged pending until
+                                     // settleStripe counts it awaited
+    }
     first = false;
     // restore blocks: every chunk's bytes count as submitted under the
     // shard (byte-level reconciliation)
     p.ckpt_shard = ckpt_shard;
-    if (ckpt_shard >= 0 && p.bytes && ckpt_sub_bytes_)
+    if (ckpt_shard >= 0 && p.bytes && ckpt_sub_bytes_) {
       ckpt_sub_bytes_[ckpt_shard].fetch_add(p.bytes,
                                             std::memory_order_relaxed);
+      EBT_PAIR_BEGIN(ckpt_shard);
+      EBT_PAIR_HOLDER(ckpt_shard);  // settleCkpt reconciles the bytes
+    }
     // reshard storage reads: bytes count as submitted per plan unit
     p.reshard_unit = reshard_unit;
     if (reshard_unit >= 0 && reshard_unit_gen_)
       p.reshard_gen =
           reshard_unit_gen_[reshard_unit].load(std::memory_order_acquire);
-    if (reshard_unit >= 0 && p.bytes && reshard_sub_bytes_)
+    if (reshard_unit >= 0 && p.bytes && reshard_sub_bytes_) {
       reshard_sub_bytes_[reshard_unit].fetch_add(p.bytes,
                                                  std::memory_order_relaxed);
+      EBT_PAIR_BEGIN(reshard_unit);
+      EBT_PAIR_HOLDER(reshard_unit);  // settleReshard reconciles the bytes
+    }
     // ingest blocks: every chunk's bytes count as submitted under the epoch
     // and ride the in-flight gauge until their settle
     p.ingest_epoch = ingest_epoch;
-    if (ingest_epoch >= 0 && p.bytes && ingest_sub_bytes_)
+    if (ingest_epoch >= 0 && p.bytes && ingest_sub_bytes_) {
       ingestCountSubmitted(ingest_epoch, p.bytes);
+      EBT_PAIR_BEGIN(ingest_epoch);
+      EBT_PAIR_HOLDER(ingest_epoch);  // settleIngest releases the gauge
+    }
     Lane& lane = laneFor(p.lane);
     (p.d2h ? lane.bytes_from_hbm : lane.bytes_to_hbm)
         .fetch_add(p.bytes, std::memory_order_relaxed);
@@ -678,10 +722,14 @@ bool CudaPath::ensureBuffer(int lane, cu::CUdeviceptr* p, uint64_t* cap,
     Lane& l = laneFor(lane);
     if (syncStream(lane, l.h2d) || syncStream(lane, l.d2h)) return false;
     api_.cuMemFree(*p);
+    EBT_PAIR_END(dev_buf);
     *p = 0;
     *cap = 0;
   }
   if (!check("cuMemAlloc", api_.cuMemAlloc(p, want))) return false;
+  EBT_PAIR_BEGIN(dev_buf);
+  EBT_PAIR_HOLDER(dev_buf);  // the rank's buffer: replaced here or freed at
+                             // teardown
   *cap = want;
   return true;
 }
@@ -697,8 +745,8 @@ int CudaPath::submitH2D(int device_idx, const char* buf, uint64_t len,
   // pendings take over, and it also covers the submit-time retries below.
   const int li = laneIndex(device_idx);
   Lane& lane = *lanes_[li];
-  QueueShard& shard = shardFor(buf);
-  const bool zc = holdForCopy(buf, len, lane, shard);
+  const bool zc = holdForCopy(buf, len, lane);
+  EBT_PAIR_BEGIN(copy_hold);  // the hold, where one was taken
   std::vector<Pending> submitted;
   int rc = 0;
   int chunk_i = 0;
@@ -765,12 +813,12 @@ int CudaPath::submitH2D(int device_idx, const char* buf, uint64_t len,
   if (rc != 0 && ingest_epoch >= 0 && ingest_drop_bytes_ && len > off)
     ingest_drop_bytes_[ingest_epoch].fetch_add(len - off,
                                                std::memory_order_relaxed);
-  if (zc) releaseHold(buf, len, lane, shard);
+  if (zc) releaseHold(buf, len, lane);
+  EBT_PAIR_END(copy_hold);
   return rc;
 }
 
-bool CudaPath::holdForCopy(const char* buf, uint64_t len, Lane& lane,
-                           QueueShard& shard) {
+bool CudaPath::holdForCopy(const char* buf, uint64_t len, Lane& lane) {
   // The driver decides per call whether a source is pinned. A range whose
   // registration is changing (in_transit_) may still be pinned in the
   // driver while the cache already counts it gone: a copy issued then would
@@ -792,14 +840,15 @@ bool CudaPath::holdForCopy(const char* buf, uint64_t len, Lane& lane,
   const bool zc =
       dma_ok_ && !no_ready_diag_ && bufferRegisteredLocked(buf, len);
   if (zc) {
+    QueueShard& shard = shardFor(buf);
     MutexLock slk(shard.m);
     shard.draining[(uint64_t)(uintptr_t)buf] += len ? len : 1;
   }
   return zc;
 }
 
-void CudaPath::releaseHold(const char* buf, uint64_t len, Lane& lane,
-                           QueueShard& shard) {
+void CudaPath::releaseHold(const char* buf, uint64_t len, Lane& lane) {
+  QueueShard& shard = shardFor(buf);
   TimedMutexLock lk(shard.m, lane.lock_wait_ns);
   auto it = shard.draining.find((uint64_t)(uintptr_t)buf);
   if (it != shard.draining.end()) {
@@ -888,8 +937,8 @@ int CudaPath::submitH2DXferMgr(int device_idx, const char* buf, uint64_t len,
   // a registered source is read in place by the copies: hold it against
   // eviction until they are enqueued, as submitH2D does (the tier counts
   // blocks, not zero-copy chunks)
-  QueueShard& shard = shardFor(buf);
-  const bool held = holdForCopy(buf, len, lane, shard);
+  const bool held = holdForCopy(buf, len, lane);
+  EBT_PAIR_BEGIN(copy_hold);  // the hold, where one was taken
   int rc = 0;
   // a restoring generation's block lands in the generation's memory and
   // needs no block buffer of its own
@@ -899,6 +948,8 @@ int CudaPath::submitH2DXferMgr(int device_idx, const char* buf, uint64_t len,
              api_.cuMemAllocAsync(&block, std::max<uint64_t>(len, 8),
                                   lane.h2d)))
     rc = 1;
+  EBT_PAIR_BEGIN(xfer_mgr);  // the block buffer, where one was made: parked
+                             // on a pending or freed below
   std::vector<Pending> submitted;
   uint64_t off = 0;  // after the loop: the bytes that were enqueued
   while (rc == 0 && off < len) {
@@ -928,19 +979,21 @@ int CudaPath::submitH2DXferMgr(int device_idx, const char* buf, uint64_t len,
     Pending p;
     p.xm_block = true;
     p.xm_buf = block;  // freed at this pending's settle
+    EBT_PAIR_HOLDER(xfer_mgr);
     p.rot_gen = rot_gen;
     attachCompletion(p, li, lane.h2d, li, t0);
     submitted.push_back(p);
     xfer_mgr_count_.fetch_add(1, std::memory_order_relaxed);
-  } else if (block) {
+  } else if (!submitted.empty()) {
     // failed mid-block: the chunks already enqueued may still be copying
     // into the buffer, so it rides the last of them and is freed after
     // they are waited out; with none enqueued it is freed now, still
     // stream-ordered
-    if (!submitted.empty())
-      submitted.back().xm_buf = block;
-    else
-      api_.cuMemFreeAsync(block, lane.h2d);
+    submitted.back().xm_buf = block;
+    EBT_PAIR_HOLDER(xfer_mgr);
+  } else {
+    if (block) api_.cuMemFreeAsync(block, lane.h2d);
+    EBT_PAIR_END(xfer_mgr);
   }
   enqueue((void*)buf, submitted, stripe_unit, ckpt_shard, reshard_unit,
           ingest_epoch);
@@ -948,7 +1001,8 @@ int CudaPath::submitH2DXferMgr(int device_idx, const char* buf, uint64_t len,
   if (rc != 0 && ingest_epoch >= 0 && ingest_drop_bytes_ && len > off)
     ingest_drop_bytes_[ingest_epoch].fetch_add(len - off,
                                                std::memory_order_relaxed);
-  if (held) releaseHold(buf, len, lane, shard);
+  if (held) releaseHold(buf, len, lane);
+  EBT_PAIR_END(copy_hold);
   return rc;
 }
 
@@ -973,8 +1027,8 @@ int CudaPath::submitH2DVerified(int worker_rank, int device_idx,
       return 1;
     // the copies are awaited below, inside this call: the hold keeps a
     // window eviction from unpinning the source until then
-    QueueShard& shard = shardFor(buf);
-    const bool held = holdForCopy(buf, n8, lane, shard);
+    const bool held = holdForCopy(buf, n8, lane);
+    EBT_PAIR_BEGIN(copy_hold);  // the hold, where one was taken
     std::vector<Pending> waits;
     int rc = 0;
     for (uint64_t off = 0; off < n8;) {
@@ -1011,7 +1065,8 @@ int CudaPath::submitH2DVerified(int worker_rank, int device_idx,
     for (Pending& p : waits)  // await ALL even after a failure
       if (awaitRelease(p)) rc = 1;
     if (syncStream(li, lane.h2d)) rc = 1;
-    if (held) releaseHold(buf, n8, lane, shard);
+    if (held) releaseHold(buf, n8, lane);
+    EBT_PAIR_END(copy_hold);
     if (rc) return 1;
     if (rb.host[1] != 0) {
       const uint64_t first = (uint64_t)rb.host[2];
@@ -1126,16 +1181,23 @@ cu::CUdeviceptr CudaPath::deviceSource(int worker_rank, int device_idx,
   Lane& lane = *lanes_[li];
   cu::CUdeviceptr p = 0;
   if (!check("write-source cuMemAlloc", api_.cuMemAlloc(&p, len))) return 0;
+  EBT_PAIR_BEGIN(dev_buf);
   if (!check("write-source cuMemcpyHtoDAsync",
              api_.cuMemcpyHtoDAsync(p, host.data(), len, lane.h2d)) ||
       syncStream(li, lane.h2d)) {
     syncStream(li, lane.h2d);
     api_.cuMemFree(p);
+    EBT_PAIR_END(dev_buf);
     return 0;
   }
   MutexLock lk(src_mutex_);
   auto [it, inserted] = dev_src_.emplace(key, std::make_pair(li, p));
-  if (!inserted) api_.cuMemFree(p);  // lost a race; keep the winner
+  if (inserted) {
+    EBT_PAIR_HOLDER(dev_buf);  // the source map's: freed at teardown
+  } else {
+    api_.cuMemFree(p);  // lost a race; keep the winner
+    EBT_PAIR_END(dev_buf);
+  }
   return it->second.second;
 }
 
@@ -1637,6 +1699,7 @@ int CudaPath::settleAllShards() {
 // ---------------------------------------------------------------- stripe tier
 
 void CudaPath::settleStripe(const Pending& p, int rc) {
+  EBT_PAIR_END(stripe_unit);
   if (p.stripe_unit >= 0)
     stripe_units_awaited_.fetch_add(1, std::memory_order_relaxed);
   // only planner-routed copies attribute to a device (a d2h fetch failing
@@ -1713,6 +1776,7 @@ int CudaPath::stripeBarrier() {
 // ---------------------------------------------------------------- checkpoint
 
 void CudaPath::settleCkpt(const Pending& p, int rc) {
+  EBT_PAIR_END(ckpt_shard);
   if (p.ckpt_shard < 0 || !ckpt_sub_bytes_) return;
   if (rc == 0) {
     if (p.bytes) {
@@ -1788,6 +1852,9 @@ int CudaPath::ckptBeginShard(int worker_rank, int64_t shard) {
   {
     MutexLock lk(ckpt_mutex_);
     ckpt_cur_shard_[worker_rank] = shard;
+    EBT_PAIR_BEGIN(ckpt_shard);
+    EBT_PAIR_HOLDER(ckpt_shard);  // the worker's current shard: its tagged
+                                  // pendings settle in settleCkpt
   }
   // the rotator restoring a generation: the shard's memory in that
   // generation is made now, once per placement lane
@@ -1989,8 +2056,8 @@ int CudaPath::recoverPending(Pending& p) {
   // on its range and hold it against eviction until they are awaited, as a
   // first submit does
   Lane& failed = laneFor(p.lane);
-  QueueShard& shard = shardFor(p.src);
-  const bool held = holdForCopy(p.src, p.bytes, failed, shard);
+  const bool held = holdForCopy(p.src, p.bytes, failed);
+  EBT_PAIR_BEGIN(copy_hold);  // the hold, where one was taken
   std::string cause;
   const int winner = walkSurvivors(
       p.lane,
@@ -2023,7 +2090,8 @@ int CudaPath::recoverPending(Pending& p) {
         return awaitRelease(wait) == 0;
       },
       &cause);
-  if (held) releaseHold(p.src, p.bytes, failed, shard);
+  if (held) releaseHold(p.src, p.bytes, failed);
+  EBT_PAIR_END(copy_hold);
   if (winner < 0) return 1;
   // the bytes move from the failed lane to the survivor, so per-lane sums
   // and the checkpoint per-lane evidence stay exact
@@ -2104,6 +2172,7 @@ void CudaPath::rotFree(std::vector<RotBuf>& bufs) {
     b.ptr = 0;
   }
   bufs.clear();
+  EBT_PAIR_END(rot_buf);
 }
 
 int CudaPath::rotAllocShard(int64_t shard) {
@@ -2125,10 +2194,14 @@ int CudaPath::rotAllocShard(int64_t shard) {
     b.lane = b.plan_lane = lane;
     b.bytes = ckpt_entry_bytes_[i];
     b.ptr = rotAlloc(lane, b.bytes);
-    if (b.ptr)
+    if (b.ptr) {
+      EBT_PAIR_BEGIN(rot_buf);
       made.push_back(b);
-    else
+      EBT_PAIR_HOLDER(rot_buf);  // parked in `made`: the generation takes
+                                 // all of it below
+    } else {
       failed_lane = lane;
+    }
   }
   if (failed_lane >= 0)
     latchCkptError(failed_lane, shard, firstTransferError());
@@ -2167,8 +2240,10 @@ cu::CUdeviceptr CudaPath::rotDest(uint64_t gen, int64_t shard, int plan_lane,
   b.bytes = n;
   b.ptr = rotAlloc(lane, n);
   if (!b.ptr) return 0;
+  EBT_PAIR_BEGIN(rot_buf);
   MutexLock lk(rot_mutex_);
   rot_fresh_.bufs.push_back(b);
+  EBT_PAIR_HOLDER(rot_buf);  // the generation's: a swap or teardown frees it
   return b.ptr;
 }
 
@@ -2188,6 +2263,7 @@ void CudaPath::rotReleaseAll() {
     rot_fresh_.bufs.clear();
     rot_active_.pendings = rot_fresh_.pendings = 0;
   }
+  EBT_PAIR_BEGIN(rot_buf);  // both generations, taken out of the ledger
   rotFree(all);
 }
 
@@ -2205,6 +2281,8 @@ int CudaPath::rotateBegin(int worker_rank, uint64_t generation,
     rot_fresh_.pendings = 0;
     rot_bg_bytes_base_ = bg_h2d_bytes_.load(std::memory_order_relaxed);
   }
+  EBT_PAIR_BEGIN(rot_buf);  // the aborted generation, taken out of the
+                            // ledger
   rotFree(stale);
   {
     // re-sync the lane bucket to the engine's (possibly adapted) budget; a
@@ -2250,6 +2328,8 @@ int CudaPath::rotateSwap(int worker_rank) {
     rot_fresh_.pendings = 0;
     rot_records_.push_back(rec);
   }
+  EBT_PAIR_BEGIN(rot_buf);  // the displaced generation, taken out of the
+                            // ledger
   rot_generation_.store(gen, std::memory_order_release);
   rot_restore_gen_.store(0, std::memory_order_release);
   t_rot_gen = 0;
@@ -2321,6 +2401,7 @@ int CudaPath::rotationRead(int64_t shard, int replica, uint64_t offset,
 // ---------------------------------------------------------------- ingest
 
 void CudaPath::settleIngest(const Pending& p, int rc) {
+  EBT_PAIR_END(ingest_epoch);
   if (p.ingest_epoch < 0 || !ingest_res_bytes_ || !p.bytes) return;
   // the bytes leave the in-flight gauge either way
   ingest_inflight_bytes_.fetch_sub(p.bytes, std::memory_order_relaxed);
@@ -2380,6 +2461,9 @@ int CudaPath::ingestBeginEpoch(int worker_rank, int64_t epoch) {
   if (epoch < 0 || epoch >= (int64_t)ingest_epochs_) return 1;
   MutexLock lk(ingest_mutex_);
   ingest_cur_epoch_[worker_rank] = epoch;
+  EBT_PAIR_BEGIN(ingest_epoch);
+  EBT_PAIR_HOLDER(ingest_epoch);  // the worker's current epoch: its tagged
+                                  // pendings settle in settleIngest
   return 0;
 }
 
@@ -2452,6 +2536,7 @@ void CudaPath::ingestRearm() {
 // ---------------------------------------------------------------- reshard
 
 void CudaPath::settleReshard(const Pending& p, int rc) {
+  EBT_PAIR_END(reshard_unit);
   if (p.reshard_unit < 0 || !reshard_sub_bytes_ ||
       (uint64_t)p.reshard_unit >= reshard_nunits_)
     return;
@@ -2637,6 +2722,9 @@ int CudaPath::reshardBeginUnit(int worker_rank, int64_t unit) {
   reshard_res_bytes_[unit].store(0, std::memory_order_relaxed);
   MutexLock lk(reshard_mutex_);
   reshard_cur_unit_[worker_rank] = unit;
+  EBT_PAIR_BEGIN(reshard_unit);
+  EBT_PAIR_HOLDER(reshard_unit);  // the worker's current unit: its tagged
+                                  // pendings settle in settleReshard
   return 0;
 }
 
@@ -2694,6 +2782,7 @@ char* CudaPath::acquireScratch() {
 void CudaPath::releaseScratch(char* p) {
   MutexLock lk(reshard_mutex_);
   scratch_free_.push_back(p);
+  EBT_PAIR_END(bounce_scratch);
 }
 
 cu::CUresult CudaPath::d2dCopy(int src_lane, cu::CUdeviceptr src, int dst,
@@ -2731,6 +2820,7 @@ int CudaPath::bounceMoveChunk(int src_lane, cu::CUdeviceptr src, uint64_t len,
                               int dst, uint64_t dst_off, int64_t unit) {
   char* scratch = acquireScratch();
   if (!scratch) return 1;
+  EBT_PAIR_BEGIN(bounce_scratch);
   const auto t0 = Clock::now();  // the bounce's whole cost
   Pending p;
   if (bounceLegs(src_lane, src, scratch, len, dst, dst_off, "bounce move",
@@ -2742,11 +2832,14 @@ int CudaPath::bounceMoveChunk(int src_lane, cu::CUdeviceptr src, uint64_t len,
   p.d2d_bounce = true;
   p.src_lane = src_lane;
   p.reshard_unit = unit;
+  EBT_PAIR_BEGIN(reshard_unit);
   p.reshard_gen = reshard_unit_gen_[unit].load(std::memory_order_acquire);
   p.owned_src = scratch;  // the H2D leg reads it until the settle
+  EBT_PAIR_HOLDER(bounce_scratch);  // awaitRelease returns it to the pool
   attachCompletion(p, dst, lanes_[dst]->h2d, dst, t0);
   MutexLock lk(reshard_mutex_);
   reshard_pending_.push_back(p);
+  EBT_PAIR_HOLDER(reshard_unit);  // the deferred move ledger
   return 0;
 }
 
@@ -2756,6 +2849,7 @@ int CudaPath::recoverMovePending(Pending& p) {
   if (!p.d2d || p.d2d_bounce || !p.d2d_src || !p.bytes) return 1;
   char* scratch = acquireScratch();
   if (!scratch) return 1;
+  EBT_PAIR_BEGIN(bounce_scratch);
   const int dst = laneIndex(p.lane);
   Pending wait;
   int rc = bounceLegs(p.src_lane, p.d2d_src, scratch, p.bytes, dst, 0,
@@ -2826,11 +2920,14 @@ int CudaPath::reshardMove(int worker_rank, int64_t unit) {
         p.src_lane = src;
         p.d2d_src = sb.ptr + off;
         p.reshard_unit = unit;
+        EBT_PAIR_BEGIN(reshard_unit);
         p.reshard_gen =
             reshard_unit_gen_[unit].load(std::memory_order_acquire);
         attachCompletion(p, dst, dl.h2d, dst, t0);
         MutexLock lk(reshard_mutex_);
         reshard_pending_.push_back(p);
+        EBT_PAIR_HOLDER(reshard_unit);  // the deferred move ledger: the
+                                        // barrier's settle reconciles it
         moved = true;
       }
     }
@@ -2941,6 +3038,7 @@ int CudaPath::hostRegister(void* buf, uint64_t len, bool window,
     std::string msg = cu::errorText(api_, "cuMemHostRegister", rc);
     MutexLock lk(reg_mutex_);
     in_transit_.erase((uintptr_t)buf);
+    EBT_PAIR_END(reg_intransit);
     reg_cv_.notify_all();
     if (reserved) {  // return the caller's budget reservation
       window_bytes_ -= len;
@@ -2957,6 +3055,7 @@ int CudaPath::hostRegister(void* buf, uint64_t len, bool window,
   int uring_idx = UringReg::instance().claim(buf, len, /*dma_shared=*/true);
   MutexLock lk(reg_mutex_);
   in_transit_.erase((uintptr_t)buf);
+  EBT_PAIR_END(reg_intransit);
   reg_cv_.notify_all();
   RegEntry& e = registered_[(uintptr_t)buf];
   e.len = len;
@@ -3000,7 +3099,9 @@ int CudaPath::registerBuffer(void* buf, uint64_t len) {
     // another thread's registration of this range is still in the driver
     if (rangeInTransitLocked((uintptr_t)buf, len)) return 1;
     in_transit_[(uintptr_t)buf] = len;
+    EBT_PAIR_BEGIN(reg_intransit);
   }
+  // both of its arms settle the registration change
   return hostRegister(buf, len, /*window=*/false, /*reserved=*/false);
 }
 
@@ -3013,6 +3114,7 @@ int CudaPath::deregisterBuffer(void* buf) {
     if (it->second.window) window_bytes_ -= it->second.len;
     pinned_bytes_ -= it->second.len;
     in_transit_[it->first] = it->second.len;
+    EBT_PAIR_BEGIN(reg_intransit);
     uring_idx = it->second.uring_idx;
     registered_.erase(it);
   }
@@ -3020,6 +3122,7 @@ int CudaPath::deregisterBuffer(void* buf) {
   hostUnregister(buf);
   MutexLock lk(reg_mutex_);
   in_transit_.erase((uintptr_t)buf);
+  EBT_PAIR_END(reg_intransit);
   reg_cv_.notify_all();
   return 0;
 }
@@ -3133,6 +3236,9 @@ int CudaPath::registerWindow(void* buf, uint64_t len) {
       reg_evictions_++;
       victims.emplace_back(best->first, best->second.uring_idx);
       in_transit_[best->first] = best->second.len;
+      EBT_PAIR_BEGIN(reg_intransit);
+      EBT_PAIR_HOLDER(reg_intransit);  // parked in `victims`: unpinVictims
+                                       // settles it
       registered_.erase(best);
     }
     if (fits) {
@@ -3144,6 +3250,7 @@ int CudaPath::registerWindow(void* buf, uint64_t len) {
   }
   unpinVictims(victims);
   if (!fits) return 1;
+  EBT_PAIR_BEGIN(reg_intransit);  // the new window's change, made above
   return hostRegister(buf, len, /*window=*/true, /*reserved=*/true);
 }
 
@@ -3158,6 +3265,9 @@ void CudaPath::deregisterRange(void* buf, uint64_t len) {
         pinned_bytes_ -= it->second.len;
         victims.emplace_back(it->first, it->second.uring_idx);
         in_transit_[it->first] = it->second.len;
+        EBT_PAIR_BEGIN(reg_intransit);
+        EBT_PAIR_HOLDER(reg_intransit);  // parked in `victims`, unpinned
+                                         // below
         it = registered_.erase(it);
       } else {
         ++it;
@@ -3183,6 +3293,7 @@ void CudaPath::unpinVictims(
     UringReg::instance().release(uidx);
     MutexLock lk(reg_mutex_);
     in_transit_.erase(v);
+    EBT_PAIR_END(reg_intransit);
     reg_cv_.notify_all();
   }
 }
@@ -3265,6 +3376,18 @@ double mibPerSec(uint64_t bytes, std::chrono::steady_clock::time_point t0,
   const double secs = std::chrono::duration<double>(t1 - t0).count();
   return secs > 0 ? (double)bytes / (1 << 20) / secs : -1.0;
 }
+
+// the start gate of a multi-stream H2D ceiling: every submitter prepares,
+// then all start their copies together; the last to finish stops the clock
+struct StartGate {
+  Mutex gate_m;
+  std::condition_variable cv;
+  int ready EBT_GUARDED_BY(gate_m) = 0;
+  int finished EBT_GUARDED_BY(gate_m) = 0;
+  bool go EBT_GUARDED_BY(gate_m) = false;
+  bool all_ok EBT_GUARDED_BY(gate_m) = true;
+  std::chrono::steady_clock::time_point t1 EBT_GUARDED_BY(gate_m){};
+};
 
 }  // namespace
 
@@ -3526,11 +3649,7 @@ double CudaPath::rawH2DCeiling(uint64_t total_bytes, int depth,
                 " streams x chunk (" + std::to_string(chunk) + ")");
     return -1.0;
   }
-  std::mutex gate_m;
-  std::condition_variable gate_cv;
-  int ready = 0, finished = 0;
-  bool go = false, all_ok = true;
-  Clock::time_point t1{};
+  StartGate gate;
   std::vector<std::thread> threads;
   for (int s = 0; s < streams; s++) {
     threads.emplace_back([&, s] {
@@ -3538,32 +3657,33 @@ double CudaPath::rawH2DCeiling(uint64_t total_bytes, int depth,
           (lane0 + s) % ndev, sn, chunk, depth, tier,
           0x9E3779B97F4A7C15ULL ^ total_bytes ^ ((uint64_t)(s + 1) << 48), 16,
           [&](bool prep_ok) {
-            std::unique_lock<std::mutex> lk(gate_m);
-            if (!prep_ok) all_ok = false;
-            ready++;
-            gate_cv.notify_all();
-            gate_cv.wait(lk, [&] { return go; });
-            return all_ok;  // no copies once a submitter failed to prepare
+            CondLock lk(gate.gate_m);
+            if (!prep_ok) gate.all_ok = false;
+            gate.ready++;
+            gate.cv.notify_all();
+            while (!gate.go) gate.cv.wait(lk.native());
+            return gate.all_ok;  // no copies once a submitter failed to prepare
           },
           [&](bool ok) {
-            std::lock_guard<std::mutex> lk(gate_m);
-            if (!ok) all_ok = false;
-            if (++finished == streams) t1 = Clock::now();
-            gate_cv.notify_all();
+            MutexLock lk(gate.gate_m);
+            if (!ok) gate.all_ok = false;
+            if (++gate.finished == streams) gate.t1 = Clock::now();
+            gate.cv.notify_all();
           });
     });
   }
   Clock::time_point t0{};
   {
-    std::unique_lock<std::mutex> lk(gate_m);
-    gate_cv.wait(lk, [&] { return ready == streams; });
+    CondLock lk(gate.gate_m);
+    while (gate.ready != streams) gate.cv.wait(lk.native());
     t0 = Clock::now();
-    go = true;
-    gate_cv.notify_all();
+    gate.go = true;
+    gate.cv.notify_all();
   }
   for (auto& t : threads) t.join();
-  if (!all_ok) return -1.0;
-  return mibPerSec(sn * chunk * (uint64_t)streams, t0, t1);
+  MutexLock lk(gate.gate_m);
+  if (!gate.all_ok) return -1.0;
+  return mibPerSec(sn * chunk * (uint64_t)streams, t0, gate.t1);
 }
 
 double CudaPath::rawD2HCeiling(uint64_t total_bytes, int depth,

@@ -143,10 +143,9 @@
  * the two directions overlap. A host function blocks its stream while it
  * runs, so the trampoline takes one leaf lock and calls no driver API.
  *
- * Lock hierarchy (as in PjrtPath): reg_mutex_ > QueueShard::m > {err_mutex_,
- * src_mutex_, rank_mutex_, Lane::histo_m, Tracker::m}; stripe_mutex_,
- * ckpt_mutex_, fault_mutex_, reshard_mutex_, ingest_mutex_, rot_mutex_ and
- * bg_mutex_ are leaves that never nest with err_mutex_.
+ * Locks and resource pairs: csrc/CONCURRENCY.md holds the lock hierarchy,
+ * the hot-path lock set and the EBT_PAIR_* pairs of cuda_path.cpp, and
+ * tools/torch_audit.py holds this code to them.
  */
 #pragma once
 
@@ -510,7 +509,7 @@ class CudaPath {
   using Clock = std::chrono::steady_clock;
 
   // one copy's completion: signalled by the host function behind it
-  struct Tracker {
+  struct ReadyTracker {
     CudaPath* path = nullptr;
     int device = -1;  // latency attribution; -1 = no sample
     Clock::time_point t0{};
@@ -520,7 +519,7 @@ class CudaPath {
     bool done EBT_GUARDED_BY(m) = false;
   };
   struct Pending {
-    Tracker* tracker = nullptr;   // onready clock
+    ReadyTracker* tracker = nullptr;  // onready clock
     cu::CUevent event = nullptr;  // await clock
     cu::CUstream stream = nullptr;
     int lane = 0;
@@ -649,6 +648,7 @@ class CudaPath {
                         int device_idx, Clock::time_point t0,
                         bool wake_reactor = true);
   int awaitRelease(Pending& p);
+  int awaitTracker(Pending& p);  // awaitRelease's wait on p.tracker
   int syncStream(int lane, cu::CUstream stream);  // all work enqueued so far
   // stripe_unit / ckpt_shard / reshard_unit >= 0 tag the pendings as they
   // enqueue
@@ -799,10 +799,9 @@ class CudaPath {
   // before copies from [buf, buf + len): wait out a registration change on
   // the range, then report whether it is registered and, if so, hold it in
   // the shard's draining ledger against eviction until releaseHold
-  bool holdForCopy(const char* buf, uint64_t len, Lane& lane,
-                   QueueShard& shard) EBT_EXCLUDES(reg_mutex_);
-  void releaseHold(const char* buf, uint64_t len, Lane& lane,
-                   QueueShard& shard);
+  bool holdForCopy(const char* buf, uint64_t len, Lane& lane)
+      EBT_EXCLUDES(reg_mutex_);
+  void releaseHold(const char* buf, uint64_t len, Lane& lane);
   // unpin ranges that left the registration cache (in_transit_), behind a
   // fence on every lane's H2D stream
   void unpinVictims(const std::vector<std::pair<uintptr_t, int>>& victims)
@@ -925,7 +924,7 @@ class CudaPath {
   // trackers whose await gave up on a stream error while the stream might
   // still run their host function; freed in the destructor once the lane
   // streams are synchronized
-  std::vector<Tracker*> orphan_trackers_ EBT_GUARDED_BY(err_mutex_);
+  std::vector<ReadyTracker*> orphan_trackers_ EBT_GUARDED_BY(err_mutex_);
 
   // stripe plan: the policy is read lock-free per block; the geometry is
   // written once by setStripePlan before the path is sealed

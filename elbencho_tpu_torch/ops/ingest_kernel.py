@@ -67,6 +67,9 @@ def load_lib() -> ctypes.CDLL:
             lib.ebt_ingest_workspace_bytes.restype = u64
             lib.ebt_sum_rows_u64.argtypes = [p, u64, u64, p, p]
             lib.ebt_sum_rows_u64.restype = ctypes.c_int
+            # an empty kernel of sum_rows' block shape: its launch floor
+            lib.ebt_launch_floor.argtypes = [p]
+            lib.ebt_launch_floor.restype = ctypes.c_int
             _lib = lib
         return _lib
 
