@@ -204,6 +204,20 @@ Phases, each reported on its own line:
      p50/p99, and the spread of each paired leg's graded pairs (from its
      --raw lines). Phase 28 alone:
        python3 -c "import chip_smoke as c; c.bench_on_card()"
+ 29. the direct backend's three error paths on the card (runs after phase
+     28, in a child process under a time limit of its own, so a hang fails
+     the phase instead of the run): a TorchStagingPath on cuda:0 whose copy
+     fails through its _copy_to_device seam, as
+     tests/test_torch_regressions.py fails it on the CPU. A copy failure in
+     the submitter thread (EBT_TPU_SUBMITTERS=1) is accepted at submit
+     (rc 0) and comes back at the pre-reuse barrier as rc 1; an inline
+     partial failure (2 chunks per block, the second copy raising) fails
+     the submit with rc 1 and registers the first chunk, a real copy onto
+     the card, which the barrier then waits out (rc 0, its bytes equal the
+     block's first chunk); an inline failure fails the submit (rc 1) and
+     leaves a clean barrier (rc 0). One line with each case's codes and
+     the phase's time. Phase 29 alone:
+       python3 -c "import chip_smoke as c; c.direct_errors_on_card()"
 
 The second-to-last line is a JSON object describing each kernel of the path;
 the last line is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -2914,6 +2928,134 @@ def _check_campaign(spec: dict, report: dict, live: dict,
 
 
 
+DIRECT_ERRORS_CHILD = """
+import json
+import chip_smoke as c
+print(json.dumps(c.direct_errors_child()))
+"""
+DIRECT_ERRORS_TIMEOUT_S = 120
+
+
+class _CountedEvent:
+    """A chunk's CUDA event that records each wait on it."""
+
+    def __init__(self, event, waited: list) -> None:
+        self.event, self.waited = event, waited
+
+    def synchronize(self) -> None:
+        self.waited.append(self)
+        if self.event is not None:  # None: a copy on the CPU
+            self.event.synchronize()
+
+    def query(self) -> bool:
+        return self.event is None or self.event.query()
+
+
+def direct_errors_child() -> dict:
+    """Phase 29's three cases, in this process, on cuda:0: each case's
+    return codes at submit and at the barrier, and the inline partial
+    failure's waits and landed bytes."""
+    from elbencho_tpu_torch.config import config_from_args
+    from elbencho_tpu_torch.cuda.backend import TorchStagingPath
+
+    d = tempfile.mkdtemp(prefix="ebt_torch_direct_errors_")
+    path = os.path.join(d, "x")
+    with open(path, "wb") as f:
+        f.write(b"\0" * (64 << 10))
+    buf = np.random.default_rng(29).integers(0, 256, 64 << 10,
+                                             dtype=np.uint8)
+
+    def staging(env: dict):
+        with env_set(**env):
+            return TorchStagingPath(config_from_args(
+                ["-r", "-t", "1", "-b", "64k", "--gpuids", "0",
+                 "--tpubackend", "direct", "--nolive", path]))
+
+    def boom(view, dev_idx, dst=None):
+        raise RuntimeError("boom")
+
+    def pair(sp) -> list[int]:
+        try:
+            return [sp.copy(0, 0, 0, buf.ctypes.data, buf.nbytes, 0),
+                    sp.copy(0, 0, 2, buf.ctypes.data, buf.nbytes, 0)]
+        finally:
+            sp.close()
+
+    out = {}
+    try:
+        sp = staging({"EBT_TPU_SUBMITTERS": "1"})
+        threaded = sp.num_submitters == 1 and not sp.inline_submit
+        sp._copy_to_device = boom
+        out["submitter"] = pair(sp) + [threaded]
+
+        sp = staging({"EBT_TPU_CHUNK_BYTES": str(32 << 10)})
+        real, calls, waited, landed = sp._copy_to_device, [], [], []
+
+        def second_fails(view, dev_idx, dst=None):
+            calls.append(view.nbytes)
+            if len(calls) > 1:
+                raise RuntimeError("boom on chunk 2")
+            arr, event = real(view, dev_idx, dst)
+            landed.append(arr)
+            return arr, _CountedEvent(event, waited)
+
+        sp._copy_to_device = second_fails
+        inline = sp.inline_submit and sp.devices[0].type == "cuda"
+        rcs = pair(sp)
+        first = landed[0].cpu().numpy().tobytes() if landed else b""
+        out["partial"] = rcs + [inline, calls, len(waited),
+                                first == buf[:32 << 10].tobytes(),
+                                sp.transferred_bytes[0]]
+
+        sp = staging({})
+        sp._copy_to_device = boom
+        out["inline"] = pair(sp) + [sp.inline_submit]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def direct_errors_on_card() -> dict:
+    """Phase 29: direct_errors_child() in a child process with its own
+    time limit; each case's codes must be the original's. Returns its
+    results."""
+    card = gpu_name_and_power()
+    t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("EBT_TORCH_DEVICE", "EBT_TPU_SUBMITTERS",
+                        "EBT_TPU_CHUNK_BYTES")}
+    try:
+        r = subprocess.run([sys.executable, "-c", DIRECT_ERRORS_CHILD],
+                           cwd=repo, env=env, capture_output=True,
+                           text=True, timeout=DIRECT_ERRORS_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"direct backend errors: hung past "
+                             f"{DIRECT_ERRORS_TIMEOUT_S} s") from e
+    lines = r.stdout.strip().splitlines()
+    if r.returncode != 0 or not lines:
+        sys.stderr.write(r.stderr[-8000:])
+        raise AssertionError(f"direct backend errors: rc {r.returncode}")
+    got = json.loads(lines[-1])
+    want = {"submitter": [0, 1, True],
+            "partial": [1, 0, True, [32 << 10, 32 << 10], 1, True, 0],
+            "inline": [1, 0, True]}
+    if got != want:
+        raise AssertionError(f"direct backend errors: {got} != {want}")
+    causes = [ln for ln in r.stderr.splitlines() if "copy error" in ln]
+    if len(causes) != 3:
+        raise AssertionError(f"direct backend errors: causes {causes}")
+    phase("29 direct errors",
+          f"submitter error: submit rc {got['submitter'][0]}, barrier rc "
+          f"{got['submitter'][1]}; inline partial failure: submit rc "
+          f"{got['partial'][0]}, barrier rc {got['partial'][1]}, "
+          f"{got['partial'][4]} registered chunk waited, its bytes landed; "
+          f"inline error: submit rc {got['inline'][0]}, barrier rc "
+          f"{got['inline'][1]}; {time.perf_counter() - t0:.1f} s "
+          f"(limit {DIRECT_ERRORS_TIMEOUT_S} s) on {card}")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2981,6 +3123,7 @@ def main() -> int:
     campaign_on_card()
     selftest_on_card()
     bench_on_card()
+    direct_errors_on_card()
     phase("launches", f"staged --verify run: {staged_launches} verify "
                       f"launches (Python wrapper); native --verify run: "
                       f"{launches} (C++ engine); native --stripe --verify "

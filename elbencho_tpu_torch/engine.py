@@ -15,6 +15,16 @@ CUDA driver (csrc/cuda_mock.cpp) is built beside it into
 build/torch_core/libebtcudamock.so by build_mock(), and the standalone copy
 probe (csrc/cuda_probe.cpp) into build/torch_core/cuda_probe by
 build_probe().
+
+Sanitizer builds (tools/torch_test_tsan.py, the port's make test-tsan):
+build_tsan() compiles the same sources with the Makefile's tsan flags into
+build/torch_core/libebtcore_tsan.so and build_tsan_mock() the mock driver
+into build/torch_core/libebtcudamock_tsan.so. EBT_TORCH_CORE_LIB names the
+engine library load_lib() loads (the port's counterpart of the original's
+EBT_CORE_LIB; a variable of its own, since the comparison tests load both
+packages in one process) and EBT_TORCH_MOCK_LIB the mock driver
+build_mock() hands out. Neither falls back: a named library that is
+missing or does not load raises EngineError with its path.
 """
 
 from __future__ import annotations
@@ -33,6 +43,10 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_core")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libebtcore.so")
 MOCK_DRIVER_PATH = os.path.join(_BUILD_DIR, "libebtcudamock.so")
+TSAN_LIB_PATH = os.path.join(_BUILD_DIR, "libebtcore_tsan.so")
+TSAN_MOCK_PATH = os.path.join(_BUILD_DIR, "libebtcudamock_tsan.so")
+CORE_LIB_ENV = "EBT_TORCH_CORE_LIB"
+MOCK_LIB_ENV = "EBT_TORCH_MOCK_LIB"
 PROBE_PATH = os.path.join(_BUILD_DIR, "cuda_probe")
 # the Makefile's CORE_SRCS, CPPFLAGS, CXXFLAGS and LDFLAGS (make core), plus
 # the port's CUDA engine, which must share the engine's singletons
@@ -46,6 +60,9 @@ _PROBE_SRCS = ("elbencho_tpu_torch/csrc/cuda_probe.cpp",
 _CPPFLAGS = ("-Icore/include", "-Icore/third_party")
 _CXXFLAGS = ("-O3", "-std=c++17", "-Wall", "-Wextra", "-fPIC", "-pthread")
 _LDFLAGS = ("-shared", "-pthread", "-ldl")
+# the Makefile's tsan target (make tsan): the engine at -O1 -g, instrumented
+_TSAN_CXXFLAGS = ("-O1", "-g", "-std=c++17", "-fPIC", "-pthread",
+                  "-fsanitize=thread")
 
 # int fn(void* ctx, int rank, int device_idx, int direction,
 #        void* buf, uint64 len, uint64 file_offset)
@@ -89,12 +106,43 @@ def _build(out: str, srcs, ldflags=_LDFLAGS, cxxflags=_CXXFLAGS) -> None:
         os.replace(tmp, out)
 
 
+def _named(var: str) -> str | None:
+    """The library an override variable names, which must exist."""
+    path = os.environ.get(var)
+    if path and not os.path.exists(path):
+        raise EngineError(f"{var}={path}: no such library")
+    return path or None
+
+
 def build_mock() -> str:
-    """The mock CUDA driver library (built on first use); returns its
-    path."""
+    """The mock CUDA driver library (built on first use), or the one
+    EBT_TORCH_MOCK_LIB names; returns its path."""
+    named = _named(MOCK_LIB_ENV)
+    if named:
+        return named
     if not _fresh(MOCK_DRIVER_PATH):
         _build(MOCK_DRIVER_PATH, [_MOCK_SRC])
     return MOCK_DRIVER_PATH
+
+
+def build_tsan() -> str:
+    """The engine library instrumented with ThreadSanitizer (built on first
+    use); returns its path."""
+    if not _fresh(TSAN_LIB_PATH):
+        _build(TSAN_LIB_PATH, _CORE_SRCS, ("-shared", "-ldl"),
+               cxxflags=_TSAN_CXXFLAGS)
+    return TSAN_LIB_PATH
+
+
+def build_tsan_mock() -> str:
+    """The mock CUDA driver instrumented with ThreadSanitizer (built on
+    first use), so TSAN sees the mock's own synchronisation; returns its
+    path."""
+    if not _fresh(TSAN_MOCK_PATH):
+        _build(TSAN_MOCK_PATH, [_MOCK_SRC],
+               ("-shared", "-pthread", "-fsanitize=thread"),
+               cxxflags=_TSAN_CXXFLAGS)
+    return TSAN_MOCK_PATH
 
 
 def build_probe() -> str:
@@ -111,9 +159,15 @@ def load_lib() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is not None:
             return _lib
-        if not _fresh(_LIB_PATH):
-            _build(_LIB_PATH, _CORE_SRCS)
-        lib = ctypes.CDLL(_LIB_PATH)
+        path = _named(CORE_LIB_ENV)
+        if path is None:
+            path = _LIB_PATH
+            if not _fresh(path):
+                _build(path, _CORE_SRCS)
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError as e:
+            raise EngineError(f"{path}: cannot load: {e}") from e
         # Every ebt_* symbol declares BOTH restype and argtypes: ctypes
         # defaults the restype to c_int, which silently truncates pointers
         # (and 64-bit counters) on LP64 — tools/lint_interfaces.py enforces

@@ -73,13 +73,7 @@ def build_mock(sanitizer: str = "none") -> str:
     instrumented copy."""
     if sanitizer != "tsan":
         return engine.build_mock()
-    out = os.path.join(engine._BUILD_DIR, "libebtcudamock_tsan.so")
-    if not engine._fresh(out):
-        engine._build(out, [engine._MOCK_SRC],
-                      ("-shared", "-pthread", *SANITIZERS["tsan"]),
-                      cxxflags=("-O1", "-g", "-std=c++17", "-fPIC",
-                                "-pthread", *SANITIZERS["tsan"]))
-    return out
+    return engine.build_tsan_mock()
 
 
 def command(mock: bool, sanitizer: str = "none",

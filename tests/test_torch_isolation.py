@@ -71,7 +71,8 @@ NATIVE_MODULES = ("elbencho_tpu_torch/cuda/native.py",
                   "elbencho_tpu_torch/bench.py")
 # the port's command-line tools beside the original's in tools/
 PORT_TOOLS = ("tools/torch_multicard.py", "tools/torch_campaign.py",
-              "tools/torch_chaos.py", "tools/torch_audit.py")
+              "tools/torch_chaos.py", "tools/torch_audit.py",
+              "tools/torch_test_tsan.py")
 # the kernel sources and the native selftest, which must be among the
 # native sources scanned
 KERNEL_SOURCES = ("verify.cu", "fill.cu", "ingest.cu", "mesh_reduce.cu",

@@ -1,0 +1,672 @@
+"""The open-loop load generator and the pod-scale control-plane fan-out of
+the original (tests/test_load.py) held against the port.
+
+Load cases run both packages' LocalWorkerGroup on the same arguments and
+files, each in a directory of its own (the staged default backend, no
+device copies), and compare the tenant ledger (arrivals, completions,
+dropped), the resolved arrival mode, bytes, per-class histogram counts,
+the result tree's tenant fields and error texts. Fan-out cases drive each
+package's RemoteWorkerGroup against the same scripted mock service layer,
+patched in at each package's `_request` HTTP seam (no sockets), and
+compare the hosts reached, the per-host verdicts and the causes.
+
+Held by invariants, not by equality (they follow the clock in either
+package):
+- reactor_wakeups_arrival, reactor_waits (no case here reads them) and
+  backlog_peak, sched_lag_ns: positive, resp. above one, where the
+  schedule is over-offered;
+- the wall-clock time of a paced phase (0.3-0.8 s for 48 arrivals at
+  120/s) and of the fan-out legs (a dead host ends the phase in well
+  under the serial timeouts);
+- the latency percentiles: the open loop's median above four times the
+  closed loop's, and the aio loop's p90 at 50/s under one 20 ms
+  inter-arrival gap. The original reads p99s, which for 64 and 32
+  samples are the slowest op: one op preempted on a loaded host fails
+  them (ROADMAP.md, known traps). The property each guards shows in most
+  samples, not one: the schedule's queueing counted in the open loop's
+  latency (the median arrival waits out half the backlog), and no
+  batching artifact delaying ops by whole gaps;
+- the dropped arrivals under --timelimit (positive, and
+  arrivals == completions + dropped);
+- the fan-out bound (never more than --svcfanout requests at once), each
+  host's prepare time and start skew, and the straggler's poll lag.
+
+Cases of tests/test_load.py held elsewhere:
+- test_dead_host_regression_mid_phase is held by
+  tests/test_torch_faults.py::test_dead_host_without_budget_keeps_abort
+  and ::test_dead_host_salvages_partial_pod_results (a host dead mid-phase
+  ends the phase with its name and the hosttimeout cause, in both
+  packages); test_100_host_fanout_scale below also kills a host
+  mid-phase;
+- test_prepare_failure_host_sorted is held by
+  tests/test_torch_distributed.py::test_multi_host_prepare_errors_sorted_by_host.
+Every other case has a counterpart here under the same name.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import statistics
+import threading
+import time
+from types import SimpleNamespace
+
+import pytest
+
+import elbencho_tpu.common as jax_common
+import elbencho_tpu.config as jax_config
+import elbencho_tpu.engine as jax_engine
+import elbencho_tpu.exceptions as jax_exceptions
+import elbencho_tpu.histogram as jax_histogram
+import elbencho_tpu.liveops as jax_liveops
+import elbencho_tpu.stats as jax_stats
+import elbencho_tpu.workers.local as jax_local
+import elbencho_tpu.workers.remote as jax_remote
+import elbencho_tpu_torch.common as torch_common
+import elbencho_tpu_torch.config as torch_config
+import elbencho_tpu_torch.engine as torch_engine
+import elbencho_tpu_torch.exceptions as torch_exceptions
+import elbencho_tpu_torch.histogram as torch_histogram
+import elbencho_tpu_torch.liveops as torch_liveops
+import elbencho_tpu_torch.stats as torch_stats
+import elbencho_tpu_torch.workers.local as torch_local
+import elbencho_tpu_torch.workers.remote as torch_remote
+from test_torch_engine import same
+
+pytestmark = pytest.mark.load
+
+BS = 128 << 10
+
+
+def _pkg(name, common, config, engine, exceptions, histogram, liveops,
+         stats, local, remote):
+    return SimpleNamespace(
+        name=name, Phase=common.BenchPhase, config=config,
+        Config=config.Config, config_from_args=config.config_from_args,
+        parse_tenant_spec=config.parse_tenant_spec, engine=engine,
+        ProgException=exceptions.ProgException,
+        LatencyHistogram=histogram.LatencyHistogram, LiveOps=liveops.LiveOps,
+        Statistics=stats.Statistics, Group=local.LocalWorkerGroup,
+        remote=remote)
+
+
+JAX = _pkg("jax", jax_common, jax_config, jax_engine, jax_exceptions,
+           jax_histogram, jax_liveops, jax_stats, jax_local, jax_remote)
+TORCH = _pkg("torch", torch_common, torch_config, torch_engine,
+             torch_exceptions, torch_histogram, torch_liveops, torch_stats,
+             torch_local, torch_remote)
+
+
+@pytest.fixture
+def pkgs(monkeypatch):
+    monkeypatch.setenv("EBT_TORCH_DEVICE", "cpu")
+    return JAX, TORCH
+
+
+
+def run_phase(pkg, group, phase: str, bench_id="load-test"):
+    group.start_phase(getattr(pkg.Phase, phase), bench_id)
+    while not group.wait_done(500):
+        pass
+    err = group.first_error()
+    assert err == "", (pkg.name, err)
+
+
+def make_group(pkg, path, extra, threads=2, size=BS * 64, write=True):
+    args = (["-w"] if write else []) + [
+        "-r", "-s", str(size), "-b", str(BS), "-t", str(threads),
+        "--nolive"] + extra + [str(path)]
+    return pkg.Group(pkg.config_from_args(args))
+
+
+def ledger(stats) -> list[tuple[int, int, int, int]]:
+    """The tenant ledger's exact part: tenant, arrivals, completions,
+    dropped."""
+    return [(s["tenant"], s["arrivals"], s["completions"], s["dropped"])
+            for s in stats]
+
+
+# ------------------------------------------------------------- pacer math
+
+
+def _sample(pkg, mode: int, rate: float, seed: int, n: int) -> list[int]:
+    out = (ctypes.c_uint64 * n)()
+    pkg.engine.load_lib().ebt_pacer_sample(mode, rate, seed, out, n)
+    return list(out)
+
+
+def test_paced_intervals_exact(pkgs):
+    """The paced sampler emits exactly 1/rate gaps; a rate past 1e9/s
+    never emits a 0 ns gap, in either mode."""
+    got = [[_sample(pkg, 2, 2000.0, 1, 1000)] +
+           [_sample(pkg, mode, 2e9, 1, 8) for mode in (1, 2)]
+           for pkg in pkgs]
+    assert got[1] == got[0]
+    paced, *fast = got[1]
+    assert paced == [500_000] * 1000
+    assert all(v >= 1 for gaps in fast for v in gaps)
+
+
+def test_poisson_interarrival_distribution(pkgs):
+    """Poisson arrivals are exponential gaps: mean 1/rate, coefficient of
+    variation ~1, P(X > mean) = 1/e, and seed-reproducible — the same
+    draws in both packages' samplers."""
+    n = 40000
+    got = [_sample(pkg, 1, 500.0, 42, n) for pkg in pkgs]
+    assert got[1] == got[0]
+    vals = got[1]
+    mean = statistics.fmean(vals)
+    cv = statistics.pstdev(vals) / mean
+    assert 0.97 * 2e6 < mean < 1.03 * 2e6  # 1/rate = 2 ms
+    assert 0.95 < cv < 1.05
+    tail = sum(1 for v in vals if v > mean) / n
+    assert 0.33 < tail < 0.41
+    assert _sample(TORCH, 1, 500.0, 42, n) == vals
+
+
+# ------------------------------------------------------------- load runs
+
+
+def test_paced_schedule_wall_clock(pkgs, tmp_path):
+    """N blocks offered at rate R take ~N/R of wall clock and every
+    scheduled arrival is issued, nothing dropped."""
+    blocks = 48
+
+    def sc(pkg, d):
+        g = make_group(pkg, d / "f.bin", ["--arrival", "paced", "--rate",
+                                          "120"], threads=1,
+                       size=BS * blocks)
+        g.prepare()
+        try:
+            run_phase(pkg, g, "CREATEFILES", "pw")
+            t0 = time.monotonic()
+            run_phase(pkg, g, "READFILES", "pr")
+            elapsed = time.monotonic() - t0
+            # 48 arrivals at 120/s = 0.4 s; generous bounds for CI noise
+            assert 0.3 < elapsed < 0.8, (pkg.name, elapsed)
+            return ledger(g.tenant_stats()), g.arrival_mode()
+        finally:
+            g.teardown()
+    assert same(pkgs, tmp_path, sc) == ([(0, blocks, blocks, 0)], "paced")
+
+
+def test_backlog_carries_across_blocks_and_loops(pkgs, tmp_path):
+    """An over-offered schedule falls behind and stays behind across block
+    boundaries and hot-loop re-entries (two bench files); a clean finish
+    still reconciles arrivals == completions with nothing dropped."""
+    def sc(pkg, d):
+        args = ["-w", "-r", "-s", str(BS * 32), "-b", str(BS), "-t", "1",
+                "--arrival", "paced", "--rate", "1000000", "--nolive",
+                str(d / "a.bin"), str(d / "b.bin")]
+        g = pkg.Group(pkg.config_from_args(args))
+        g.prepare()
+        try:
+            run_phase(pkg, g, "CREATEFILES", "bw")
+            run_phase(pkg, g, "READFILES", "br")
+            s = g.tenant_stats()[0]
+            assert s["sched_lag_ns"] > 0 and s["backlog_peak"] > 1, \
+                (pkg.name, s)
+            return ledger([s])
+        finally:
+            g.teardown()
+    # both files' blocks
+    assert same(pkgs, tmp_path, sc) == [(0, 64, 64, 0)]
+
+
+def test_timelimit_counts_dropped_arrivals(pkgs, tmp_path):
+    """A phase ended by --timelimit abandons due arrivals: they count as
+    dropped offered load (arrivals == completions + dropped)."""
+    def sc(pkg, d):
+        f = d / "f.bin"
+        f.write_bytes(b"\0" * (4 << 20))
+        args = ["-r", "--rand", "--randamount", "4G", "-s", "4M",
+                "-b", "4K", "-t", "1", "--timelimit", "1",
+                "--arrival", "paced", "--rate", "1000000", "--nolive",
+                str(f)]
+        g = pkg.Group(pkg.config_from_args(args))
+        g.prepare()
+        try:
+            g.start_phase(pkg.Phase.READFILES, "tr")
+            while not g.wait_done(500):
+                pass
+            s = g.tenant_stats()[0]
+            assert s["dropped"] > 0, (pkg.name, s)
+            assert s["arrivals"] == s["completions"] + s["dropped"]
+            # a time limit is a clean stop with partial results
+            return g.first_error(), g.time_limit_hit(), g.arrival_mode()
+        finally:
+            g.teardown()
+    assert same(pkgs, tmp_path, sc) == ("", True, "paced")
+
+
+def test_open_loop_latency_includes_queueing(pkgs, tmp_path):
+    """Coordinated omission measured, not masked: at an over-offered rate
+    the latency, clocked from the scheduled arrival, dwarfs the closed
+    loop's."""
+    def sc(pkg, d):
+        f = d / "f.bin"
+        g = make_group(pkg, f, [], threads=1)
+        g.prepare()
+        try:
+            run_phase(pkg, g, "CREATEFILES", "qw")
+            run_phase(pkg, g, "READFILES", "qr")
+            closed = g.phase_results()[0].iops_histo
+        finally:
+            g.teardown()
+        g = make_group(pkg, f, ["--arrival", "paced", "--rate", "1000000"],
+                       threads=1, write=False)
+        g.prepare()
+        try:
+            run_phase(pkg, g, "READFILES", "qo")
+            open_h = g.tenant_latency()["0"]
+        finally:
+            g.teardown()
+        # the arrivals queue behind each other's service: the median
+        # arrival waits out half the backlog
+        assert open_h.percentile_us(50.0) > \
+            4 * max(closed.percentile_us(50.0), 1), \
+            (pkg.name, closed.percentile_us(50.0), open_h.percentile_us(50.0))
+        return closed.count, open_h.count
+    assert same(pkgs, tmp_path, sc) == (64, 64)
+
+
+def test_open_loop_aio_low_rate_latency_not_inflated(pkgs, tmp_path):
+    """The async loop under open-loop pacing submits each op at its own
+    scheduled time and polls completions between arrivals: at 50/s the
+    latency stays under one 20 ms inter-arrival gap."""
+    def sc(pkg, d):
+        args = ["-w", "-r", "-s", "4M", "-b", "128K", "-t", "1",
+                "--iodepth", "8", "--arrival", "paced", "--rate", "50",
+                "--nolive", str(d / "f.bin")]
+        g = pkg.Group(pkg.config_from_args(args))
+        g.prepare()
+        try:
+            run_phase(pkg, g, "CREATEFILES", "iw")
+            run_phase(pkg, g, "READFILES", "ir")
+            # a batching artifact delays every op by whole gaps; one
+            # scheduler stall on a loaded host delays one: held at p90
+            h = g.tenant_latency()["0"]
+            assert h.percentile_us(90.0) < 20_000, \
+                (pkg.name, h.percentile_us(90.0))
+            return ledger(g.tenant_stats()), h.count
+        finally:
+            g.teardown()
+    assert same(pkgs, tmp_path, sc) == ([(0, 32, 32, 0)], 32)
+
+
+def test_tenant_classes_separate_accounting(pkgs, tmp_path):
+    """Class block sizes tile each worker's range exactly, per-class
+    histograms carry only their class's ops, and a per-class rwmix mixes
+    reads into that class only."""
+    def sc(pkg, d):
+        g = make_group(pkg, d / "f.bin", [
+            "--arrival", "paced",
+            "--tenants", "hot:rate=2000,bs=64K;bulk:rate=1000,rwmix=50"],
+            threads=2)
+        g.prepare()
+        try:
+            run_phase(pkg, g, "CREATEFILES", "cw")
+            # write phase: only class 1 (bulk, rwmix=50) mixes reads in
+            mixed = [r.ops.read_iops for r in g.phase_results()]
+            run_phase(pkg, g, "READFILES", "cr")
+            lat = g.tenant_latency()
+            return (mixed, ledger(g.tenant_stats()),
+                    {k: h.count for k, h in lat.items()},
+                    [g.engine.worker_tenant(i) for i in range(2)])
+        finally:
+            g.teardown()
+    mixed, led, counts, tenants = same(pkgs, tmp_path, sc)
+    assert mixed[0] == 0 and mixed[1] > 0
+    # 64 blocks / 2 ranks = 32 x 128K each; hot issues 64K ops
+    assert [c for _, _, c, _ in led] == [64, 32]
+    assert counts == {"hot": 64, "bulk": 32} and tenants == [0, 1]
+
+
+def test_closed_loop_ab_byte_identical(pkgs, tmp_path, monkeypatch):
+    """EBT_LOAD_CLOSED_LOOP=1 forces the closed-loop shape with byte-
+    identical traffic: same bytes, arrivals mirror completions, zero lag,
+    and the resolved mode says 'closed'."""
+    extra = ["--arrival", "poisson", "--rate", "3000"]
+
+    def sc(pkg, d):
+        f = d / "f.bin"
+        monkeypatch.delenv("EBT_LOAD_CLOSED_LOOP", raising=False)
+        g = make_group(pkg, f, extra)
+        g.prepare()
+        try:
+            run_phase(pkg, g, "CREATEFILES", "aw")
+            run_phase(pkg, g, "READFILES", "ar")
+            opened = (sum(r.ops.bytes for r in g.phase_results()),
+                      g.arrival_mode())
+        finally:
+            g.teardown()
+        monkeypatch.setenv("EBT_LOAD_CLOSED_LOOP", "1")
+        g = make_group(pkg, f, extra, write=False)
+        g.prepare()
+        try:
+            run_phase(pkg, g, "READFILES", "ac")
+            s = g.tenant_stats()[0]
+            return opened, (sum(r.ops.bytes for r in g.phase_results()),
+                            g.arrival_mode()), \
+                g.engine.closed_loop_forced(), ledger([s]), s["sched_lag_ns"]
+        finally:
+            g.teardown()
+    opened, closed, forced, led, lag = same(pkgs, tmp_path, sc)
+    assert opened == (BS * 64, "poisson") and closed == (BS * 64, "closed")
+    assert forced and led[0][1] == led[0][2] and lag == 0
+
+
+def test_service_validates_tenants_against_pod_dataset_threads(pkgs,
+                                                                tmp_path):
+    """A service re-validating the master's wire config compares the class
+    count against the pod-wide dataset-thread count: 4 classes over 2
+    hosts x 2 threads are all served."""
+    f = tmp_path / "f.bin"
+    f.write_bytes(b"\0" * (BS * 8))
+    got = []
+    for pkg in pkgs:
+        master = pkg.config_from_args(
+            ["-r", "-s", str(BS * 8), "-b", str(BS), "-t", "2",
+             "--hosts", "h1,h2", "--arrival", "paced",
+             "--tenants", "a:rate=1;b:rate=1;c:rate=1;d:rate=1",
+             "--nolive", str(f)])
+        svc = pkg.Config(paths=[str(f)])
+        svc.apply_wire(master.to_wire(1))  # must not refuse the count
+        got.append((master.num_dataset_threads, svc.num_dataset_threads,
+                    [t.name for t in svc.tenant_classes], svc.rank_offset))
+    assert got[1] == got[0] == (4, 4, ["a", "b", "c", "d"], 2)
+
+
+def test_tenant_spec_parser_refusals(pkgs):
+    got = []
+    for pkg in pkgs:
+        parsed = pkg.parse_tenant_spec("a:rate=5,bs=64K,rwmix=10;b:rate=2.5")
+        out = [[(t.name, t.rate, t.block_size, t.rwmix_pct) for t in parsed]]
+        for spec in ("a:rate=x", "a:speed=5", "a:rate=5;a:rate=6",
+                     "justaname", ";;"):
+            with pytest.raises(pkg.ProgException) as exc:
+                pkg.parse_tenant_spec(spec)
+            out.append(str(exc.value))
+        got.append(out)
+    assert got[1] == got[0]
+    parsed, *msgs = got[1]
+    assert [p[0] for p in parsed] == ["a", "b"]
+    assert parsed[0][2] == 64 << 10 and parsed[1][1] == 2.5
+    for msg, frag in zip(msgs, ("bad value", "unknown key", "duplicate",
+                                "expected", "no classes")):
+        assert frag in msg
+
+
+# --------------------------------------------- result tree / pod fan-in
+
+
+def test_result_tree_carries_tenant_fields(pkgs, tmp_path):
+    def sc(pkg, d):
+        cfg = pkg.config_from_args(
+            ["-w", "-r", "-s", str(BS * 16), "-b", str(BS), "-t", "2",
+             "--arrival", "paced", "--tenants", "hot:rate=900;bulk:rate=300",
+             "--nolive", str(d / "f.bin")])
+        g = pkg.Group(cfg)
+        g.prepare()
+        try:
+            run_phase(pkg, g, "CREATEFILES", "ww")
+            run_phase(pkg, g, "READFILES", "wr")
+            wire = pkg.Statistics(cfg, g).bench_result_wire(
+                pkg.Phase.READFILES, "wr", [])
+            ts = wire["TenantStats"]
+            return (wire["ArrivalMode"], [sorted(cls) for cls in ts],
+                    ledger(ts), sorted(wire["TenantLatHistos"]))
+        finally:
+            g.teardown()
+    mode, keys, led, histos = same(pkgs, tmp_path, sc)
+    assert mode == "paced" and histos == ["bulk", "hot"]
+    assert keys == [sorted({"tenant", "arrivals", "completions",
+                            "sched_lag_ns", "backlog_peak", "dropped",
+                            "slo_ok"})] * 2
+
+
+def test_pod_fanin_tenant_stats_and_mode(pkgs):
+    """Pod fan-in: per-class counters sum index-wise, backlog_peak takes
+    the max, per-class histograms merge by label without mutating a host's
+    own, and the pod mode is the lowest any host ran."""
+    class P:
+        def __init__(self, host, mode, stats, histos):
+            self.host = host
+            self.arrival_mode = mode
+            self.tenant_stats = stats
+            self.tenant_lat_histos = histos
+
+    got = []
+    for pkg in pkgs:
+        g = pkg.remote.RemoteWorkerGroup.__new__(pkg.remote.RemoteWorkerGroup)
+        h0, h1 = pkg.LatencyHistogram(), pkg.LatencyHistogram()
+        h0.add(100)
+        h1.add(200)
+        g.proxies = [
+            P("h0", "paced",
+              [{"tenant": 0, "arrivals": 10, "completions": 9,
+                "sched_lag_ns": 5, "backlog_peak": 3, "dropped": 1}],
+              {"hot": h0}),
+            P("h1", "closed",
+              [{"tenant": 0, "arrivals": 7, "completions": 7,
+                "sched_lag_ns": 2, "backlog_peak": 8, "dropped": 0}],
+              {"hot": h1}),
+        ]
+        lat = g.tenant_latency()
+        got.append((g.arrival_mode(), g.tenant_stats(),
+                    {k: h.to_wire() for k, h in lat.items()}, h0.count))
+    assert got[1] == got[0]
+    mode, merged, lat, own = got[1]
+    assert mode == "closed"  # the pod-lowest downgrade
+    assert merged == [{"tenant": 0, "arrivals": 17, "completions": 16,
+                       "sched_lag_ns": 7, "backlog_peak": 8, "dropped": 1}]
+    assert own == 1
+
+
+# ----------------------------------- pod-scale control-plane fan-out
+
+
+class FakePod:
+    """A mock service layer behind one package's `_request` seam: scripted
+    hosts (normal, straggler, dead after N polls), a concurrency gauge for
+    the fan-out bound, and canned protocol replies."""
+
+    def __init__(self, pkg, done_after=3, straggler=None,
+                 straggler_delay=0.0, dead=None, dead_after_polls=1):
+        self.pkg = pkg
+        self.done_after = done_after
+        self.straggler = straggler
+        self.straggler_delay = straggler_delay
+        self.dead = dead
+        self.dead_after_polls = dead_after_polls
+        self.polls: dict[str, int] = {}
+        self.prepared: list[str] = []
+        self.started: list[str] = []
+        self.interrupted: list[str] = []
+        self.lock = threading.Lock()
+        self.concurrent = 0
+        self.max_concurrent = 0
+
+    def request(self, host, endpoint, params=None, body=None, timeout=20.0):
+        with self.lock:
+            self.concurrent += 1
+            self.max_concurrent = max(self.max_concurrent, self.concurrent)
+        try:
+            time.sleep(0.002)
+            return self._reply(host, endpoint)
+        finally:
+            with self.lock:
+                self.concurrent -= 1
+
+    def _reply(self, host, endpoint):
+        if endpoint == "/preparephase":
+            with self.lock:
+                self.prepared.append(host)
+            return {"BenchPathInfo": {"BenchPathType": 1,
+                                      "NumBenchPaths": 1,
+                                      "FileSize": 1 << 20}}
+        if endpoint in ("/startphase", "/interruptphase"):
+            with self.lock:
+                (self.started if endpoint == "/startphase"
+                 else self.interrupted).append(host)
+            return {}
+        if endpoint == "/status":
+            with self.lock:
+                n = self.polls[host] = self.polls.get(host, 0) + 1
+            if host == self.dead and n > self.dead_after_polls:
+                raise self.pkg.remote.ServiceUnreachable(
+                    f"service {host}: connection failed: timed out")
+            if host == self.straggler:
+                time.sleep(self.straggler_delay)
+            return {"BenchID": "",
+                    "LiveOps": self.pkg.LiveOps(bytes=n * 100).to_wire(),
+                    "NumWorkersDone": 2 if n >= self.done_after else 0,
+                    "NumWorkersDoneWithError": 0}
+        if endpoint == "/benchresult":
+            return {"Ops": self.pkg.LiveOps(bytes=300).to_wire(),
+                    "ElapsedUSecsList": [1000, 1000],
+                    "NumWorkersDone": 2, "NumWorkersDoneWithError": 0}
+        return {}
+
+
+def pod_cfg(pkg, n_hosts, fanout=8, host_timeout=3.0, interval_ms=50):
+    return pkg.Config(paths=["/tmp/ebt-fanout-test"],
+                      hosts=[f"h{i}" for i in range(n_hosts)],
+                      num_threads=2, svc_fanout=fanout,
+                      host_timeout_secs=host_timeout,
+                      svc_update_interval_ms=interval_ms)
+
+
+def make_pod(pkg, monkeypatch, pod, cfg):
+    monkeypatch.setattr(pkg.remote, "_request", pod.request)
+    return pkg.remote.RemoteWorkerGroup(cfg)
+
+
+def test_100_host_fanout_scale(pkgs, monkeypatch):
+    """100 simulated hosts with one straggler and one host that dies
+    mid-phase: bounded parallelism on every leg, per-host timings, the
+    straggler flagged by name, and the dead host ending the phase with a
+    host-attributed timeout cause instead of blocking it."""
+    got = []
+    for pkg in pkgs:
+        pod = FakePod(pkg, done_after=3, straggler="h37",
+                      straggler_delay=1.3, dead="h61", dead_after_polls=1)
+        cfg = pod_cfg(pkg, 100, fanout=8, host_timeout=3.0, interval_ms=50)
+        g = make_pod(pkg, monkeypatch, pod, cfg)
+        try:
+            g.prepare()
+            assert pod.max_concurrent <= 8, pkg.name  # never 100-wide
+            assert all(t["prepare_ns"] > 0 for t in g.host_timings())
+            prepared = sorted(pod.prepared)
+            t0 = time.monotonic()
+            g.start_phase(pkg.Phase.READFILES, "scale")
+            assert pod.max_concurrent <= 8, pkg.name
+            # start skew: exactly one pod-earliest host
+            skews = sorted(t["start_skew_ns"] for t in g.host_timings())
+            assert skews[0] == 0 and skews[1] > 0, pkg.name
+            status = g.wait_done(30_000)
+            # far sooner than 100 serial 20 s default-timeout polls
+            assert time.monotonic() - t0 < 15.0, pkg.name
+            timings = {t["host"]: t for t in g.host_timings()}
+            assert timings["h37"]["poll_lag_ns"] > int(1.0 * 1e9), pkg.name
+            got.append((prepared, sorted(pod.started), status,
+                        g.first_error(),
+                        {h: t["status"] for h, t in timings.items()}))
+        finally:
+            g.teardown()
+    assert got[1] == got[0]
+    prepared, started, status, err, verdicts = got[1]
+    assert prepared == started == sorted(f"h{i}" for i in range(100))
+    assert status == 2
+    assert "h61" in err and "dead/hung" in err and "hosttimeout" in err
+    assert verdicts.pop("h61") == "dead" and verdicts.pop("h37") == \
+        "straggler"
+    assert set(verdicts.values()) == {"ok"}
+
+
+def test_transient_blip_is_retried_not_fatal(pkgs, monkeypatch):
+    """One unreachable poll inside the --hosttimeout window is retried; the
+    phase still completes cleanly."""
+    got = []
+    for pkg in pkgs:
+        pod = FakePod(pkg, done_after=4, dead="h1", dead_after_polls=10_000)
+        orig = pod.request
+        blipped = []
+
+        def flaky(host, endpoint, params=None, body=None, timeout=20.0,
+                  pkg=pkg, orig=orig, blipped=blipped):
+            if endpoint == "/status" and host == "h2" and not blipped:
+                blipped.append(1)
+                raise pkg.remote.ServiceUnreachable(
+                    "service h2: connection failed: blip")
+            return orig(host, endpoint, params=params, body=body,
+                        timeout=timeout)
+
+        pod.request = flaky
+        g = make_pod(pkg, monkeypatch, pod,
+                     pod_cfg(pkg, 4, fanout=2, host_timeout=5.0,
+                             interval_ms=50))
+        try:
+            g.prepare()
+            g.start_phase(pkg.Phase.READFILES, "blip")
+            got.append((g.wait_done(20_000), blipped, g.first_error(),
+                        [t["status"] for t in g.host_timings()]))
+        finally:
+            g.teardown()
+    assert got[1] == got[0] == (1, [1], "", ["ok"] * 4)
+
+
+def test_malformed_status_reply_attributed_not_hung(pkgs, monkeypatch):
+    """A reply that raises outside the ProgException taxonomy (a malformed
+    field) surfaces a host-attributed error instead of killing the
+    partition's poller and hanging the phase."""
+    got = []
+    for pkg in pkgs:
+        pod = FakePod(pkg, done_after=10_000)  # mates never finish
+        orig = pod.request
+
+        def malformed(host, endpoint, params=None, body=None, timeout=20.0,
+                      orig=orig):
+            reply = orig(host, endpoint, params=params, body=body,
+                         timeout=timeout)
+            if endpoint == "/status" and host == "h1":
+                reply = dict(reply)
+                reply["NumWorkersDone"] = None  # int(None) -> TypeError
+            return reply
+
+        pod.request = malformed
+        g = make_pod(pkg, monkeypatch, pod,
+                     pod_cfg(pkg, 3, fanout=1, interval_ms=50))
+        try:
+            g.prepare()
+            g.start_phase(pkg.Phase.READFILES, "mal")
+            t0 = time.monotonic()
+            status = g.wait_done(20_000)
+            assert time.monotonic() - t0 < 5.0, pkg.name
+            got.append((status, g.first_error()))
+        finally:
+            g.teardown()
+    assert got[1] == got[0]
+    status, err = got[1]
+    assert status == 2 and "h1" in err and "status poll failed" in err
+
+
+def test_incremental_live_merge(pkgs, monkeypatch):
+    """The master's live total is merged incrementally at poll time and
+    equals the sum of the per-host snapshots."""
+    got = []
+    for pkg in pkgs:
+        pod = FakePod(pkg, done_after=3)
+        g = make_pod(pkg, monkeypatch, pod,
+                     pod_cfg(pkg, 10, fanout=4, interval_ms=50))
+        try:
+            g.prepare()
+            g.start_phase(pkg.Phase.READFILES, "merge")
+            status = g.wait_done(20_000)
+            total = g.live_total()
+            got.append((status, total.bytes,
+                        sum(p.live.bytes for p in g.proxies)))
+        finally:
+            g.teardown()
+    # every host polled to done_after=3
+    assert got[1] == got[0] == (1, 10 * 300, 10 * 300)

@@ -32,8 +32,10 @@ import elbencho_tpu_torch.common as torch_common
 import elbencho_tpu_torch.config as torch_config
 import elbencho_tpu_torch.exceptions as torch_exceptions
 import elbencho_tpu_torch.workers.local as torch_local
+from elbencho_tpu.tpu.native import uring_stats as jax_uring_stats
 from elbencho_tpu_torch import engine as torch_engine
 from elbencho_tpu_torch.cuda import native
+from elbencho_tpu_torch.engine_stats import uring_stats as torch_uring_stats
 from elbencho_tpu_torch.ops import integrity
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -684,9 +686,14 @@ def test_window_eviction_releases_registration_and_uring_slot(
         pkgs, tmp_path, monkeypatch):
     """A --regwindow eviction unregisters the window AND releases its slot
     in the engine's shared io_uring registration authority, together; the
-    exports behave as the original's step for step."""
+    exports behave as the original's step for step. An attached ring's
+    table mirrors every claim and release, and the live slot count never
+    holds the evicted window beside its successor (the steps of
+    tests/test_uring.py::test_eviction_releases_dmamap_and_fixed_slot_together)."""
     import mmap
 
+    # the rings run on the engine's syscall-shim emulation (EBT_MOCK_URING)
+    monkeypatch.setenv("EBT_MOCK_URING", "1")
     win = 1 << 20
     steps = []
     for pkg in pkgs:
@@ -700,19 +707,38 @@ def test_window_eviction_releases_registration_and_uring_slot(
         lib = np_._lib
         reg_window = getattr(lib, f"ebt_{'pjrt' if pkg.name == 'jax' else 'cuda'}"
                                   "_register_window")
+        stats = (jax_uring_stats if pkg.name == "jax" else
+                 torch_uring_stats)
+
+        def live_slots():
+            out = (ctypes.c_uint64 * 3)()
+            lib.ebt_uring_reg_state(out)
+            return out[0]
+
         maps = [mmap.mmap(-1, win) for _ in range(2)]
         addrs = [ctypes.addressof(ctypes.c_char.from_buffer(m)) for m in maps]
+        ring = lib.ebt_uring_ring_new()
         try:
+            slots0, ring0 = live_slots(), lib.ebt_uring_ring_slots(ring)
+            avoided0 = stats()["double_pin_avoided_bytes"]
             np_.set_reg_window(win)  # budget: exactly one window
             got = [reg_window(np_.ctx, addrs[0], win),
-                   lib.ebt_uring_fixed_index(addrs[0], win) >= 0,
-                   reg_window(np_.ctx, addrs[1], win),
-                   np_.reg_cache_stats()["evictions"],
-                   lib.ebt_uring_fixed_index(addrs[0], win),
-                   lib.ebt_uring_fixed_index(addrs[1], win) >= 0,
-                   np_.deregister_buffer(addrs[1]),
-                   lib.ebt_uring_fixed_index(addrs[1], win),
-                   pkg.reg_active()]
+                   lib.ebt_uring_fixed_index(addrs[0], win) >= 0]
+            mirror = [live_slots() - slots0,
+                      lib.ebt_uring_ring_slots(ring) - ring0,
+                      stats()["double_pin_avoided_bytes"] - avoided0]
+            got += [reg_window(np_.ctx, addrs[1], win),
+                    np_.reg_cache_stats()["evictions"],
+                    lib.ebt_uring_fixed_index(addrs[0], win),
+                    lib.ebt_uring_fixed_index(addrs[1], win) >= 0]
+            # one live slot, not two, and the ring mirrors it
+            mirror += [live_slots() - slots0,
+                       lib.ebt_uring_ring_slots(ring) - ring0]
+            got += [np_.deregister_buffer(addrs[1]),
+                    lib.ebt_uring_fixed_index(addrs[1], win),
+                    pkg.reg_active()]
+            mirror += [live_slots() - slots0,
+                       lib.ebt_uring_ring_slots(ring) - ring0]
             # a lifetime pin: registering it twice is idempotent, growing
             # it is refused with the cause in reg_error
             got += [np_.register_buffer(addrs[0], win),
@@ -720,11 +746,13 @@ def test_window_eviction_releases_registration_and_uring_slot(
                     np_.register_buffer(addrs[0], 2 * win),
                     np_.reg_error(), np_.deregister_buffer(addrs[0])]
         finally:
+            lib.ebt_uring_ring_free(ring)
             group.teardown()
             del addrs
-        steps.append(got)
+        steps.append(got + [ring >= 0] + mirror)
     assert steps[0] == steps[1]
     assert steps[1][:8] == [0, True, 0, 1, -1, True, True, -1]
+    assert steps[1][-8:] == [True, 1, 1, win, 1, 1, 0, 0]
 
 
 # ------------------------------------------------------------------- lanes
