@@ -218,6 +218,17 @@ Phases, each reported on its own line:
      leaves a clean barrier (rc 0). One line with each case's codes and
      the phase's time. Phase 29 alone:
        python3 -c "import chip_smoke as c; c.direct_errors_on_card()"
+ 30. the port's examples harness on the card (runs after phase 29):
+     tools/torch_test_examples.sh --card -b in a child process under a
+     time limit of its own (300 s): the multi-file tier, the tooling tier
+     (the port's chart launcher and storage sweep), the native tier
+     (--tpubackend pjrt on libcuda.so.1 with --gpuids 0, the default tier
+     and the transfer-manager tier), two localhost services, four services
+     on the native path with the --start barrier and a time-limited phase,
+     and the slice-stats tier on two CPU devices, without loop devices.
+     Every tier must pass; one line with each tier's verdict and seconds.
+     Phase 30 alone:
+       python3 -c "import chip_smoke as c; c.examples_on_card()"
 
 The second-to-last line is a JSON object describing each kernel of the path;
 the last line is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -2934,6 +2945,7 @@ import chip_smoke as c
 print(json.dumps(c.direct_errors_child()))
 """
 DIRECT_ERRORS_TIMEOUT_S = 120
+EXAMPLES_TIMEOUT_S = 300    # phase 30's limit, the harness's own
 
 
 class _CountedEvent:
@@ -3056,6 +3068,39 @@ def direct_errors_on_card() -> dict:
     return got
 
 
+def examples_on_card() -> dict[str, tuple[str, float]]:
+    """Phase 30: tools/torch_test_examples.sh --card -b under its own time
+    limit; every tier must pass. Returns {tier: (verdict, seconds)}."""
+    card = gpu_name_and_power()
+    t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("EBT_TORCH_DEVICE", "EBT_CUDA_DRIVER")}
+    try:
+        r = subprocess.run(
+            ["bash", os.path.join(repo, "tools", "torch_test_examples.sh"),
+             "--card", "-b"], cwd=repo, env=env, capture_output=True,
+            text=True, timeout=EXAMPLES_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"examples harness: past its "
+                             f"{EXAMPLES_TIMEOUT_S} s limit") from e
+    tiers = {name: (verdict, float(secs)) for name, verdict, secs in
+             re.findall(r"^TIER (\w+) (\w+) ([\d.]+)$", r.stdout, re.M)}
+    secs = time.perf_counter() - t0
+    skipped = re.findall(r"^SKIPPED (?:TIER|RUN) (.*)$", r.stdout, re.M)
+    phase("30 examples",
+          ", ".join(f"{n} {v} {t:.1f} s" for n, (v, t) in tiers.items())
+          + f"; skipped: {skipped or 'none'}; {secs:.1f} s (limit "
+          f"{EXAMPLES_TIMEOUT_S} s) on {card}")
+    want = ("multifile", "tooling", "native", "dist2", "dist4", "mesh")
+    if r.returncode != 0 or tuple(tiers) != want or any(
+            v != "pass" for v, _ in tiers.values()):
+        sys.stderr.write(r.stdout[-12000:] + r.stderr[-4000:])
+        raise AssertionError(f"examples harness: rc {r.returncode}, "
+                             f"tiers {tiers}")
+    return tiers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3124,6 +3169,7 @@ def main() -> int:
     selftest_on_card()
     bench_on_card()
     direct_errors_on_card()
+    examples_on_card()
     phase("launches", f"staged --verify run: {staged_launches} verify "
                       f"launches (Python wrapper); native --verify run: "
                       f"{launches} (C++ engine); native --stripe --verify "

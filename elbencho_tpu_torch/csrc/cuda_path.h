@@ -198,9 +198,15 @@ class CudaPath {
   void setRegWindow(uint64_t bytes) EBT_EXCLUDES(reg_mutex_);
   int registerWindow(void* buf, uint64_t len) EBT_EXCLUDES(reg_mutex_);
   void deregisterRange(void* buf, uint64_t len) EBT_EXCLUDES(reg_mutex_);
+  // one counter per line: tools/torch_audit.py's counters analyzer reads
+  // each member as the original's header declares it
   struct RegCacheStats {
-    uint64_t hits = 0, misses = 0, evictions = 0;
-    uint64_t pinned_bytes = 0, pinned_peak_bytes = 0, staged_fallbacks = 0;
+    uint64_t hits = 0;
+    uint64_t misses = 0;
+    uint64_t evictions = 0;
+    uint64_t pinned_bytes = 0;
+    uint64_t pinned_peak_bytes = 0;
+    uint64_t staged_fallbacks = 0;
   };
   RegCacheStats regCacheStats() const EBT_EXCLUDES(reg_mutex_);
   uint64_t zeroCopyCount() const {
@@ -228,8 +234,11 @@ class CudaPath {
 
   // ---- lanes ----
   struct LaneStats {
-    uint64_t submits = 0, awaits = 0, lock_wait_ns = 0;
-    uint64_t bytes_to_hbm = 0, bytes_from_hbm = 0;
+    uint64_t submits = 0;
+    uint64_t awaits = 0;
+    uint64_t lock_wait_ns = 0;
+    uint64_t bytes_to_hbm = 0;
+    uint64_t bytes_from_hbm = 0;
   };
   bool laneStats(int lane, LaneStats* out) const;
   bool singleLane() const { return single_lane_; }

@@ -4,12 +4,13 @@ Each test copies the port's audited surface into a tmp tree, injects one
 drift of the class an analyzer exists to catch - a completion tracker
 leaked on a fault path (C4), a lock taken against the port's documented
 hierarchy, a raw std::mutex, a predicate-lambda wait, doc drift, a ctypes
-width mismatch, an export without a binding - and asserts that the named
-analyzer flags it with its cause and a file:line anchor. The real tree
-audits clean through the driver, and the driver leaves the original
-analyzers' constants as it found them, so the original's gate
-(tests/test_audit.py, python3 -m tools.audit) never sees the port's
-sources.
+width mismatch, an export without a binding, a counter key dropped at
+the ctypes seam, a result-tree field renamed in the fan-in, a summed field
+merged by max - and asserts that the named analyzer flags it with its
+cause and a file:line anchor. The real tree audits clean through the
+driver, and the driver leaves the original analyzers' constants as it
+found them, so the original's gate (tests/test_audit.py, python3 -m
+tools.audit) never sees the port's sources.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import glob
 import os
 import re
 import shutil
+import subprocess
 import sys
 
 import pytest
@@ -26,14 +28,21 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from tools import lint_interfaces, torch_audit  # noqa: E402
-from tools.audit import hotcheck, lockcheck, pathcheck  # noqa: E402
+from tools.audit import (counter_coverage, hotcheck,  # noqa: E402
+                         lockcheck, mergecheck, pathcheck, schema_registry)
+from tools.audit.__main__ import analyzers as original_analyzers  # noqa: E402
 
 PATH_CPP = "elbencho_tpu_torch/csrc/cuda_path.cpp"
 PATH_H = "elbencho_tpu_torch/csrc/cuda_path.h"
 CAPI = "elbencho_tpu_torch/csrc/cuda_capi.cpp"
 ENGINE_PY = "elbencho_tpu_torch/engine.py"
 FENCE = "elbencho_tpu_torch/csrc/CONCURRENCY.md"
-CLEAN = "audit: clean (lockcheck, pathcheck, hotcheck, interfaces-port)"
+REMOTE_PY = "elbencho_tpu_torch/workers/remote.py"
+ENGINE_STATS_PY = "elbencho_tpu_torch/engine_stats.py"
+NATIVE_PY = "elbencho_tpu_torch/cuda/native.py"
+CLEAN = ("audit: clean (lockcheck, pathcheck, hotcheck, interfaces-port, "
+         "schema, counters, mergecheck)")
+SEAM_ANALYZERS = ("schema", "counters", "mergecheck")
 
 # the original analyzers' constants, as they stand before any driver call
 ORIGINAL = {
@@ -45,6 +54,15 @@ ORIGINAL = {
     (hotcheck, "LANES_DOC"): hotcheck.LANES_DOC,
     (hotcheck, "REPORT"): hotcheck.REPORT,
     (lint_interfaces, "CAPI"): lint_interfaces.CAPI,
+    **{(schema_registry, k): getattr(schema_registry, k) for k in (
+        "COMMON", "STATS", "REMOTE", "NATIVE", "METRICS", "CAMPAIGN",
+        "BENCH", "PJRT_CPP", "_parse", "extract_direction_cases")},
+    **{(counter_coverage, k): getattr(counter_coverage, k) for k in (
+        "NATIVE", "REMOTE", "STATS", "BENCH", "METRICS_PY", "PJRT_H",
+        "GROUPS", "_capi_marshalled", "_struct_fields", "_d2h_fields")},
+    **{(mergecheck, k): getattr(mergecheck, k) for k in (
+        "NATIVE", "REPORT", "REMOTE", "STATS", "METRICS", "BENCH",
+        "COMMON")},
 }
 
 
@@ -55,7 +73,8 @@ def _audited_files():
     rels = set(torch_audit.LOCK_SOURCES) | set(torch_audit.PATH_SOURCES)
     rels |= {torch_audit.FENCE_DOC, torch_audit.HOT_BASELINE,
              torch_audit.CORE_CAPI, torch_audit.CUDA_CAPI,
-             *torch_audit.KERNEL_SOURCES, "chip_smoke.py"}
+             *torch_audit.KERNEL_SOURCES, "chip_smoke.py",
+             *torch_audit.SHARED_SOURCES}
     for dirpath, _dirs, files in os.walk(os.path.join(
             REPO, "elbencho_tpu_torch")):
         rels |= {os.path.relpath(os.path.join(dirpath, f), REPO)
@@ -98,7 +117,7 @@ def _at(findings, rel, line):
 # ------------------------------------------------------------- clean trees
 
 def test_real_tree_runs_clean_through_the_driver(tmp_path, capsys):
-    """(h) the shipped port passes all four analyzers, exit 0."""
+    """(h) the shipped port passes all seven analyzers, exit 0."""
     report = tmp_path / "report.txt"
     assert torch_audit.main(["--root", REPO, "--report", str(report)]) == 0
     assert CLEAN in capsys.readouterr().out
@@ -144,7 +163,8 @@ def test_driver_only_skip_and_unknown(tmp_path, capsys):
     assert "audit: clean (lockcheck, interfaces-port)" in \
         capsys.readouterr().out
     assert torch_audit.main(["--root", REPO, "--report", report,
-                             "--skip", "hotcheck,pathcheck"]) == 0
+                             "--skip", "hotcheck,pathcheck,schema,counters,"
+                                       "mergecheck"]) == 0
     assert "audit: clean (lockcheck, interfaces-port)" in \
         capsys.readouterr().out
     assert torch_audit.main(["--root", REPO, "--report", report,
@@ -442,3 +462,129 @@ def test_ctypes_classes_go_by_identity():
     assert torch_audit.ctype_class(ctypes.POINTER(ctypes.c_int)) == "ptr"
     assert torch_audit.ctype_class(ctypes.c_char_p) == "ptr"
     assert torch_audit.ctype_class(None) == "none"
+
+
+# ------------------------------------- schema, counters, mergecheck: seam
+
+@pytest.mark.parametrize("name", SEAM_ANALYZERS)
+def test_seam_analyzer_is_clean_on_the_port(name):
+    assert torch_audit.analyzers()[name](REPO) == []
+
+
+def test_seam_analyzers_read_the_port():
+    """Inside the retargeting the extractors see the port's files: its
+    wire, both halves of its counter readers, the CUDA engine's direction
+    switch and its counter structs."""
+    with torch_audit.seam_retargeted(REPO):
+        native = schema_registry.extract_native_dicts(REPO)
+        directions = schema_registry.extract_direction_cases(REPO)
+        reg = counter_coverage._struct_fields(
+            open(os.path.join(REPO, PATH_H)).read(), "RegCacheStats")
+        uring = counter_coverage._struct_fields("", "UringStats")
+        d2h = counter_coverage._d2h_fields("")
+        assert schema_registry.STATS == "elbencho_tpu_torch/stats.py"
+    assert schema_registry.STATS == "elbencho_tpu/stats.py"
+    # reg_cache_stats is NativeCudaPath's, tenant_stats engine_stats.py's
+    assert "misses" in native["reg_cache_stats"]
+    assert "tenant" in native["tenant_stats"]
+    assert sorted(directions) == list(range(18))
+    assert set(reg) == {"hits", "misses", "evictions", "pinned_bytes",
+                        "pinned_peak_bytes", "staged_fallbacks"}
+    assert "uring_fixed_hits" in uring
+    assert set(d2h) == {"d2h_deferred_count", "d2h_await_wait_ns",
+                        "d2h_overlap_bytes"}
+    assert all(g["capi_fn"].startswith(("ebt_cuda_", "ebt_engine_",
+                                        "ebt_uring_"))
+               for g in torch_audit.PORT_GROUPS)
+
+
+def test_counters_flags_a_key_dropped_from_engine_stats(tree):
+    """A key dropped from a counter dict in engine_stats.py is caught at
+    the ctypes seam, anchored in engine_stats.py (not in cuda/native.py,
+    with which it parses as one module)."""
+    _edit(tree, ENGINE_STATS_PY, '"io_retry_success": raw[1],', "")
+    found = torch_audit.counters_collect(str(tree))
+    hits = [f for f in found if "io_retry_success" in f.cause]
+    assert hits, [f.cause for f in found]
+    assert any("ctypes seam" in f.cause for f in hits)
+    mergecheck_hits = [f for f in torch_audit.mergecheck_collect(str(tree))
+                       if "io_retry_success" in f.cause]
+    assert all(f.file in (ENGINE_STATS_PY, NATIVE_PY)
+               for f in hits + mergecheck_hits)
+
+
+def test_counters_flags_a_dropped_ebt_cuda_marshalling(tree):
+    """A counter the CUDA engine's C ABI no longer marshals is dropped at
+    the C ABI: the ebt_cuda_* groups are read from cuda_capi.cpp."""
+    text = (tree / CAPI).read_text()
+    hit = re.search(r"\n(\s*out\[\d+\] = s\.staged_fallbacks;)", text)
+    assert hit, "anchor: staged_fallbacks marshalling in cuda_capi.cpp"
+    _edit(tree, CAPI, hit.group(1), "")
+    line = _line_with(tree, PATH_H, "uint64_t staged_fallbacks = 0;")
+    found = torch_audit.counters_collect(str(tree))
+    hits = [f for f in found if "staged_fallbacks" in f.cause
+            and "never marshalled by ebt_cuda_reg_cache_stats" in f.cause]
+    assert hits, [f.cause for f in found]
+    assert (hits[0].file, hits[0].line) == (PATH_H, line)
+
+
+def test_schema_flags_a_fanin_field_renamed(tree):
+    """A result-tree field renamed in the port's fan-in drifts from the
+    golden protocol schema and leaves the published field unread."""
+    _edit(tree, REMOTE_PY, 'us = reply.get("UringStats")',
+          'us = reply.get("UringStat")')
+    line = _line_with(tree, REMOTE_PY, 'reply.get("UringStat")')
+    found = torch_audit.schema_collect(str(tree))
+    causes = [f.cause for f in found]
+    added = [f for f in found if "'UringStat'" in f.cause]
+    assert added and (added[0].file, added[0].line) == (REMOTE_PY, line)
+    assert any("'UringStats'" in c and "never read" in c for c in causes)
+
+
+def test_schema_flags_a_direction_the_cuda_engine_lacks(tree):
+    """A DevCopyFn direction CudaPath::copy no longer handles differs from
+    the golden and from the engine's documented set."""
+    text = (tree / PATH_CPP).read_text()
+    body = text[text.index("int CudaPath::copy("):]
+    assert "    case 17:" in body
+    _edit(tree, PATH_CPP, "    case 17:", "    case 71:")
+    causes = [f.cause for f in torch_audit.schema_collect(str(tree))]
+    assert any("direction 71 is handled" in c for c in causes), causes
+    assert any("direction 17 is documented" in c for c in causes), causes
+
+
+def test_mergecheck_flags_a_summed_field_merged_by_max(tree):
+    """UringStats is declared per-key sum; its fan-in merging by max is a
+    class mismatch, anchored at the merge site."""
+    old = ("        stats = [p.uring_stats for p in self.proxies "
+           "if p.uring_stats]\n"
+           "        if not stats:\n"
+           "            return None\n"
+           "        out: dict[str, int] = {}\n"
+           "        for st in stats:\n"
+           "            for k, v in st.items():\n"
+           "                out[k] = out.get(k, 0) + v\n")
+    _edit(tree, REMOTE_PY, old,
+          old.replace("out[k] = out.get(k, 0) + v",
+                      "out[k] = max(out.get(k, 0), v)"))
+    found = torch_audit.mergecheck_collect(str(tree))
+    hits = [f for f in found if "'UringStats'" in f.cause]
+    assert hits, [f.cause for f in found]
+    assert hits[0].file == REMOTE_PY and hits[0].line > 0
+    assert "max" in hits[0].cause
+    assert (tree / "build" / "torch_merge_report.txt").exists()
+
+
+def test_original_gate_unchanged_after_the_port_tool(tmp_path):
+    """python3 -m tools.audit's analyzers, run in the same process after
+    the port's seven, report what they report before it."""
+    before = {n: c(REPO) for n, c in original_analyzers().items()}
+    assert torch_audit.main(["--root", REPO, "--report",
+                             str(tmp_path / "r.txt")]) == 0
+    after = {n: c(REPO) for n, c in original_analyzers().items()}
+    assert after == before
+    for (module, name), value in ORIGINAL.items():
+        assert getattr(module, name) == value, (module.__name__, name)
+    r = subprocess.run([sys.executable, "-m", "tools.audit"], cwd=REPO,
+                       capture_output=True, text=True, timeout=600)
+    assert (r.returncode == 0) == (before == {n: [] for n in before})

@@ -25,6 +25,7 @@ import pytest
 
 import elbencho_tpu_torch.bench as torch_bench
 from elbencho_tpu_torch import engine as torch_engine
+from test_torch_worker_state import worker_state  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_MOCK = os.path.join(REPO, "elbencho_tpu", "libebtpjrtmock.so")
@@ -72,9 +73,6 @@ def _stats_module(bench) -> str:
 def mocks(monkeypatch, tmp_path):
     """Both mocks (one device each unless a test says otherwise), the
     port on the CPU, and both benches' workdir under tmp_path."""
-    if not os.path.exists(JAX_MOCK):
-        subprocess.run(["make", "core"], cwd=REPO, check=True,
-                       capture_output=True)
     monkeypatch.setenv("EBT_PJRT_PLUGIN", JAX_MOCK)
     monkeypatch.delenv("EBT_PJRT_OPTIONS", raising=False)
     monkeypatch.setenv("EBT_TORCH_DEVICE", "cpu")

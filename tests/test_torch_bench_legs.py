@@ -18,13 +18,13 @@ from __future__ import annotations
 
 import importlib.util
 import os
-import subprocess
 
 import pytest
 
 import elbencho_tpu_torch.bench as torch_bench
 from elbencho_tpu_torch import chaos as torch_chaos
 from elbencho_tpu_torch import engine as torch_engine
+from test_torch_worker_state import worker_state  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_MOCK = os.path.join(REPO, "elbencho_tpu", "libebtpjrtmock.so")
@@ -46,9 +46,6 @@ def jax_bench():
 def mocks(monkeypatch):
     """Both mocks with one device each unless a case says otherwise, the
     port on the CPU, and no A/B or seam variable left from elsewhere."""
-    if not os.path.exists(JAX_MOCK):
-        subprocess.run(["make", "core"], cwd=REPO, check=True,
-                       capture_output=True)
     monkeypatch.setenv("EBT_PJRT_PLUGIN", JAX_MOCK)
     monkeypatch.delenv("EBT_PJRT_OPTIONS", raising=False)
     monkeypatch.setenv("EBT_TORCH_DEVICE", "cpu")

@@ -34,6 +34,7 @@ import elbencho_tpu.chaos as jax_chaos
 import elbencho_tpu_torch.campaign as torch_campaign
 import elbencho_tpu_torch.chaos as torch_chaos
 from elbencho_tpu_torch import engine as torch_engine
+from test_torch_worker_state import worker_state  # noqa: F401
 
 pytestmark = pytest.mark.campaign
 
@@ -77,9 +78,6 @@ def pkgs(monkeypatch):
     for k in ALL_SEAM_ENVS:
         monkeypatch.setenv(k, "")
         monkeypatch.delenv(k)
-    if not os.path.exists(JAX_MOCK):
-        subprocess.run(["make", "core"], cwd=REPO, check=True,
-                       capture_output=True)
     torch_mock = torch_engine.build_mock()
     monkeypatch.setenv("EBT_PJRT_PLUGIN", JAX_MOCK)
     monkeypatch.delenv("EBT_PJRT_OPTIONS", raising=False)

@@ -35,6 +35,7 @@ import elbencho_tpu_torch.exceptions as torch_exceptions
 import elbencho_tpu_torch.workers.local as torch_local
 from elbencho_tpu_torch import engine as torch_engine
 from elbencho_tpu_torch.cuda import native as torch_native
+from test_torch_worker_state import worker_state  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_MOCK = os.path.join(REPO, "elbencho_tpu", "libebtpjrtmock.so")
@@ -64,9 +65,6 @@ def _mock_lib(path: str, active: str, completions: str) -> ctypes.CDLL:
 @pytest.fixture
 def pkgs(monkeypatch):
     """(original, port) on their mocks, two devices each."""
-    if not os.path.exists(JAX_MOCK):
-        subprocess.run(["make", "core"], cwd=REPO, check=True,
-                       capture_output=True)
     torch_mock = torch_engine.build_mock()
     monkeypatch.setenv("EBT_PJRT_PLUGIN", JAX_MOCK)
     monkeypatch.delenv("EBT_PJRT_OPTIONS", raising=False)

@@ -16,7 +16,6 @@ from __future__ import annotations
 import ctypes
 import os
 import re
-import subprocess
 from types import SimpleNamespace
 
 import numpy as np
@@ -35,6 +34,7 @@ import elbencho_tpu_torch.exceptions as torch_exceptions
 import elbencho_tpu_torch.stats as torch_stats
 import elbencho_tpu_torch.workers.local as torch_local
 from elbencho_tpu_torch import engine as torch_engine
+from test_torch_worker_state import worker_state  # noqa: F401
 
 pytestmark = pytest.mark.faults
 
@@ -77,9 +77,6 @@ def clean_seams(monkeypatch):
 def pkgs(clean_seams):
     """(original, port) on their mocks, 4 devices each."""
     monkeypatch = clean_seams
-    if not os.path.exists(JAX_MOCK):
-        subprocess.run(["make", "core"], cwd=REPO, check=True,
-                       capture_output=True)
     torch_mock = torch_engine.build_mock()
     monkeypatch.setenv("EBT_PJRT_PLUGIN", JAX_MOCK)
     monkeypatch.delenv("EBT_PJRT_OPTIONS", raising=False)

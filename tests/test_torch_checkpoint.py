@@ -42,6 +42,7 @@ import elbencho_tpu_torch.stats as torch_stats
 import elbencho_tpu_torch.workers.local as torch_local
 import elbencho_tpu_torch.workers.remote as torch_remote
 from elbencho_tpu_torch import engine as torch_engine
+from test_torch_worker_state import worker_state  # noqa: F401
 
 pytestmark = pytest.mark.checkpoint
 
@@ -68,9 +69,6 @@ def _pkg(name, cfg_mod, local, common, exc, stats, remote, ckpt, lib):
 @pytest.fixture
 def pkgs(monkeypatch):
     """(original, port) on their mocks, 4 devices each, counters zeroed."""
-    if not os.path.exists(JAX_MOCK):
-        subprocess.run(["make", "core"], cwd=REPO, check=True,
-                       capture_output=True)
     torch_mock = torch_engine.build_mock()
     monkeypatch.setenv("EBT_PJRT_PLUGIN", JAX_MOCK)
     monkeypatch.delenv("EBT_PJRT_OPTIONS", raising=False)

@@ -14,6 +14,7 @@ from elbencho_tpu.cli import main as jax_main
 from elbencho_tpu_torch.cli import main as torch_main
 from elbencho_tpu_torch.config import config_from_args
 from elbencho_tpu_torch.exceptions import ProgException
+from test_torch_worker_state import worker_state  # noqa: F401
 
 # CSV columns that do not depend on timing
 _STABLE = ("operation", "entries last", "bytes last", "paths", "threads",

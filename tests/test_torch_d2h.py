@@ -19,6 +19,7 @@ import elbencho_tpu.config as jax_config
 import elbencho_tpu.exceptions as jax_exceptions
 import elbencho_tpu_torch.config as torch_config
 import elbencho_tpu_torch.exceptions as torch_exceptions
+from test_torch_worker_state import worker_state  # noqa: F401
 
 
 def write_args(size="8M", block="1M", iodepth=4, extra=()):

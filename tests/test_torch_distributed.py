@@ -29,6 +29,7 @@ from elbencho_tpu.cli import main as jax_main
 from elbencho_tpu_torch import engine
 from elbencho_tpu_torch.cli import main
 from elbencho_tpu_torch.common import PROTOCOL_VERSION
+from test_torch_worker_state import worker_state  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEST_LIMIT_S = 150

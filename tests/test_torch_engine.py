@@ -41,6 +41,7 @@ import elbencho_tpu.liveops as jax_liveops
 import elbencho_tpu_torch.common as torch_common
 import elbencho_tpu_torch.engine as torch_engine
 import elbencho_tpu_torch.liveops as torch_liveops
+from test_torch_worker_state import worker_state  # noqa: F401
 
 
 def _pkg(name, engine, common, liveops) -> SimpleNamespace:

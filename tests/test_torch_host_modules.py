@@ -37,6 +37,7 @@ import elbencho_tpu_torch.engine as torch_engine
 import elbencho_tpu_torch.exceptions as torch_exceptions
 import elbencho_tpu_torch.histogram as torch_histogram
 import elbencho_tpu_torch.utils.units as torch_units
+from test_torch_worker_state import worker_state  # noqa: F401
 
 PKGS = (
     SimpleNamespace(name="jax", histogram=jax_histogram, units=jax_units,

@@ -19,7 +19,6 @@ from __future__ import annotations
 import ctypes
 import json
 import os
-import subprocess
 from types import SimpleNamespace
 
 import numpy as np
@@ -43,6 +42,7 @@ import elbencho_tpu_torch.workers.local as torch_local
 import elbencho_tpu_torch.workers.remote as torch_remote
 from elbencho_tpu_torch import engine as torch_engine
 from elbencho_tpu_torch.cuda import native as torch_native
+from test_torch_worker_state import worker_state  # noqa: F401
 
 pytestmark = pytest.mark.ingest
 
@@ -62,9 +62,6 @@ def _mock_lib(path: str) -> ctypes.CDLL:
 @pytest.fixture
 def pkgs(monkeypatch):
     """(original, port) on their mocks, 4 devices each, counters zeroed."""
-    if not os.path.exists(JAX_MOCK):
-        subprocess.run(["make", "core"], cwd=REPO, check=True,
-                       capture_output=True)
     torch_mock = torch_engine.build_mock()
     monkeypatch.setenv("EBT_PJRT_PLUGIN", JAX_MOCK)
     monkeypatch.delenv("EBT_PJRT_OPTIONS", raising=False)

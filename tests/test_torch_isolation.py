@@ -72,7 +72,11 @@ NATIVE_MODULES = ("elbencho_tpu_torch/cuda/native.py",
 # the port's command-line tools beside the original's in tools/
 PORT_TOOLS = ("tools/torch_multicard.py", "tools/torch_campaign.py",
               "tools/torch_chaos.py", "tools/torch_audit.py",
-              "tools/torch_test_tsan.py")
+              "tools/torch_test_tsan.py", "tools/torch_gen_completion.py")
+# the port's shell tools, which reach Python through `python -c` and
+# `python -m` lines
+PORT_SHELL_TOOLS = ("tools/torch_test_examples.sh",
+                    "tools/torch_storage_sweep.sh")
 # the kernel sources and the native selftest, which must be among the
 # native sources scanned
 KERNEL_SOURCES = ("verify.cu", "fill.cu", "ingest.cu", "mesh_reduce.cu",
@@ -87,6 +91,15 @@ def test_native_modules_are_scanned():
 def test_port_tools_are_scanned():
     scanned = {os.path.relpath(p, REPO) for p in _port_files()}
     assert set(PORT_TOOLS) <= scanned
+
+
+@pytest.mark.parametrize("path", PORT_SHELL_TOOLS)
+def test_shell_tool_uses_no_original_package(path):
+    """A shell tool of the port names no module of the original package
+    (elbencho_tpu, as opposed to elbencho_tpu_torch) and no jax."""
+    text = open(os.path.join(REPO, path)).read()
+    bad = sorted(set(re.findall(r"\b(elbencho_tpu|jax|jaxlib)\b", text)))
+    assert not bad, f"{path} names {bad}"
 
 
 def test_kernel_sources_are_scanned():

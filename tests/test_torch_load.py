@@ -72,6 +72,7 @@ import elbencho_tpu_torch.stats as torch_stats
 import elbencho_tpu_torch.workers.local as torch_local
 import elbencho_tpu_torch.workers.remote as torch_remote
 from test_torch_engine import same
+from test_torch_worker_state import worker_state  # noqa: F401
 
 pytestmark = pytest.mark.load
 

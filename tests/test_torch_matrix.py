@@ -33,6 +33,7 @@ import pytest
 
 from test_torch_engine import (digest, make_engine, ops_tuple,  # noqa: F401
                                pkgs, same)
+from test_torch_worker_state import worker_state  # noqa: F401
 
 FILE_SIZE = 1 << 19  # 512 KiB
 BLOCK = 1 << 14      # 16 KiB

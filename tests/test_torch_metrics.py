@@ -26,6 +26,7 @@ from elbencho_tpu_torch.metrics import (METRIC_FAMILIES, MetricsServer,
                                         metric_value, parse_prometheus_text,
                                         render_metrics)
 from elbencho_tpu_torch.workers.local import LocalWorkerGroup
+from test_torch_worker_state import worker_state  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLK = 256 << 10
@@ -88,9 +89,6 @@ def test_stripe_and_ckpt_families_match_the_original(mock2, tmp_path,
     from elbencho_tpu.workers.local import LocalWorkerGroup as JaxGroup
 
     jax_mock = os.path.join(REPO, "elbencho_tpu", "libebtpjrtmock.so")
-    if not os.path.exists(jax_mock):
-        subprocess.run(["make", "core"], cwd=REPO, check=True,
-                       capture_output=True)
     monkeypatch.setenv("EBT_PJRT_PLUGIN", jax_mock)
     monkeypatch.setenv("EBT_MOCK_PJRT_DEVICES", "2")
     path, nblocks = _make_file(tmp_path)

@@ -37,6 +37,7 @@ from elbencho_tpu_torch import engine as torch_engine
 from elbencho_tpu_torch.cuda import native
 from elbencho_tpu_torch.engine_stats import uring_stats as torch_uring_stats
 from elbencho_tpu_torch.ops import integrity
+from test_torch_worker_state import worker_state  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_MOCK = os.path.join(REPO, "elbencho_tpu", "libebtpjrtmock.so")
@@ -73,9 +74,6 @@ def _mock_lib(path: str) -> ctypes.CDLL:
 def pkgs(monkeypatch):
     """(original, port): each package's config parser, worker group, mock
     library and the seam/counter names its mock uses."""
-    if not os.path.exists(JAX_MOCK):
-        subprocess.run(["make", "core"], cwd=REPO, check=True,
-                       capture_output=True)
     torch_mock = torch_engine.build_mock()
     monkeypatch.setenv("EBT_PJRT_PLUGIN", JAX_MOCK)
     monkeypatch.delenv("EBT_PJRT_OPTIONS", raising=False)

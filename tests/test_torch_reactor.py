@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 from types import SimpleNamespace
 
 import numpy as np
@@ -33,6 +32,7 @@ import elbencho_tpu_torch.stats as torch_stats
 import elbencho_tpu_torch.workers.local as torch_local
 import elbencho_tpu_torch.workers.remote as torch_remote
 from elbencho_tpu_torch import engine as torch_engine
+from test_torch_worker_state import worker_state  # noqa: F401
 
 pytestmark = pytest.mark.reactor
 
@@ -49,9 +49,6 @@ WAKEUP_KEYS = ("reactor_wakeups_cq", "reactor_wakeups_onready",
 def pkgs(monkeypatch):
     """(original, port) on their mocks: two devices, 200 us of service
     time per copy."""
-    if not os.path.exists(JAX_MOCK):
-        subprocess.run(["make", "core"], cwd=REPO, check=True,
-                       capture_output=True)
     torch_mock = torch_engine.build_mock()
     monkeypatch.setenv("EBT_PJRT_PLUGIN", JAX_MOCK)
     monkeypatch.delenv("EBT_PJRT_OPTIONS", raising=False)

@@ -49,6 +49,7 @@ import elbencho_tpu_torch.workers.base as torch_base
 import elbencho_tpu_torch.workers.local as torch_local
 from test_torch_engine import (JAX, TORCH, digest, make_engine, run_phase,
                                same, total_ops)
+from test_torch_worker_state import worker_state  # noqa: F401
 
 
 def _pkg(engine_pkg, cli, config, stats, base, local) -> SimpleNamespace:

@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 from types import SimpleNamespace
 
 import numpy as np
@@ -33,6 +32,7 @@ import elbencho_tpu_torch.engine_stats as torch_engine_stats
 import elbencho_tpu_torch.stats as torch_stats
 import elbencho_tpu_torch.workers.local as torch_local
 from elbencho_tpu_torch import engine as torch_engine
+from test_torch_worker_state import worker_state  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_MOCK = os.path.join(REPO, "elbencho_tpu", "libebtpjrtmock.so")
@@ -164,9 +164,6 @@ XFER_MGR_CASES = ("pjrt-xfer-mgr", "pjrt-xfer-mgr-checkpoint")
 def pkgs(monkeypatch):
     """(original, port): CPU devices for staged/direct, the mocks (two
     devices each) for pjrt."""
-    if not os.path.exists(JAX_MOCK):
-        subprocess.run(["make", "core"], cwd=REPO, check=True,
-                       capture_output=True)
     torch_mock = torch_engine.build_mock()
     monkeypatch.setenv("EBT_PJRT_PLUGIN", JAX_MOCK)
     monkeypatch.delenv("EBT_PJRT_OPTIONS", raising=False)

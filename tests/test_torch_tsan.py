@@ -22,6 +22,7 @@ import sys
 import pytest
 
 from elbencho_tpu_torch import engine
+from test_torch_worker_state import worker_state  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)

@@ -66,6 +66,7 @@ import elbencho_tpu_torch.stats as torch_stats
 import elbencho_tpu_torch.workers.local as torch_local
 import elbencho_tpu_torch.workers.remote as torch_remote
 from test_torch_engine import same
+from test_torch_worker_state import worker_state  # noqa: F401
 
 pytestmark = pytest.mark.uring
 
@@ -114,9 +115,6 @@ def mock_uring(monkeypatch):
 def mock_devices(monkeypatch):
     """Each package's mock device driver: the original's PJRT plugin, the
     port's CUDA driver on the CPU."""
-    if not os.path.exists(JAX_MOCK):
-        subprocess.run(["make", "core"], cwd=REPO, check=True,
-                       capture_output=True)
     monkeypatch.setenv("EBT_PJRT_PLUGIN", JAX_MOCK)
     monkeypatch.delenv("EBT_PJRT_OPTIONS", raising=False)
     monkeypatch.setenv("EBT_TORCH_DEVICE", "cpu")

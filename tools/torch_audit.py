@@ -23,14 +23,29 @@ driver holds both to the same analyzers that gate the original engine
                    C entries (csrc/*.cu) against ops/*_kernel.py: missing
                    and stale bindings, arg counts, pointer-ness, widths and
                    restypes
+  schema           the port's wire (stats.py, workers/remote.py, bench.py,
+                   metrics.py, campaign.py) and its engine counter readers
+                   (engine_stats.py with cuda/native.py, read as one
+                   module) against the original's golden protocol schema
+                   (tools/audit/schemas/): the port emits the same wire
+  counters         every counter group from its C++ struct (csrc/
+                   cuda_path.h) through the C ABI (the ebt_cuda_* exports
+                   of csrc/cuda_capi.cpp, the shared engine's of
+                   core/src/capi.cpp) and the ctypes readers to the fan-in,
+                   the result tree and the docs; the port's /metrics
+                   families against their renderers
+  mergecheck       the merge laws the original declares, classified on the
+                   port's fan-in (workers/remote.py, stats.py); report in
+                   build/torch_merge_report.txt
 
-The analyzers are imported, never copied: each runs with its module
-constants patched for the duration of the call and restored after it, so
-the original's gate (python3 -m tools.audit) sees its own sources whatever
-ran before it in the same process. The port's binding tables are run from
+The analyzers are imported, not copied (but for two extractors whose
+regexes name PjrtPath inside the function: _direction_cases, _d2h_fields):
+each runs with its module constants patched for the duration of the call
+and restored after it, so the original's gate (python3 -m tools.audit)
+sees its own sources whatever ran before it in the same process. The port's binding tables are run from
 their source files, not imported: neither package nor torch is loaded.
 
-    python3 tools/torch_audit.py                        # all four
+    python3 tools/torch_audit.py                        # all seven
     python3 tools/torch_audit.py --only lockcheck,pathcheck
     python3 tools/torch_audit.py --skip hotcheck
     python3 tools/torch_audit.py --write-hotpath-baseline
@@ -59,8 +74,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from tools import lint_interfaces  # noqa: E402
-from tools.audit import (Finding, hotcheck, lockcheck,  # noqa: E402
-                         pathcheck, strip_cpp_comments_and_strings)
+from tools.audit import (Finding, counter_coverage, hotcheck,  # noqa: E402
+                         lockcheck, mergecheck, pathcheck,
+                         schema_registry, strip_cpp_comments_and_strings)
 from tools.audit.cppmodel import strip_preproc  # noqa: E402
 
 _j = os.path.join
@@ -378,6 +394,190 @@ def interfaces_collect(root: str) -> list[Finding]:
     return findings
 
 
+# ------------------------------------------------ the Python-seam analyzers
+
+PORT = "elbencho_tpu_torch"
+# schema_registry's seam constants (which mergecheck and counter_coverage
+# copy) -> the port's files
+SEAM = {
+    "COMMON": _j(PORT, "common.py"),
+    "STATS": _j(PORT, "stats.py"),
+    "REMOTE": _j(PORT, "workers", "remote.py"),
+    "METRICS": _j(PORT, "metrics.py"),
+    "CAMPAIGN": _j(PORT, "campaign.py"),
+    "BENCH": _j(PORT, "bench.py"),
+}
+# The analyzers read every engine counter reader from one file (the
+# original's tpu/native.py). The port splits them between NativeCudaPath's
+# module and engine_stats.py; NATIVE parses as one module of both, with
+# engine_stats.py's lines shifted past _NATIVE_SHIFT so that a finding is
+# anchored back in the file it came from (_relabel).
+NATIVE = _j(PORT, "cuda", "native.py")
+ENGINE_STATS = _j(PORT, "engine_stats.py")
+_NATIVE_SHIFT = 1_000_000
+CUDA_H = _j(CSRC, "cuda_path.h")
+CUDA_CPP = _j(CSRC, "cuda_path.cpp")
+URING_H = _j("core", "include", "ebt", "pjrt_path.h")
+MERGE_REPORT = _j("build", "torch_merge_report.txt")
+# the counter groups with the port's C ABI names (ebt_pjrt_* -> ebt_cuda_*;
+# the shared engine's ebt_engine_* and ebt_uring_stats stay)
+PORT_GROUPS = tuple(
+    dict(g, capi_fn=g["capi_fn"].replace("ebt_pjrt_", "ebt_cuda_"))
+    for g in counter_coverage.GROUPS)
+
+# What the three analyzers still read of the original's sources, each with
+# its cause. Nothing else of theirs is exempt: every other finding on the
+# port's tree is a fault to fix.
+SHARED_SOURCES = {
+    _j("core", "include", "ebt", "engine.h"):
+        "the DevCopyFn direction docs and the engine-side counter structs "
+        "(TenantStats, EngineFaultStats, NumaStats, ServingStats): the port "
+        "builds the shared engine into its own library",
+    _j("core", "include", "ebt", "reactor.h"): "ReactorStats, likewise",
+    URING_H:
+        "UringStats: ebt_uring_stats reads PjrtPath::uringStats, the "
+        "process-wide fixed-buffer slot table the port's library carries "
+        "with the shared engine (engine._CORE_SRCS); its lines anchor at "
+        "csrc/cuda_path.h",
+    CORE_CAPI:
+        "the shared engine's C ABI (ebt_engine_*, ebt_uring_stats); the "
+        "ebt_cuda_* groups are read from csrc/cuda_capi.cpp",
+    **{doc: "the docs name the counters, tiers, exit codes and /metrics "
+            "families, which the port keeps under the original's names"
+       for doc in (*counter_coverage.DOCS, schema_registry.TIER_DOC)},
+}
+
+
+def _joined_parse(root: str):
+    """schema_registry._parse, with NATIVE read as one module of the port's
+    two counter-reader files."""
+    parse = schema_registry._parse
+    native = os.path.normpath(_j(root, NATIVE))
+
+    def joined(path: str):
+        if os.path.normpath(path) != native:
+            return parse(path)
+        tree = parse(native)
+        extra = parse(_j(root, ENGINE_STATS))
+        ast.increment_lineno(extra, _NATIVE_SHIFT)
+        tree.body += extra.body
+        return tree
+    return joined
+
+
+def _direction_cases(root: str) -> dict[int, int]:
+    """case labels of the direction switch in CudaPath::copy. A copy of
+    schema_registry.extract_direction_cases, whose regex names
+    PjrtPath::copy inside the function, where no patch reaches."""
+    text = open(_j(root, CUDA_CPP)).read()
+    m = re.search(r"int CudaPath::copy\(.*?\n}", text, re.S)
+    body = m.group(0) if m else ""
+    off = text[:m.start()].count("\n") if m else 0
+    out: dict[int, int] = {}
+    for cm in re.finditer(r"case (\d+):", body):
+        out.setdefault(int(cm.group(1)),
+                       off + body[:cm.start()].count("\n") + 1)
+    return out
+
+
+def _read_stripped(root: str, rel: str) -> str:
+    with open(_j(root, rel), encoding="utf-8", errors="replace") as f:
+        return strip_cpp_comments_and_strings(f.read())
+
+
+def _capi_marshalled(root: str):
+    """counter_coverage._capi_marshalled over cuda_capi.cpp for the port's
+    ebt_cuda_* exports, over the shared engine's capi.cpp for the rest."""
+    marshalled = counter_coverage._capi_marshalled
+    cuda = _read_stripped(root, CUDA_CAPI)
+    return lambda capi, fn: marshalled(
+        cuda if fn.startswith("ebt_cuda_") else capi, fn)
+
+
+def _struct_fields(root: str):
+    """counter_coverage._struct_fields, with UringStats read from the
+    shared pjrt_path.h (SHARED_SOURCES says why)."""
+    fields = counter_coverage._struct_fields
+    uring = _read_stripped(root, URING_H)
+    return lambda header, struct: fields(
+        uring if struct == "UringStats" else header, struct)
+
+
+def _d2h_fields(root: str):
+    """The deferred-D2H counters: out[i] = <name>_.load assignments in
+    CudaPath::d2hStats, which the port defines in cuda_path.cpp (the
+    original's regex wants the body inline in pjrt_path.h with a pointer
+    parameter, inside the function, where no patch reaches). Lines are
+    cuda_path.cpp's."""
+    text = _read_stripped(root, CUDA_CPP)
+
+    def d2h(_header: str) -> dict[str, int]:
+        m = re.search(r"void CudaPath::d2hStats\(uint64_t out\[\d+\]\) "
+                      r"const \{(.*?)\}", text, re.S)
+        if not m:
+            return {}
+        off = text[:m.start(1)].count("\n")
+        out: dict[str, int] = {}
+        for i, line in enumerate(m.group(1).split("\n")):
+            fm = re.search(r"out\[\d+\]\s*=\s*(\w+?)_\.load", line)
+            if fm:
+                out[fm.group(1)] = off + i + 1
+        return out
+    return d2h
+
+
+@contextlib.contextmanager
+def seam_retargeted(root: str):
+    """schema_registry, counter_coverage and mergecheck pointed at the
+    port's Python seam and its C++ counter sources inside the block."""
+    with contextlib.ExitStack() as stack:
+        enter = stack.enter_context
+        enter(retargeted(schema_registry, NATIVE=NATIVE, PJRT_CPP=CUDA_CPP,
+                         _parse=_joined_parse(root),
+                         extract_direction_cases=_direction_cases, **SEAM))
+        enter(retargeted(
+            counter_coverage, NATIVE=NATIVE, REMOTE=SEAM["REMOTE"],
+            STATS=SEAM["STATS"], BENCH=SEAM["BENCH"],
+            METRICS_PY=SEAM["METRICS"], PJRT_H=CUDA_H, GROUPS=PORT_GROUPS,
+            _capi_marshalled=_capi_marshalled(root),
+            _struct_fields=_struct_fields(root),
+            _d2h_fields=_d2h_fields(root)))
+        enter(retargeted(mergecheck, NATIVE=NATIVE, REPORT=MERGE_REPORT,
+                         **{k: SEAM[k] for k in ("REMOTE", "STATS", "METRICS",
+                                                 "BENCH", "COMMON")}))
+        yield
+
+
+def _relabel(findings: list[Finding]) -> list[Finding]:
+    """Findings in NATIVE's engine_stats.py part anchored in that file."""
+    return [Finding(f.analyzer, ENGINE_STATS, f.line - _NATIVE_SHIFT, f.cause)
+            if f.file == NATIVE and f.line > _NATIVE_SHIFT else f
+            for f in findings]
+
+
+def _seam_collect(name: str, collect):
+    def run(root: str) -> list[Finding]:
+        for rel in (CUDA_CAPI, CUDA_H, CUDA_CPP, NATIVE, ENGINE_STATS,
+                    *SEAM.values(), *SHARED_SOURCES):
+            if not os.path.exists(_j(root, rel)):
+                return [Finding(name, rel, 0, "audited source missing")]
+        with seam_retargeted(root):
+            return _relabel(collect(root))
+    return run
+
+
+schema_collect = _seam_collect("schema", schema_registry.collect)
+counters_collect = _seam_collect("counters", counter_coverage.collect)
+mergecheck_collect = _seam_collect("mergecheck", mergecheck.collect)
+
+
+def property_plan() -> list[tuple[str, str, str, str]]:
+    """mergecheck's property plan over the port's seam
+    (tests/test_torch_merge_law.py proves each entry on the port)."""
+    with seam_retargeted(REPO):
+        return mergecheck.property_plan()
+
+
 # -------------------------------------------------------------------- driver
 
 def analyzers() -> dict:
@@ -386,6 +586,9 @@ def analyzers() -> dict:
         "pathcheck": pathcheck_collect,
         "hotcheck": hotcheck_collect,
         "interfaces-port": interfaces_collect,
+        "schema": schema_collect,
+        "counters": counters_collect,
+        "mergecheck": mergecheck_collect,
     }
 
 
