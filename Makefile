@@ -40,7 +40,8 @@ MOCK_LIB  := elbencho_tpu/libebtpjrtmock.so
         test-checkpoint test-uring test-load test-faults test-ingest \
         test-reactor test-reshard test-campaign test-serving check \
         check-tsa \
-        audit lint tidy clean help deb rpm probe
+        audit lint tidy clean help deb rpm probe \
+        torch torch-deb torch-rpm torch-test-examples-dist-tsan
 
 all: core
 
@@ -474,9 +475,64 @@ rpm:
 	sed 's/__VERSION__/$(VERSION)/' packaging/rpm.spec.template > build/elbencho-tpu.spec 2>/dev/null || \
 	  (mkdir -p build && sed 's/__VERSION__/$(VERSION)/' packaging/rpm.spec.template > build/elbencho-tpu.spec)
 
+# ---- the PyTorch/CUDA port (elbencho_tpu_torch) ----
+
+PYTHON ?= python3
+TORCH_PREBUILT := elbencho_tpu_torch/_prebuilt
+TORCH_VERSION := $(shell sed -n 's/^__version__ = "\(.*\)"/\1/p' elbencho_tpu_torch/__init__.py)
+TORCH_PKGROOT := build/pkg/elbencho-tpu-torch_$(TORCH_VERSION)
+TORCH_LIBDIR := /usr/lib/elbencho-tpu-torch
+# a packaged launcher: bin/'s, with the package's directory moved from the
+# launcher's parent to ../lib/elbencho-tpu-torch (= $(TORCH_LIBDIR) from
+# /usr/bin); packaging/rpm-torch.spec.template runs the same expression
+TORCH_LAUNCHER_SED := s|^pkgdir=\(.*\)/\.\."$$|pkgdir=\1/../lib/elbencho-tpu-torch"|
+
+# the port's counterpart of `make core` plus package data: its engine, mock
+# driver, copy probe and (where nvcc is found) kernel library, built by the
+# port's own build functions and copied into $(TORCH_PREBUILT), which an installed
+# port loads and never compiles into
+torch:
+	$(PYTHON) -m elbencho_tpu_torch.prebuild
+
+# deb package of the port (the counterpart of `make deb`)
+torch-deb: torch
+	rm -rf $(TORCH_PKGROOT)
+	mkdir -p $(TORCH_PKGROOT)/DEBIAN $(TORCH_PKGROOT)$(TORCH_LIBDIR) \
+	  $(TORCH_PKGROOT)/usr/bin $(TORCH_PKGROOT)/usr/share/bash-completion/completions \
+	  $(TORCH_PKGROOT)/usr/share/doc/elbencho-tpu-torch
+	sed -e 's/__VERSION__/$(TORCH_VERSION)/' -e 's/^Architecture: .*/Architecture: $(DEB_ARCH)/' \
+	  packaging/debian-torch/control > $(TORCH_PKGROOT)/DEBIAN/control
+	cp -r elbencho_tpu_torch $(TORCH_PKGROOT)$(TORCH_LIBDIR)/
+	find $(TORCH_PKGROOT)$(TORCH_LIBDIR) -name __pycache__ -type d -exec rm -rf {} +
+	for l in elbencho-tpu-torch elbencho-tpu-torch-chart; do \
+	  grep -q '^pkgdir=.*/\.\."$$' bin/$$l || { echo "bin/$$l: no pkgdir line"; exit 1; }; \
+	  sed '$(TORCH_LAUNCHER_SED)' bin/$$l > $(TORCH_PKGROOT)/usr/bin/$$l; \
+	  chmod 755 $(TORCH_PKGROOT)/usr/bin/$$l; \
+	done
+	install -m 644 dist/bash_completion.d/elbencho-tpu-torch \
+	  dist/bash_completion.d/elbencho-tpu-torch-chart \
+	  $(TORCH_PKGROOT)/usr/share/bash-completion/completions/
+	install -m 644 LICENSE CHANGELOG.md \
+	  $(TORCH_PKGROOT)/usr/share/doc/elbencho-tpu-torch/
+	dpkg-deb --build --root-owner-group $(TORCH_PKGROOT) \
+	  build/elbencho-tpu-torch_$(TORCH_VERSION)_$(DEB_ARCH).deb
+
+# rpm spec of the port (the counterpart of `make rpm`): rendered into
+# build/elbencho-tpu-torch.spec for rpmbuild
+torch-rpm:
+	@mkdir -p build
+	sed 's/__VERSION__/$(TORCH_VERSION)/' packaging/rpm-torch.spec.template \
+	  > build/elbencho-tpu-torch.spec
+
+# the examples harness's distributed tiers under the port's TSAN engine and
+# mock driver (the counterpart of test-examples-dist-tsan)
+torch-test-examples-dist-tsan:
+	$(PYTHON) tools/torch_test_tsan.py --examples-dist
+
 clean:
 	rm -rf $(CORE_LIB) $(MOCK_LIB) elbencho_tpu/libebtcore_tsan.so \
-	  elbencho_tpu/libebtcore_asan.so elbencho_tpu/libebtcore_ubsan.so build
+	  elbencho_tpu/libebtcore_asan.so elbencho_tpu/libebtcore_ubsan.so build \
+	  $(TORCH_PREBUILT)
 
 help:
 	@echo "Targets: core (default), debug, tsan, asan, ubsan, test, test-d2h," \
@@ -484,4 +540,6 @@ help:
 	      "test-faults, test-ingest, test-reactor, test-reshard," \
 	      "test-serving, test-tsan, test-asan," \
 	      "test-ubsan, check, check-tsa," \
-	      "audit, lint, tidy, deb, rpm, clean"
+	      "audit, lint, tidy, deb, rpm, clean;" \
+	      "the port: torch, torch-deb, torch-rpm," \
+	      "torch-test-examples-dist-tsan"

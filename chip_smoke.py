@@ -89,8 +89,9 @@ Phases, each reported on its own line:
      the 4 GiB file read with --stripe rr over --gpuids 0,0 three times,
      clean, clean with --retry 1 --maxerrors 5%, and with lane 1
      force-ejected after the first quarter of the blocks: one ejection with
-     its cause, replanned units, the stripe ledger reconciled, no bytes on
-     lane 1 after the ejection, the lanes' bytes adding up to the file;
+     its cause, replanned units, the stripe ledger reconciled, no block
+     placed on lane 1 after the ejection, the lanes' bytes adding up to
+     the file;
      GiB/s of the three passes; no kernel launched;
  20. the N->M reshard (runs inside phase 18, on its shard files): the
      Llama-3.1-8B layout with shard i on lane i mod 2 of --gpuids 0,0,
@@ -229,6 +230,23 @@ Phases, each reported on its own line:
      Every tier must pass; one line with each tier's verdict and seconds.
      Phase 30 alone:
        python3 -c "import chip_smoke as c; c.examples_on_card()"
+ 31. the installed port on the card (runs after phase 30, 300 s limit):
+     `make torch` (the engine, the mock driver and the copy probe with g++,
+     the kernel library with nvcc, copied into elbencho_tpu_torch/_prebuilt/),
+     then elbencho_tpu_torch/ alone copied into a temporary directory outside
+     the repository, with no core/ and no build/ beside it. A child process
+     whose sys.path holds only that copy of the repository's files runs a
+     1 GiB --tpubackend pjrt --verify 42 --gpuids 0 write + read through the
+     CLI: rc 0, one fill and one verify launch per 4 MiB block from C++ (the
+     engine's counters, as in phase 9), then a flipped byte reported at its
+     exact offset; no compiler is started (the child records every process
+     it starts), no build/ appears beside the copy, and the engine and
+     kernel libraries mapped in the child are the copy's _prebuilt/ files.
+     Then tools/torch_record_distributed_evidence.sh (two port services and
+     a master, --tpubackend pjrt --gpuids 0) must end with the master's rc 0;
+     what it wrote is removed. One line with the phase's seconds, the
+     `make torch` build time and the launches. Phase 31 alone:
+       python3 -c "import chip_smoke as c; c.installed_on_card()"
 
 The second-to-last line is a JSON object describing each kernel of the path;
 the last line is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -1544,8 +1562,8 @@ def faults_pass(path: str, size: int, policy: bool,
 
         def ejector() -> None:
             # the first quarter of the blocks read, then the forced
-            # ejection; lane 1's bytes are read again 100 ms later, past
-            # any block routed to it before the mask changed
+            # ejection; lane 1's blocks and bytes are read again 100 ms
+            # later, past a submit that read the mask before it changed
             while not stop.is_set():
                 done = sum(ln["to_hbm"] for ln in np_.lane_stats()) - \
                     sum(lanes0)
@@ -1554,8 +1572,9 @@ def faults_pass(path: str, size: int, policy: bool,
                         1, "chip_smoke forced")
                     out["at_bytes"] = done
                     time.sleep(0.1)
-                    out["lane1_after"] = \
-                        np_.lane_stats()[1]["to_hbm"] - lanes0[1]
+                    lane1 = np_.lane_stats()[1]
+                    out["lane1_after"] = lane1["to_hbm"] - lanes0[1]
+                    out["lane1_blocks_after"] = lane1["submits"]
                     return
                 time.sleep(0.0005)
 
@@ -1575,6 +1594,7 @@ def faults_pass(path: str, size: int, policy: bool,
             stripe=group.stripe_stats(),
             lanes=[ln["to_hbm"] - b for ln, b in zip(np_.lane_stats(),
                                                      lanes0)],
+            lane1_blocks=np_.lane_stats()[1]["submits"],
             lat=lane_rows(group))
     finally:
         group.teardown()
@@ -1589,8 +1609,12 @@ def native_faults(path: str, size: int) -> dict:
     a real asynchronous fault is sticky for the device's whole context, so
     it would take down both lanes of --gpuids 0,0: the phase ejects through
     the force seam. The third pass must end clean with one ejection, its
-    cause, replanned units, the stripe ledger reconciled, no bytes on lane 1
-    after the ejection and the lanes' bytes adding up to the file."""
+    cause, replanned units, the stripe ledger reconciled, no block placed
+    on lane 1 after the ejection and the lanes' bytes adding up to the
+    file. A block counts its bytes on its lanes once all its chunks are
+    submitted, and a chunk submitted after the ejection goes to lane 0, so
+    lane 1 may still count, after the ejection, blocks whose submission had
+    begun: at most the workers' blocks in flight (-t 4, --iodepth 4)."""
     t0 = time.perf_counter()
     clean = faults_pass(path, size, False, None)
     armed = faults_pass(path, size, True, None)
@@ -1606,7 +1630,9 @@ def native_faults(path: str, size: int) -> dict:
             or fs["ejected_devices"] != 1 or fs["replanned_units"] <= 0
             or ejected["ejected"] != "device 1: chip_smoke forced"
             or st["units_awaited"] != st["units_submitted"]
-            or lanes[1] != ejected["lane1_after"] or sum(lanes) != size):
+            or ejected["lane1_blocks"] != ejected["lane1_blocks_after"]
+            or not 0 <= lanes[1] - ejected["lane1_after"] <= 16 * (8 << 20)
+            or sum(lanes) != size):
         raise AssertionError(f"faults ejected pass: {ejected}")
     gibs = {k: size / r["secs"] / (1 << 30)
             for k, r in (("clean", clean), ("armed", armed),
@@ -1621,7 +1647,8 @@ def native_faults(path: str, size: int) -> dict:
                     f"'{ejected['ejected']}'; stripe {st['units_awaited']}/"
                     f"{st['units_submitted']} units settled; lane bytes "
                     f"{lanes} (lane 1 {ejected['lane1_after']} 100 ms after "
-                    f"the ejection, {lanes[1]} at the end); "
+                    f"the ejection, {lanes[1]} at the end; its blocks "
+                    f"{ejected['lane1_blocks']} then and at the end); "
                     f"{ejected['lat']}; faults phase took "
                     f"{time.perf_counter() - t0:.1f}s")
     return gibs
@@ -2170,7 +2197,10 @@ def xfer_mgr_rotation(d: str, run1: dict, paths) -> None:
     generation lands in the generation's memory and retains one buffer."""
     total = sum(os.path.getsize(p) for p in paths)
     blocks = sum(-(-os.path.getsize(p) // (64 << 10)) for p in paths)
-    secs = max(6, -(-3 * total // (2 * int(run1["rate"]))) + 2)
+    # The tier's restore (one device buffer per 64 KiB block) has run at
+    # 0.45-0.77 of run 1's chunked rate on the card, so the limit lets it
+    # run at a quarter of that rate after the first rotation's second.
+    secs = max(6, -(-4 * total // int(run1["rate"])) + 3)
     man = write_manifest(d, "man_rot3.json", paths, [[0]] * len(paths))
     with env_set(EBT_PJRT_XFER_MGR=1):
         run = serve(run1["serve_file"], run1["trace"],
@@ -3101,6 +3131,185 @@ def examples_on_card() -> dict[str, tuple[str, float]]:
     return tiers
 
 
+INSTALLED_TIMEOUT_S = 300  # phase 31's limit
+# phase 31's child: run with its working directory at the copy's root and
+# no PYTHONPATH, so the copy is the only one of the repository's files on
+# sys.path; argv: the repository root, the scratch directory
+INSTALLED_CHILD = r"""
+import contextlib, io, json, os, subprocess, sys
+
+started = []
+_Popen = subprocess.Popen
+
+
+class _Recorded(_Popen):
+    def __init__(self, args, *a, **k):
+        started.append([str(x) for x in ([args] if isinstance(args, str)
+                                         else args)])
+        super().__init__(args, *a, **k)
+
+
+subprocess.Popen = _Recorded
+repo, scratch = sys.argv[1:3]
+on_path = [os.path.realpath(p or os.getcwd()) for p in sys.path]
+import elbencho_tpu_torch
+from elbencho_tpu_torch import cli, engine
+from elbencho_tpu_torch.cuda import native
+
+block, chunk, size, salt = 4 << 20, 2 << 20, 1 << 30, 42
+path = os.path.join(scratch, "installed1g")
+args = ["-t", "2", "-s", "1G", "-b", "4M", "--verify", str(salt),
+        "--gpuids", "0", "--tpubackend", "pjrt", "--nolive", path]
+
+
+def run(argv):
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    sys.stderr.write(err.getvalue())
+    return rc, err.getvalue()
+
+
+native.reset_kernel_launches()
+rc, _ = run(["-w", "-r", *args])
+launches = native.kernel_launches()
+corrupt = 11 * block + chunk + 777
+with open(path, "r+b") as f:
+    f.seek(corrupt)
+    b = f.read(1)
+    f.seek(corrupt)
+    f.write(bytes([b[0] ^ 0x5A]))
+corrupt_rc, err = run(["-r", *args])
+want = f"on-device data verification failed at file offset {corrupt}"
+os.remove(path)
+maps = {ln.split()[-1] for ln in open("/proc/self/maps") if "/" in ln}
+print(json.dumps({
+    "package": os.path.realpath(os.path.dirname(elbencho_tpu_torch.__file__)),
+    "repo_on_path": [p for p in on_path
+                     if p == repo or p.startswith(repo + os.sep)],
+    "prebuilt": os.path.realpath(engine.PREBUILT_DIR),
+    "in_checkout": engine.in_checkout(),
+    "rc": rc, "launches": launches, "blocks": size // block,
+    "corrupt_rc": corrupt_rc, "corrupt_found": want in err,
+    "corrupt_offset": corrupt, "started": started,
+    "engine": sorted(m for m in maps if m.endswith("/libebtcore.so")),
+    "kernels": sorted(m for m in maps
+                      if m.endswith("/libebt_torch_kernels.so"))}))
+"""
+COMPILERS = ("g++", "gcc", "c++", "cc", "nvcc", "clang++", "clang")
+
+
+def installed_on_card() -> dict:
+    """Phase 31: `make torch`, then the package alone in a temporary
+    directory, run from there on the card in a child process, then the
+    distributed evidence tool; all inside INSTALLED_TIMEOUT_S. Returns the
+    child's report."""
+    card = gpu_name_and_power()
+    t0 = time.perf_counter()
+    deadline = t0 + INSTALLED_TIMEOUT_S
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("EBT_TORCH_DEVICE", "EBT_CUDA_DRIVER", "PYTHONPATH",
+                        "EBT_TORCH_CORE_LIB", "EBT_TORCH_MOCK_LIB")}
+
+    def child(argv, cwd, what):
+        try:
+            r = subprocess.run(argv, cwd=cwd, env=env, capture_output=True,
+                               text=True, errors="replace",
+                               timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired as e:
+            raise AssertionError(f"installed port: {what} ran past the "
+                                 f"phase's {INSTALLED_TIMEOUT_S} s") from e
+        if r.returncode:
+            sys.stderr.write(r.stdout[-8000:] + r.stderr[-8000:])
+            raise AssertionError(f"installed port: {what}: rc "
+                                 f"{r.returncode}")
+        return r
+
+    make = child(["make", "torch"], repo, "make torch")
+    build_s = time.perf_counter() - t0
+    for line in make.stdout.splitlines():
+        phase("31 make torch", line)
+    if "kernels: not built" in make.stdout:
+        raise AssertionError("installed port: make torch built no kernel "
+                             "library on the card")
+    root = os.path.realpath(tempfile.mkdtemp(prefix="ebt_torch_installed_"))
+    pkg = os.path.join(root, "elbencho_tpu_torch")
+    prebuilt = os.path.join(pkg, "_prebuilt")
+    try:
+        if os.path.realpath(root).startswith(repo + os.sep):
+            raise AssertionError(f"installed port: {root} lies inside the "
+                                 "repository")
+        shutil.copytree(os.path.join(repo, "elbencho_tpu_torch"), pkg,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        with scratch_dir(2 << 30) as d:
+            r = child([sys.executable, "-c", INSTALLED_CHILD, repo, d], root,
+                      "the copy's 1 GiB --verify run")
+        sys.stderr.write(r.stderr[-4000:])
+        got = json.loads(r.stdout.strip().splitlines()[-1])
+        beside = sorted(os.listdir(root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    compilers = [a for a in got["started"]
+                 if any(os.path.basename(x) in COMPILERS for x in a)]
+    problems = []
+    if got["package"] != pkg or \
+            got["repo_on_path"] or got["in_checkout"] or \
+            got["prebuilt"] != prebuilt:
+        problems.append(f"not the copy alone: package {got['package']}, "
+                        f"repo on sys.path {got['repo_on_path']}, "
+                        f"in_checkout {got['in_checkout']}")
+    if got["rc"] != 0 or got["launches"] != {"verify_u32": got["blocks"],
+                                             "fill_u64": got["blocks"]}:
+        problems.append(f"rc {got['rc']}, engine launches {got['launches']} "
+                        f"for {got['blocks']} blocks each way")
+    if got["corrupt_rc"] != 1 or not got["corrupt_found"]:
+        problems.append(f"corrupt run rc {got['corrupt_rc']}, offset "
+                        f"{got['corrupt_offset']} not reported")
+    if compilers:
+        problems.append(f"compilers started: {compilers}")
+    if beside != ["elbencho_tpu_torch"]:
+        problems.append(f"beside the copy: {beside}")
+    if got["engine"] != [os.path.join(prebuilt, "libebtcore.so")] or \
+            got["kernels"] != [os.path.join(prebuilt,
+                                            "libebt_torch_kernels.so")]:
+        problems.append(f"loaded engine {got['engine']}, kernels "
+                        f"{got['kernels']}")
+    if problems:
+        raise AssertionError("installed port: " + "; ".join(problems))
+    run_s = time.perf_counter() - t0 - build_s
+
+    evidence = os.path.join(repo, "results", "torch_distributed")
+    existed = os.path.isdir(evidence)
+    before = set(os.listdir(evidence)) if existed else set()
+    t_ev = time.perf_counter()
+    try:
+        ev = child(["bash", os.path.join(repo, "tools",
+                                         "torch_record_distributed_evidence.sh")],
+                   repo, "the distributed evidence tool")
+    finally:
+        if existed:
+            for name in set(os.listdir(evidence)) - before:
+                shutil.rmtree(os.path.join(evidence, name),
+                              ignore_errors=True)
+        else:
+            shutil.rmtree(evidence, ignore_errors=True)
+    if "(master rc=0)" not in ev.stdout:
+        raise AssertionError(f"installed port: evidence tool: "
+                             f"{ev.stdout[-2000:]}")
+    ev_s = time.perf_counter() - t_ev
+    secs = time.perf_counter() - t0
+    phase("31 installed",
+          f"make torch {build_s:.1f} s; the copy (no core/, no build/, "
+          f"loaded {got['engine'][0]} and {got['kernels'][0]}, no compiler "
+          f"started) ran 1 GiB --verify 42 write+read in {run_s:.1f} s: rc 0, "
+          f"engine launches {got['launches']} for {got['blocks']} blocks "
+          f"each way, corrupt byte at {got['corrupt_offset']} reported (rc "
+          f"1); evidence tool master rc 0 in {ev_s:.1f} s; {secs:.1f} s "
+          f"(limit {INSTALLED_TIMEOUT_S} s) on {card}")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3170,12 +3379,15 @@ def main() -> int:
     bench_on_card()
     direct_errors_on_card()
     examples_on_card()
+    installed = installed_on_card()
     phase("launches", f"staged --verify run: {staged_launches} verify "
                       f"launches (Python wrapper); native --verify run: "
                       f"{launches} (C++ engine); native --stripe --verify "
                       f"run: {stripe_launches} (C++ engine); staged "
                       f"--tpustripe --verify run: {tpustripe_launches} "
-                      f"(Python wrapper); slice path: {slice_launches}")
+                      f"(Python wrapper); slice path: {slice_launches}; installed "
+                      f"copy's native --verify run (phase 31): "
+                      f"{installed['launches']} (C++ engine, _prebuilt/)")
 
     print(json.dumps({"kernels": [{
         "name": "verify_u32",

@@ -10,6 +10,7 @@ import sys
 
 from .config import config_from_args
 from .coordinator import Coordinator
+from .engine import NativeFileError
 from .exceptions import ProgException
 from .logger import LOGGER
 from .utils.signals import install_early_interrupt_latch, register_fault_handlers
@@ -22,7 +23,7 @@ def main(argv: list[str] | None = None) -> int:
         cfg = config_from_args(argv)
         LOGGER.level = cfg.log_level
         return Coordinator(cfg).main()
-    except ProgException as e:
+    except (ProgException, NativeFileError) as e:
         LOGGER.error(str(e))
         return 1
     except KeyboardInterrupt:

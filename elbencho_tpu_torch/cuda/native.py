@@ -97,10 +97,9 @@ class NativeCudaPath:
         driver itself, on the card the nvcc-built kernel library."""
         if requested_device_type() == "cpu":
             return self.so_path
-        from ..ops.kernel_build import LIB_PATH, build_lib
+        from ..ops.kernel_build import library
 
-        build_lib()
-        return LIB_PATH
+        return library()
 
     def _enable(self, enable_fn, salt: int, feature: str) -> None:
         err = ctypes.create_string_buffer(1024)

@@ -25,6 +25,16 @@ EBT_CORE_LIB; a variable of its own, since the comparison tests load both
 packages in one process) and EBT_TORCH_MOCK_LIB the mock driver
 build_mock() hands out. Neither falls back: a named library that is
 missing or does not load raises EngineError with its path.
+
+Where the native files come from (native_file(), the one rule): first the
+two overrides above; then, in a source checkout (the package beside
+core/src/engine.cpp, with its own csrc/cuda_path.cpp), the build
+directories, built on first use; otherwise, in an installed copy, the
+package's _prebuilt/ directory, which `make torch` fills
+(elbencho_tpu_torch/prebuild.py) and which an installed port never
+compiles into. A missing file raises NativeFileError with the path it
+looked in; a failed build raises it with the command and the compiler's
+message.
 """
 
 from __future__ import annotations
@@ -39,8 +49,11 @@ from dataclasses import dataclass, field
 from .histogram import NUM_BUCKETS, LatencyHistogram
 from .liveops import LiveOps
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+_REPO_ROOT = os.path.dirname(_PKG_DIR)
 _BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_core")
+# an installed port's native files (`make torch`); never read in a checkout
+PREBUILT_DIR = os.path.join(_PKG_DIR, "_prebuilt")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libebtcore.so")
 MOCK_DRIVER_PATH = os.path.join(_BUILD_DIR, "libebtcudamock.so")
 TSAN_LIB_PATH = os.path.join(_BUILD_DIR, "libebtcore_tsan.so")
@@ -74,6 +87,39 @@ _lib_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
+def in_checkout() -> bool:
+    """The package sits in a source checkout: beside core/src/engine.cpp,
+    with its own csrc/cuda_path.cpp (an installed copy has neither)."""
+    return os.path.isfile(os.path.join(_REPO_ROOT, "core", "src",
+                                       "engine.cpp")) and \
+        os.path.isfile(os.path.join(_PKG_DIR, "csrc", "cuda_path.cpp"))
+
+
+def native_file(name: str, build, note: str = "") -> str:
+    """The path of the native file `name`: in a checkout build() (which
+    builds it if needed and returns its path), in an installed copy
+    _prebuilt/`name`, which must exist (`note` adds a cause to the
+    error)."""
+    if in_checkout():
+        return build()
+    path = os.path.join(PREBUILT_DIR, name)
+    if not os.path.isfile(path):
+        raise NativeFileError(
+            f"{path}: no such file; an installed elbencho_tpu_torch takes "
+            f"its native files from {PREBUILT_DIR}, built by `make torch`"
+            + (f" ({note})" if note else ""))
+    return path
+
+
+def require_checkout(what: str) -> None:
+    """Refuse to compile `what` outside a source checkout."""
+    if not in_checkout():
+        raise NativeFileError(
+            f"{what}: builds only in a source checkout (no core/src beside "
+            f"{_PKG_DIR}); an installed port loads the files `make torch` "
+            f"put in {PREBUILT_DIR}")
+
+
 def _fresh(out: str) -> bool:
     """`out` exists and is newer than every native source it may contain."""
     if not os.path.exists(out):
@@ -87,11 +133,18 @@ def _fresh(out: str) -> bool:
     return True
 
 
+# lines of the compiler's standard error an EngineError carries
+_STDERR_TAIL_LINES = 40
+
+
 def _build(out: str, srcs, ldflags=_LDFLAGS, cxxflags=_CXXFLAGS) -> None:
     """Compile `srcs` into `out` (a shared library with the default
     `ldflags` and `cxxflags`). A file lock serialises concurrent first uses
     (test workers, several processes); the file appears atomically, so a
-    reader never loads a half-written one."""
+    reader never loads a half-written one. A failed compile raises
+    NativeFileError with the command and the tail of the compiler's
+    standard error."""
+    require_checkout(out)
     os.makedirs(_BUILD_DIR, exist_ok=True)
     with open(os.path.join(_BUILD_DIR, "build.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -102,55 +155,78 @@ def _build(out: str, srcs, ldflags=_LDFLAGS, cxxflags=_CXXFLAGS) -> None:
         # that runs beside a first use (other benchmark or test processes)
         cmd = ["nice", "-n", "10", os.environ.get("CXX", "g++"), *_CPPFLAGS,
                *cxxflags, *srcs, *ldflags, "-o", tmp]
-        subprocess.run(cmd, cwd=_REPO_ROOT, check=True, capture_output=True)
+        r = subprocess.run(cmd, cwd=_REPO_ROOT, capture_output=True,
+                           text=True, errors="replace")
+        if r.returncode:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            tail = "\n".join(r.stderr.splitlines()[-_STDERR_TAIL_LINES:])
+            raise NativeFileError(
+                f"building {out} failed (exit {r.returncode}): "
+                f"{' '.join(cmd)}\n{tail}")
         os.replace(tmp, out)
+
+
+def _built(out: str, srcs, ldflags=_LDFLAGS, cxxflags=_CXXFLAGS) -> str:
+    """`out`, compiled from `srcs` first unless it is fresh."""
+    if not _fresh(out):
+        _build(out, srcs, ldflags, cxxflags)
+    return out
 
 
 def _named(var: str) -> str | None:
     """The library an override variable names, which must exist."""
     path = os.environ.get(var)
     if path and not os.path.exists(path):
-        raise EngineError(f"{var}={path}: no such library")
+        raise NativeFileError(f"{var}={path}: no such library")
     return path or None
 
 
-def build_mock() -> str:
-    """The mock CUDA driver library (built on first use), or the one
+def build_core() -> str:
+    """The engine library of this checkout (built on first use), whatever
+    EBT_TORCH_CORE_LIB names; returns its path."""
+    return _built(_LIB_PATH, _CORE_SRCS)
+
+
+def build_plain_mock() -> str:
+    """The mock CUDA driver of this checkout (built on first use), whatever
     EBT_TORCH_MOCK_LIB names; returns its path."""
-    named = _named(MOCK_LIB_ENV)
-    if named:
-        return named
-    if not _fresh(MOCK_DRIVER_PATH):
-        _build(MOCK_DRIVER_PATH, [_MOCK_SRC])
-    return MOCK_DRIVER_PATH
+    return _built(MOCK_DRIVER_PATH, [_MOCK_SRC])
+
+
+def build_mock() -> str:
+    """The mock CUDA driver library: the one EBT_TORCH_MOCK_LIB names, else
+    by native_file()'s rule; returns its path."""
+    return _named(MOCK_LIB_ENV) or native_file(
+        os.path.basename(MOCK_DRIVER_PATH), build_plain_mock)
 
 
 def build_tsan() -> str:
     """The engine library instrumented with ThreadSanitizer (built on first
-    use); returns its path."""
-    if not _fresh(TSAN_LIB_PATH):
-        _build(TSAN_LIB_PATH, _CORE_SRCS, ("-shared", "-ldl"),
-               cxxflags=_TSAN_CXXFLAGS)
-    return TSAN_LIB_PATH
+    use, in a checkout only); returns its path."""
+    return _built(TSAN_LIB_PATH, _CORE_SRCS, ("-shared", "-ldl"),
+                  cxxflags=_TSAN_CXXFLAGS)
 
 
 def build_tsan_mock() -> str:
     """The mock CUDA driver instrumented with ThreadSanitizer (built on
-    first use), so TSAN sees the mock's own synchronisation; returns its
-    path."""
-    if not _fresh(TSAN_MOCK_PATH):
-        _build(TSAN_MOCK_PATH, [_MOCK_SRC],
-               ("-shared", "-pthread", "-fsanitize=thread"),
-               cxxflags=_TSAN_CXXFLAGS)
-    return TSAN_MOCK_PATH
+    first use, in a checkout only), so TSAN sees the mock's own
+    synchronisation; returns its path."""
+    return _built(TSAN_MOCK_PATH, [_MOCK_SRC],
+                  ("-shared", "-pthread", "-fsanitize=thread"),
+                  cxxflags=_TSAN_CXXFLAGS)
+
+
+def build_checkout_probe() -> str:
+    """The standalone copy probe of this checkout (built on first use);
+    returns its path."""
+    return _built(PROBE_PATH, _PROBE_SRCS, ("-pthread", "-ldl"))
 
 
 def build_probe() -> str:
-    """The standalone copy probe executable (built on first use); returns
-    its path."""
-    if not _fresh(PROBE_PATH):
-        _build(PROBE_PATH, _PROBE_SRCS, ("-pthread", "-ldl"))
-    return PROBE_PATH
+    """The standalone copy probe executable, by native_file()'s rule;
+    returns its path."""
+    return native_file(os.path.basename(PROBE_PATH), build_checkout_probe)
 
 
 def load_lib() -> ctypes.CDLL:
@@ -159,15 +235,12 @@ def load_lib() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is not None:
             return _lib
-        path = _named(CORE_LIB_ENV)
-        if path is None:
-            path = _LIB_PATH
-            if not _fresh(path):
-                _build(path, _CORE_SRCS)
+        path = _named(CORE_LIB_ENV) or native_file(
+            os.path.basename(_LIB_PATH), build_core)
         try:
             lib = ctypes.CDLL(path)
         except OSError as e:
-            raise EngineError(f"{path}: cannot load: {e}") from e
+            raise NativeFileError(f"{path}: cannot load: {e}") from e
         # Every ebt_* symbol declares BOTH restype and argtypes: ctypes
         # defaults the restype to c_int, which silently truncates pointers
         # (and 64-bit counters) on LP64 — tools/lint_interfaces.py enforces
@@ -711,6 +784,11 @@ class WorkerResult:
 
 class EngineError(RuntimeError):
     pass
+
+
+class NativeFileError(EngineError):
+    """A native file of the port is missing, does not load or does not
+    build; the message names its path (the CLI prints it and exits 1)."""
 
 
 class NativeEngine:

@@ -25,7 +25,7 @@ import threading
 import torch
 
 from . import integrity
-from .kernel_build import LIB_PATH, build_lib
+from .kernel_build import library
 
 LAUNCHES = {"fill_block_u32": 0}
 _count_lock = threading.Lock()
@@ -44,8 +44,7 @@ def load_lib() -> ctypes.CDLL:
         return _lib
     with _lib_lock:
         if _lib is None:
-            build_lib()
-            lib = ctypes.CDLL(LIB_PATH)
+            lib = ctypes.CDLL(library())
             lib.ebt_fill_u64.argtypes = [ctypes.c_void_p, ctypes.c_uint64,
                                          ctypes.c_uint64, ctypes.c_void_p]
             lib.ebt_fill_u64.restype = ctypes.c_int

@@ -30,7 +30,7 @@ import threading
 import torch
 
 from . import integrity
-from .kernel_build import LIB_PATH, build_lib
+from .kernel_build import library
 
 LAUNCHES = {"ingest_verify_u32": 0, "sum_rows_u64": 0}
 _count_lock = threading.Lock()
@@ -57,8 +57,7 @@ def load_lib() -> ctypes.CDLL:
         return _lib
     with _lib_lock:
         if _lib is None:
-            build_lib()
-            lib = ctypes.CDLL(LIB_PATH)
+            lib = ctypes.CDLL(library())
             p, u64 = ctypes.c_void_p, ctypes.c_uint64
             lib.ebt_ingest_verify_u32.argtypes = [
                 p, u64, u64, u64, p, p, p, ctypes.c_int, p]

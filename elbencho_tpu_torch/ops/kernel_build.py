@@ -3,8 +3,11 @@
 Every csrc/*.cu is compiled with nvcc for sm_90a, one nvcc per source, all
 started together, and the objects are linked into
 build/torch_kernels/libebt_torch_kernels.so. The wrappers (verify_kernel.py,
-fill_kernel.py) load it with ctypes, and the native CUDA engine
-(csrc/cuda_path.cpp) resolves the kernels' C entries from it by path.
+fill_kernel.py, ingest_kernel.py) load it with ctypes, and the native CUDA
+engine (csrc/cuda_path.cpp) resolves the kernels' C entries from it by
+path. library() finds it by the engine's rule (engine.native_file): built
+here in a source checkout, taken from _prebuilt/ in an installed copy,
+which never compiles.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import fcntl
 import glob
 import os
+import shutil
 import subprocess
 import time
 
@@ -19,7 +23,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO_ROOT = os.path.dirname(_PKG_DIR)
 SOURCES = tuple(sorted(glob.glob(os.path.join(_PKG_DIR, "csrc", "*.cu"))))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_kernels")
-LIB_PATH = os.path.join(BUILD_DIR, "libebt_torch_kernels.so")
+LIB_NAME = "libebt_torch_kernels.so"
+LIB_PATH = os.path.join(BUILD_DIR, LIB_NAME)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -27,6 +32,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 def _nvcc() -> str:
     cuda_nvcc = "/usr/local/cuda/bin/nvcc"
     return cuda_nvcc if os.path.exists(cuda_nvcc) else "nvcc"
+
+
+def nvcc_found() -> bool:
+    return shutil.which(_nvcc()) is not None
 
 
 def _fresh() -> bool:
@@ -40,9 +49,12 @@ def build_lib() -> float:
     """Compile the kernel library if it is missing or older than a source;
     returns the seconds the build took (0.0 when it was up to date). A
     file lock serialises concurrent first uses; the library appears
-    atomically."""
+    atomically. Refused outside a source checkout."""
+    from ..engine import require_checkout
+
     if _fresh():
         return 0.0
+    require_checkout(LIB_PATH)
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -74,3 +86,16 @@ def build_lib() -> float:
             raise RuntimeError(f"nvcc link failed:\n{proc.stderr}")
         os.replace(tmp, LIB_PATH)
         return time.perf_counter() - t0
+
+
+def library() -> str:
+    """The kernel library's path by engine.native_file()'s rule (built
+    first in a checkout if it is missing or stale)."""
+    from ..engine import native_file
+
+    def build() -> str:
+        build_lib()
+        return LIB_PATH
+
+    return native_file(LIB_NAME, build, note="it builds the CUDA kernels "
+                       "only where nvcc is found")

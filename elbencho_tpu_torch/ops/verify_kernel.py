@@ -32,7 +32,7 @@ import threading
 import torch
 
 from . import integrity
-from .kernel_build import LIB_PATH, build_lib
+from .kernel_build import library
 
 # u64 words one CTA of verify.cu covers per pass (kThreads x kUnroll x 2)
 PASS_WORDS = 2048
@@ -58,8 +58,7 @@ def load_lib() -> ctypes.CDLL:
         return _lib
     with _lib_lock:
         if _lib is None:
-            build_lib()
-            lib = ctypes.CDLL(LIB_PATH)
+            lib = ctypes.CDLL(library())
             lib.ebt_verify_u32.argtypes = [
                 ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,

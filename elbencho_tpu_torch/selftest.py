@@ -62,10 +62,8 @@ def build(sanitizer: str = "none") -> str:
     returns its path."""
     san = SANITIZERS[sanitizer]
     out = os.path.join(engine._BUILD_DIR, f"cuda_selftest{_suffix(sanitizer)}")
-    if not engine._fresh(out):
-        engine._build(out, _SRCS, ("-pthread", "-ldl", *san),
-                      cxxflags=(*_CXXFLAGS, *san))
-    return out
+    return engine._built(out, _SRCS, ("-pthread", "-ldl", *san),
+                         cxxflags=(*_CXXFLAGS, *san))
 
 
 def build_mock(sanitizer: str = "none") -> str:
@@ -91,8 +89,7 @@ def command(mock: bool, sanitizer: str = "none",
         from .cuda.devices import resolve_devices
         from .ops import kernel_build
         resolve_devices([], device="cuda")
-        kernel_build.build_lib()
-        driver, kernels = CARD_DRIVER, kernel_build.LIB_PATH
+        driver, kernels = CARD_DRIVER, kernel_build.library()
     return [build(sanitizer), driver, kernels, scope], \
         dict(RUNTIME_ENV.get(sanitizer, {}))
 

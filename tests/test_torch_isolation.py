@@ -68,7 +68,8 @@ NATIVE_MODULES = ("elbencho_tpu_torch/cuda/native.py",
                   "elbencho_tpu_torch/campaign.py",
                   "elbencho_tpu_torch/tools/chart.py",
                   "elbencho_tpu_torch/selftest.py",
-                  "elbencho_tpu_torch/bench.py")
+                  "elbencho_tpu_torch/bench.py",
+                  "elbencho_tpu_torch/prebuild.py")
 # the port's command-line tools beside the original's in tools/
 PORT_TOOLS = ("tools/torch_multicard.py", "tools/torch_campaign.py",
               "tools/torch_chaos.py", "tools/torch_audit.py",
@@ -76,7 +77,10 @@ PORT_TOOLS = ("tools/torch_multicard.py", "tools/torch_campaign.py",
 # the port's shell tools, which reach Python through `python -c` and
 # `python -m` lines
 PORT_SHELL_TOOLS = ("tools/torch_test_examples.sh",
-                    "tools/torch_storage_sweep.sh")
+                    "tools/torch_storage_sweep.sh",
+                    "tools/torch_baseline_configs.sh",
+                    "tools/torch_blockdev_rand.sh",
+                    "tools/torch_record_distributed_evidence.sh")
 # the kernel sources and the native selftest, which must be among the
 # native sources scanned
 KERNEL_SOURCES = ("verify.cu", "fill.cu", "ingest.cu", "mesh_reduce.cu",

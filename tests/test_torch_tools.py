@@ -11,6 +11,13 @@
   range and for a bad one.
 - tools/torch_test_examples.sh runs its tiers on the mock CUDA driver, and
   with --card refuses without a CUDA device.
+- tools/torch_baseline_configs.sh, torch_blockdev_rand.sh and
+  torch_record_distributed_evidence.sh compose the original's script with
+  only their lines swapped (a `bash` on PATH that records the script),
+  refuse when one of those lines moved (a patched copy), and, with stub
+  launchers, run the original's commands on the port's launcher; the
+  block-device tool refuses a non-block device and a mounted one for
+  write word for word with the original.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from __future__ import annotations
 import argparse
 import os
 import re
+import shutil
 import subprocess
 import sys
 
@@ -180,3 +188,194 @@ def test_harness_rejects_an_unknown_flag():
     r = _harness("-x", timeout=60)
     assert r.returncode == 1
     assert "usage:" in r.stdout
+
+
+# ------------------------------------------- the last three companion tools
+
+# each port tool: the original it reads, and {original line: its swap}
+COMPOSED = {
+    "torch_baseline_configs.sh": ("baseline-configs.sh", {
+        'EB="$REPO/bin/elbencho-tpu"': 'EB="$REPO/bin/elbencho-tpu-torch"',
+        'OUT="${2:-$REPO/results/baseline-configs/$(date +%F)}"':
+            'OUT="${2:-$REPO/results/torch-baseline-configs/$(date +%F)}"',
+    }),
+    "torch_blockdev_rand.sh": ("blockdev-rand.sh", {
+        'EB="./bin/elbencho-tpu"': 'EB="./bin/elbencho-tpu-torch"',
+    }),
+    "torch_record_distributed_evidence.sh": (
+        "record-distributed-evidence.sh", {
+            'OUT="results/distributed/$DATE"':
+                'OUT="results/torch_distributed/$DATE"',
+            '  echo "# two localhost services + master, --tpubackend pjrt, '
+            '1 real TPU"':
+                '  echo "# two localhost port services + master, '
+                '--tpubackend pjrt (native CUDA engine), 1 GPU"',
+            **{ln: ln.replace("./bin/elbencho-tpu ",
+                              "./bin/elbencho-tpu-torch ")
+               for ln in open(os.path.join(
+                   REPO, "tools", "record-distributed-evidence.sh"))
+               .read().splitlines() if "./bin/elbencho-tpu " in ln},
+        }),
+}
+
+
+def _fake_bash(tmp_path) -> dict[str, str]:
+    """An environment whose `bash` writes the script it is given (-c) to
+    $CAPTURE instead of running it."""
+    d = tmp_path / "fakebin"
+    d.mkdir()
+    (d / "bash").write_text('#!/bin/sh\nprintf "%s" "$2" > "$CAPTURE"\n')
+    (d / "bash").chmod(0o755)
+    return {**os.environ, "PATH": f"{d}:{os.environ['PATH']}",
+            "CAPTURE": str(tmp_path / "script")}
+
+
+def _compose(tools_dir, tool, tmp_path) -> tuple[int, str, str | None]:
+    """(exit code, output, the script it composed or None)."""
+    r = subprocess.run([shutil.which("bash"), os.path.join(tools_dir, tool)],
+                       env=_fake_bash(tmp_path), capture_output=True,
+                       text=True, timeout=60)
+    cap = tmp_path / "script"
+    return r.returncode, r.stdout + r.stderr, \
+        cap.read_text() if cap.exists() else None
+
+
+@pytest.mark.parametrize("tool", sorted(COMPOSED))
+def test_tool_runs_the_original_with_only_its_lines_swapped(tool, tmp_path):
+    original, swaps = COMPOSED[tool]
+    rc, out, script = _compose(os.path.join(REPO, "tools"), tool, tmp_path)
+    assert rc == 0 and script is not None, out
+    want = [swaps.get(ln, ln) for ln in open(
+        os.path.join(REPO, "tools", original)).read().splitlines()]
+    assert script.splitlines() == want
+    assert sum(a != b for a, b in zip(
+        open(os.path.join(REPO, "tools", original)).read().splitlines(),
+        want)) == len(swaps)
+
+
+@pytest.mark.parametrize("tool,index", [
+    (tool, i) for tool in sorted(COMPOSED)
+    for i in range(len(COMPOSED[tool][1]))])
+def test_tool_refuses_when_the_originals_line_moves(tool, index, tmp_path):
+    """A patched copy of the original whose line to swap reads otherwise:
+    the tool aborts and runs nothing."""
+    original, swaps = COMPOSED[tool]
+    moved = sorted(swaps)[index]
+    tools = tmp_path / "tools"
+    tools.mkdir()
+    shutil.copy2(os.path.join(REPO, "tools", tool), tools / tool)
+    text = open(os.path.join(REPO, "tools", original)).read()
+    assert text.count(moved + "\n") == 1
+    (tools / original).write_text(text.replace(moved + "\n",
+                                               "  " + moved + "\n"))
+    rc, out, script = _compose(str(tools), tool, tmp_path)
+    assert rc == 1 and script is None
+    assert f"tools/{original} no longer" in out and "Abort!" in out
+
+
+def _stubbed_tree(tmp_path, *tools) -> str:
+    """tmp_path with copies of `tools` and stub launchers that log their
+    name and arguments to $STUB_LOG (nothing is read or written)."""
+    (tmp_path / "tools").mkdir()
+    for t in tools:
+        shutil.copy2(os.path.join(REPO, "tools", t), tmp_path / "tools" / t)
+    (tmp_path / "bin").mkdir()
+    for name in ("elbencho-tpu", "elbencho-tpu-torch"):
+        stub = tmp_path / "bin" / name
+        stub.write_text('#!/bin/sh\necho "$(basename "$0") $*" '
+                        '>> "$STUB_LOG"\n')
+        stub.chmod(0o755)
+    return str(tmp_path)
+
+
+def _stub_run(tree, tool, log, *args) -> subprocess.CompletedProcess:
+    return subprocess.run(["bash", os.path.join(tree, "tools", tool), *args],
+                          env={**os.environ, "STUB_LOG": str(log)},
+                          capture_output=True, text=True, timeout=120)
+
+
+def _mounted_block_device() -> str | None:
+    import stat
+
+    for line in open("/proc/mounts"):
+        dev = line.split()[0]
+        try:
+            if dev.startswith("/dev/") and \
+                    stat.S_ISBLK(os.stat(dev).st_mode):
+                return dev
+        except OSError:
+            continue
+    return None
+
+
+def test_blockdev_tool_refuses_a_non_block_device_as_the_original():
+    runs = [subprocess.run(["bash", os.path.join(REPO, "tools", t), "-D",
+                            "/dev/null", "-m", "write"], capture_output=True,
+                           text=True, timeout=60)
+            for t in ("blockdev-rand.sh", "torch_blockdev_rand.sh")]
+    assert runs[0].returncode == runs[1].returncode == 1
+    assert runs[0].stdout == runs[1].stdout == \
+        "error: /dev/null is not a block device\n"
+
+
+@pytest.mark.parametrize("mode", ["write", "rwmix"])
+def test_blockdev_tool_refuses_a_mounted_device_as_the_original(tmp_path,
+                                                               mode):
+    """Word for word the original's guard, in a tree whose launchers are
+    stubs (so a guard that failed would still write nothing)."""
+    dev = _mounted_block_device()
+    if dev is None:
+        pytest.skip("no mounted block device on this host")
+    tree = _stubbed_tree(tmp_path, "blockdev-rand.sh",
+                         "torch_blockdev_rand.sh")
+    log = tmp_path / "calls"
+    runs = [_stub_run(tree, t, log, "-D", dev, "-m", mode)
+            for t in ("blockdev-rand.sh", "torch_blockdev_rand.sh")]
+    assert runs[0].returncode == runs[1].returncode == 1
+    assert runs[0].stdout == runs[1].stdout == \
+        f"error: {dev} (or a partition) is mounted - refusing to write\n"
+    assert not log.exists()
+
+
+def test_blockdev_tool_read_runs_the_port_launcher(tmp_path):
+    dev = _mounted_block_device()
+    if dev is None:
+        pytest.skip("no block device on this host")
+    tree = _stubbed_tree(tmp_path, "blockdev-rand.sh",
+                         "torch_blockdev_rand.sh")
+    logs = []
+    for t in ("blockdev-rand.sh", "torch_blockdev_rand.sh"):
+        log = tmp_path / f"{t}.calls"
+        r = _stub_run(tree, t, log, "-D", dev, "-b", "8k", "-q", "4")
+        assert r.returncode == 0, r.stdout + r.stderr
+        logs.append(log.read_text())
+    assert logs[0].startswith("elbencho-tpu -r --rand --randalign -b 8k")
+    assert logs[1] == logs[0].replace("elbencho-tpu ",
+                                      "elbencho-tpu-torch ", 1)
+
+
+def test_baseline_tool_runs_the_originals_configs_on_the_port(tmp_path):
+    """With stub launchers: the same commands in the same order as the
+    original, each on bin/elbencho-tpu-torch, and the default archive
+    under results/torch-baseline-configs/<date>/."""
+    tree = _stubbed_tree(tmp_path, "baseline-configs.sh",
+                         "torch_baseline_configs.sh")
+    work = tmp_path / "work"
+    work.mkdir()
+    calls = []
+    for t in ("baseline-configs.sh", "torch_baseline_configs.sh"):
+        log = tmp_path / f"{t}.calls"
+        r = _stub_run(tree, t, log, str(work))
+        assert r.returncode == 0, r.stdout + r.stderr
+        calls.append(re.sub(r"ebt-baseline\.\d+", "ebt-baseline.PID",
+                            log.read_text()))
+    assert len(calls[0].splitlines()) == 14  # 1 + 3, 1 + 2 x 3, 3
+    assert calls[1] == calls[0].replace("elbencho-tpu ",
+                                        "elbencho-tpu-torch ")
+    archives = sorted(os.listdir(tmp_path / "results"))
+    assert archives == ["baseline-configs", "torch-baseline-configs"]
+    for a in archives:
+        (day,) = os.listdir(tmp_path / "results" / a)
+        assert re.fullmatch(r"\d{4}-\d\d-\d\d", day)
+        assert os.path.exists(tmp_path / "results" / a / day / "SUMMARY.txt")
+    assert os.listdir(work) == []

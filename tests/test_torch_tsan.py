@@ -9,6 +9,12 @@ a racy program built here and run under the gate's environment exits 66,
 which shows the preload and the options are live; the reactor file runs
 clean under TSAN within 300 s. The whole gate over all eight files is the
 slow case.
+
+The gate's --examples-dist mode (make torch-test-examples-dist-tsan, the
+counterpart of Makefile:438-443): its harness flags and EBT_TEST_EB wrapper
+against the Makefile's recipe, the no-runtime notice, the exit codes, a
+report of any wrapped process counted from its log file (a racy program
+under the wrapper's TSAN_OPTIONS); the whole run is its slow case.
 """
 
 from __future__ import annotations
@@ -258,3 +264,123 @@ def test_whole_gate_runs_clean_under_tsan():
                        timeout=3600)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     assert "pytest rc 0, 0 ThreadSanitizer report(s)" in r.stdout
+
+
+# ------------------------------------------------ the distributed tiers
+
+_FAKE = {"LD_PRELOAD": "/rt/libtsan.so.2",
+         engine.CORE_LIB_ENV: "/b/libebtcore_tsan.so",
+         engine.MOCK_LIB_ENV: "/b/libebtcudamock_tsan.so"}
+
+
+def _dist_recipe() -> tuple[list[str], list[str]]:
+    """Makefile:438-443: the EBT_TEST_EB words and the harness flags."""
+    text = open(os.path.join(REPO, "Makefile")).read()
+    recipe = re.search(r"^test-examples-dist-tsan: tsan\n((?:\t.*\n)+)",
+                       text, re.M).group(1).replace("\\\n", " ")
+    wrapper = re.search(r'EBT_TEST_EB="([^"]*)"', recipe).group(1).split()
+    flags = re.search(r"tools/test-examples\.sh((?: -\w)+)",
+                      recipe).group(1).split()
+    return wrapper, flags
+
+
+def test_examples_dist_mode_is_the_makefiles():
+    """The harness's flags are the recipe's; the wrapper sets what the
+    recipe's sets, on the port's names (TSAN_OPTIONS with the port's
+    suppressions and a log_path, the two library overrides), plus
+    OMP_NUM_THREADS=1, PYTHONPATH cleared and the port's CLI."""
+    wrapper, flags = _dist_recipe()
+    argv, extra = gate.examples_dist_command(_FAKE, "/logs")
+    assert argv == ["bash", gate.HARNESS, *flags]
+    assert tuple(flags) == gate.EXAMPLES_DIST_FLAGS == ("-b", "-m", "-t")
+    assert os.path.isfile(gate.HARNESS)
+    assert set(extra) == {"EBT_TEST_EB", engine.MOCK_LIB_ENV}
+    assert extra[engine.MOCK_LIB_ENV] == _FAKE[engine.MOCK_LIB_ENV]
+    words = extra["EBT_TEST_EB"].split()
+    assert wrapper[0] == words[0] == "env"
+    assert wrapper[-3:] == ["python", "-m", "elbencho_tpu.cli"]
+    assert words[-3:] == ["python", "-m", "elbencho_tpu_torch.cli"]
+    want, got = dict(w.split("=", 1) for w in wrapper[1:-3]), \
+        dict(w.split("=", 1) for w in words[1:-3])
+    assert want["TSAN_OPTIONS"].replace("$(CURDIR)/tests/tsan.supp",
+                                        gate.SUPPRESSIONS) + \
+        ":log_path=/logs/tsan" == got.pop("TSAN_OPTIONS")
+    assert want["LD_PRELOAD"] == "$(TSAN_RT)" and \
+        got.pop("LD_PRELOAD") == _FAKE["LD_PRELOAD"]
+    assert "EBT_CORE_LIB" in want and \
+        got.pop(engine.CORE_LIB_ENV) == _FAKE[engine.CORE_LIB_ENV]
+    assert got.pop(engine.MOCK_LIB_ENV) == _FAKE[engine.MOCK_LIB_ENV]
+    assert want["PYTHONPATH"] == got.pop("PYTHONPATH") == ""
+    assert got == {"OMP_NUM_THREADS": "1"}
+    make = open(os.path.join(REPO, "Makefile")).read()
+    assert re.search(r"^torch-test-examples-dist-tsan:\n\t\$\(PYTHON\) "
+                     r"tools/torch_test_tsan\.py --examples-dist$", make, re.M)
+
+
+def test_examples_dist_without_runtime_prints_the_notice(monkeypatch,
+                                                          capsys):
+    monkeypatch.setattr(gate, "TSAN_RT_GLOBS", ("/nonexistent/libtsan.so.*",))
+    assert gate.main(["--examples-dist"]) == 0
+    assert capsys.readouterr().out.strip() == gate.SKIP_NOTICE
+
+
+def test_examples_dist_takes_no_files():
+    with pytest.raises(SystemExit) as e:
+        gate.main(["--examples-dist", "tests/test_torch_reactor.py"])
+    assert e.value.code == 2
+
+
+@pytest.mark.parametrize("harness_rc,reports,want", [
+    (0, 0, 0), (0, 1, 66), (1, 2, 66), (1, 0, 1)])
+def test_examples_dist_exit_codes(monkeypatch, capsys, harness_rc, reports,
+                                  want):
+    """66 on a report, else the harness's code (0 when every tier
+    passed)."""
+    monkeypatch.setattr(gate, "tsan_runtime", lambda: "/rt/libtsan.so.2")
+    monkeypatch.setattr(gate, "environment", lambda rt: dict(_FAKE))
+    monkeypatch.setattr(gate, "check_instrumented",
+                        lambda env: (True, "/b/core\n/b/mock"))
+    monkeypatch.setattr(gate, "run_examples_dist",
+                        lambda env: (harness_rc, reports))
+    assert gate.main(["--examples-dist"]) == want
+    assert f"harness rc {harness_rc}, {reports} ThreadSanitizer report(s)" \
+        in capsys.readouterr().out
+
+
+def test_examples_dist_counts_a_wrapped_processs_logged_report(tmp_path):
+    """A racy program under the wrapper's TSAN_OPTIONS writes its report to
+    the log directory (not to the output a harness may discard) and
+    exits 66; the tool counts it there."""
+    runtime = _runtime()
+    src = tmp_path / "racy.cpp"
+    src.write_text(RACY)
+    exe = tmp_path / "racy"
+    subprocess.run([os.environ.get("CXX", "g++"), "-O1", "-g", "-pthread",
+                    "-fsanitize=thread", str(src), "-o", str(exe)],
+                   check=True, capture_output=True)
+    logs = tmp_path / "logs"
+    logs.mkdir()
+    words = gate.examples_dist_wrapper(
+        {**_FAKE, "LD_PRELOAD": runtime}, str(logs)).split()
+    opts = dict(w.split("=", 1) for w in words[1:-3])["TSAN_OPTIONS"]
+    r = subprocess.run([str(exe)], env={**os.environ, "TSAN_OPTIONS": opts},
+                       capture_output=True, text=True, timeout=60)
+    assert r.returncode == 66
+    assert gate.REPORT not in r.stderr
+    text, reports = gate.logged_reports(str(logs))
+    assert reports == 1 and gate.REPORT in text
+
+
+@pytest.mark.slow
+def test_examples_dist_runs_clean_under_tsan():
+    """python3 tools/torch_test_tsan.py --examples-dist: the dist2, dist4
+    and mesh tiers pass with zero reports."""
+    _runtime()
+    r = subprocess.run([sys.executable,
+                        os.path.join(REPO, "tools", "torch_test_tsan.py"),
+                        "--examples-dist"], cwd=REPO, capture_output=True,
+                       text=True, timeout=900)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert dict(re.findall(r"^TIER (\w+) (\w+) ", r.stdout, re.M)) == {
+        t: "pass" for t in ("dist2", "dist4", "mesh")}
+    assert "harness rc 0, 0 ThreadSanitizer report(s)" in r.stdout

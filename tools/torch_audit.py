@@ -290,8 +290,8 @@ def record_kernel_bindings(root: str) -> RecordingLib:
     fake_ctypes.CDLL = lambda *_a, **_k: lib
     for rel in KERNEL_BINDINGS:
         load_def(root, rel, "load_lib", {
-            "ctypes": fake_ctypes, "_lib": None, "LIB_PATH": "",
-            "_lib_lock": threading.Lock(), "build_lib": lambda: None})()
+            "ctypes": fake_ctypes, "_lib": None,
+            "_lib_lock": threading.Lock(), "library": lambda: ""})()
     return lib
 
 

@@ -50,10 +50,15 @@ WORK="$(mktemp -d "${TMPDIR:-/tmp}/ebt-torch-examples.XXXXXX")"
 
 # the native runs' device: DEV_ENV for their processes, GPUIDS for their
 # arguments
+# START_MARGIN: the seconds from the four services' answering to the --start
+# barrier, which their prepare must not outlast (on the card each of the
+# five processes starts CUDA, and 15 s has not always sufficed there)
+START_MARGIN=15
 if [ "$CARD" = 1 ]; then
   unset EBT_CUDA_DRIVER EBT_TORCH_DEVICE
   DEV_ENV=(env)
   GPUIDS=(--gpuids 0)
+  START_MARGIN=30
 else
   if ! MOCK=$(python -c 'from elbencho_tpu_torch import engine
 print(engine.build_mock())'); then
@@ -224,8 +229,7 @@ if [ "$SKIP_DIST" = 0 ]; then
   SVC_PIDS=""
   start_services "${DEV_ENV[@]}"
   HOSTS4=$(hosts_of)
-  # the --start margin outlasts the four services' prepare
-  START=$(( $(date +%s) + 15 ))
+  START=$(( $(date +%s) + START_MARGIN ))
   run $EB --hosts "$HOSTS4" -w -r -t 2 -s 8M -b 1M --verify 1 \
       --hostverify --start "$START" --tpubackend pjrt \
       ${GPUIDS[@]+"${GPUIDS[@]}"} --lat --nolive "$WORK/dist4-f1"

@@ -38,6 +38,23 @@ passed with no report; otherwise pytest's exit code, or 66 when pytest
 passed but a report was printed (TSAN's exitcode=66), or 2 when the
 loaded libraries are not the instrumented ones. Without a libtsan runtime
 it prints the Makefile's notice and exits 0.
+
+    python3 tools/torch_test_tsan.py --examples-dist   # make torch-test-examples-dist-tsan
+
+is the counterpart of the original's `make test-examples-dist-tsan`
+(Makefile:438-443): tools/torch_test_examples.sh -b -m -t (the dist2,
+dist4 and mesh tiers on the mock driver) with the benchmark processes
+wrapped through EBT_TEST_EB (examples_dist_wrapper): the Makefile's
+TSAN_OPTIONS with the port's suppressions, libtsan preloaded, the
+instrumented engine and mock (EBT_TORCH_CORE_LIB, EBT_TORCH_MOCK_LIB; the
+harness's own environment names the mock too, which its DEV_ENV takes
+through engine.build_mock()), OMP_NUM_THREADS=1, PYTHONPATH cleared, then
+python -m elbencho_tpu_torch.cli. TSAN_OPTIONS also carries log_path: the
+services write to log files the harness removes, so every process's
+reports go to files of their own, which the tool echoes and counts after
+the run. Exit 66 on a report, 0 when every tier passed with none, the
+harness's exit code otherwise (2 when the libraries are not the
+instrumented ones; the notice and 0 without libtsan).
 """
 
 from __future__ import annotations
@@ -45,8 +62,10 @@ from __future__ import annotations
 import argparse
 import glob
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -70,6 +89,10 @@ TSAN_RT_GLOBS = ("/usr/lib/*-linux-gnu/libtsan.so.*",
                  "/usr/lib64/libtsan.so.*", "/usr/lib/libtsan.so.*")
 SKIP_NOTICE = "test-tsan: libtsan runtime not found - skipping"
 REPORT = "WARNING: ThreadSanitizer:"
+HARNESS = os.path.join(REPO, "tools", "torch_test_examples.sh")
+# the Makefile's harness flags: skip the blockdev, multi-file and tooling
+# tiers, so the distributed ones run
+EXAMPLES_DIST_FLAGS = ("-b", "-m", "-t")
 
 # run in a child under the gate's environment: the engine and the mock
 # must be the instrumented builds (an uninstrumented library has no
@@ -142,13 +165,66 @@ def run(files, env: dict[str, str]) -> tuple[int, int]:
     return p.wait(), reports
 
 
+def examples_dist_wrapper(env: dict[str, str], log_dir: str) -> str:
+    """EBT_TEST_EB for the distributed tiers: Makefile:439-442's wrapper
+    over the port's CLI, with the gate's libraries from `env`
+    (environment()) and each process's reports logged under `log_dir`."""
+    from elbencho_tpu_torch import engine
+    return (f"env TSAN_OPTIONS=report_bugs=1:exitcode=66:suppressions="
+            f"{SUPPRESSIONS}:log_path={os.path.join(log_dir, 'tsan')} "
+            f"LD_PRELOAD={env['LD_PRELOAD']} "
+            f"{engine.CORE_LIB_ENV}={env[engine.CORE_LIB_ENV]} "
+            f"{engine.MOCK_LIB_ENV}={env[engine.MOCK_LIB_ENV]} "
+            "OMP_NUM_THREADS=1 PYTHONPATH= python -m elbencho_tpu_torch.cli")
+
+
+def examples_dist_command(env: dict[str, str],
+                          log_dir: str) -> tuple[list[str], dict[str, str]]:
+    """The harness's argv and the environment entries it runs with."""
+    from elbencho_tpu_torch import engine
+    return (["bash", HARNESS, *EXAMPLES_DIST_FLAGS],
+            {"EBT_TEST_EB": examples_dist_wrapper(env, log_dir),
+             engine.MOCK_LIB_ENV: env[engine.MOCK_LIB_ENV]})
+
+
+def logged_reports(log_dir: str) -> tuple[str, int]:
+    """What TSAN wrote under `log_dir` (one file per process that
+    reported), and the number of reports in it."""
+    text = "".join(open(p, errors="replace").read() for p in
+                   sorted(glob.glob(os.path.join(log_dir, "tsan*"))))
+    return text, sum(REPORT in line for line in text.splitlines())
+
+
+def run_examples_dist(env: dict[str, str]) -> tuple[int, int]:
+    """The distributed tiers under `env`'s libraries: (the harness's exit
+    code, the number of ThreadSanitizer reports); the harness's output is
+    passed through and every report echoed on standard error."""
+    log_dir = tempfile.mkdtemp(prefix="ebt-torch-tsan-dist.")
+    try:
+        argv, extra = examples_dist_command(env, log_dir)
+        r = subprocess.run(argv, cwd=REPO, env={**os.environ, **extra},
+                           stdout=subprocess.PIPE, text=True,
+                           errors="replace")
+        sys.stdout.write(r.stdout)
+        text, reports = logged_reports(log_dir)
+        sys.stderr.write(text)
+        return r.returncode, reports
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="tools/torch_test_tsan.py",
         description="the port's pytest files under ThreadSanitizer")
     ap.add_argument("files", nargs="*", default=list(FILES),
                     help="test files (default: the eight of the gate)")
+    ap.add_argument("--examples-dist", action="store_true",
+                    help="run the examples harness's distributed tiers "
+                         "(make torch-test-examples-dist-tsan) instead")
     args = ap.parse_args(argv)
+    if args.examples_dist and args.files != list(FILES):
+        ap.error("--examples-dist takes no test files")
     runtime = tsan_runtime()
     if runtime is None:
         print(SKIP_NOTICE)
@@ -160,6 +236,11 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     print(f"torch test-tsan: {runtime}; instrumented: "
           + ", ".join(out.splitlines()[-2:]), flush=True)
+    if args.examples_dist:
+        rc, reports = run_examples_dist(env)
+        print(f"torch test-examples-dist-tsan: harness rc {rc}, {reports} "
+              "ThreadSanitizer report(s)", flush=True)
+        return 66 if reports else rc
     rc, reports = run(args.files, env)
     print(f"torch test-tsan: pytest rc {rc}, {reports} ThreadSanitizer "
           "report(s)", flush=True)
