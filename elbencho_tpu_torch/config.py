@@ -358,6 +358,9 @@ class Config:
     results_file: str = ""
     csv_file: str = ""
     no_csv_labels: bool = False
+    span_file: str = ""  # --spanfile: the port's spans as Chrome trace-event
+                         # JSON (elbencho_tpu_torch/spans.py); master-local,
+                         # never on the wire
     log_level: int = 1
 
     # distributed / service mode
@@ -2008,6 +2011,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Append CSV results to this file.")
     st.add_argument("--nocsvlabels", action="store_true", dest="no_csv_labels",
                     help="Do not print the CSV label header line.")
+    st.add_argument("--spanfile", type=str, default="", dest="span_file",
+                    metavar="PATH",
+                    help="Write the run's spans (device path: block copies, "
+                         "staging, verify waits, window registration, pins; "
+                         "coordinator: phases) to this file as Chrome "
+                         "trace-event JSON on the realtime clock, for "
+                         "Perfetto beside a torch.profiler or Nsight trace. "
+                         "(Port only.)")
     st.add_argument("--log", type=int, default=1, dest="log_level",
                     help="Log level: 0 error, 1 normal, 2 verbose, 3 debug.")
 
@@ -2229,6 +2240,7 @@ def _config_from_namespace(ns, hosts: list[str]) -> Config:
         live_stats_sleep_sec=ns.live_stats_sleep_sec,
         results_file=ns.results_file,
         csv_file=ns.csv_file,
+        span_file=ns.span_file,
         no_csv_labels=ns.no_csv_labels,
         log_level=ns.log_level,
         hosts=hosts,

@@ -21,6 +21,7 @@ import sys
 import time
 import uuid
 
+from . import spans
 from .common import BenchPathType, BenchPhase
 from .config import Config
 from .exceptions import ProgException, ProgInterruptedException
@@ -37,6 +38,7 @@ class Coordinator:
         self.stats: Statistics | None = None
         self._interrupted = False
         self._current_phase = BenchPhase.IDLE  # what /metrics labels
+        self._span_file: spans.SpanFile | None = None  # --spanfile
 
     # ------------------------------------------------------------- dispatch
 
@@ -83,6 +85,8 @@ class Coordinator:
                               if cfg.campaign_name else None)),
                 cfg.metrics_port)
             metrics_srv.start()
+        if cfg.span_file:
+            self._span_file = spans.SpanFile(cfg.span_file)
         try:
             # handlers BEFORE prepare: a SIGINT during the (potentially slow)
             # preparation — CUDA/device init, file preallocation — must set
@@ -115,6 +119,12 @@ class Coordinator:
                     metrics_srv.stop()
                 except Exception as e:
                     LOGGER.error(f"metrics listener shutdown failed: {e}")
+            if self._span_file is not None:
+                try:
+                    self._span_file.write()
+                except OSError as e:
+                    LOGGER.error(f"--spanfile: {e}")
+                    exit_code = exit_code or 1
         return exit_code
 
     # -------------------------------------------------------------- signals
@@ -223,12 +233,27 @@ class Coordinator:
 
     def _run_phase(self, phase: BenchPhase, quiet: bool = False) -> None:
         """(reference: runBenchmarkPhase, Coordinator.cpp:142-164)"""
+        spans.follow_profiler()
+        try:
+            with spans.span("coord.phase", int(phase)):
+                self._phase_steps(phase, quiet)
+        finally:
+            if self._span_file is not None:
+                self._span_file.collect()
+
+    def _phase_steps(self, phase: BenchPhase, quiet: bool) -> None:
         if self._interrupted:
             raise ProgInterruptedException("benchmark interrupted")
         bench_id = str(uuid.uuid4())
         self._current_phase = phase
         self.workers.start_phase(phase, bench_id)
-        status = self.stats.live_loop(phase, self.expected_totals(phase))
+        with spans.span("coord.wait", int(phase)):
+            status = self.stats.live_loop(phase, self.expected_totals(phase))
+        with spans.span("coord.results", int(phase)):
+            self._phase_results(phase, quiet, status)
+
+    def _phase_results(self, phase: BenchPhase, quiet: bool,
+                       status: int) -> None:
         results = self.workers.phase_results()
         degraded: list[dict] = []
         if status == 2:

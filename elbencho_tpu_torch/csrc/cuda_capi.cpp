@@ -11,6 +11,7 @@
 
 #include "cuda_path.h"
 #include "ebt/engine.h"
+#include "span_log.h"
 
 using ebt::CudaPath;
 using ebt::DevCopyFn;
@@ -476,5 +477,44 @@ void ebt_cuda_kernel_launches(uint64_t* out) {
 }
 
 void ebt_cuda_reset_kernel_launches() { CudaPath::resetKernelLaunches(); }
+
+// ---- the span log (span_log.h), process-wide like the launch counters:
+// every path of the process and the Python layer's own spans record into it
+
+// capacity: records per recording thread. 0 ok, 1 when the rings cannot be
+// allocated (the log stays as it was)
+int ebt_cuda_span_enable(uint64_t capacity) {
+  return ebt::spans::enable(capacity);
+}
+
+void ebt_cuda_span_disable() { ebt::spans::disable(); }
+
+// up to max_records records not yet drained, 32 bytes each
+// ({u16 name, u16 code, u32 tid, u64 t0_ns, u64 t1_ns, u64 arg}); returns
+// how many were written to out
+uint64_t ebt_cuda_span_drain(void* out, uint64_t max_records) {
+  return ebt::spans::drain(static_cast<ebt::spans::Record*>(out),
+                           max_records);
+}
+
+// out[6] = {enabled, capacity per thread, dropped, anchor CLOCK_REALTIME ns,
+// anchor CLOCK_MONOTONIC ns, live threads that hold a ring}
+void ebt_cuda_span_state(uint64_t* out) {
+  const ebt::spans::State s = ebt::spans::state();
+  out[0] = s.enabled;
+  out[1] = s.capacity;
+  out[2] = s.dropped;
+  out[3] = s.anchor_realtime_ns;
+  out[4] = s.anchor_monotonic_ns;
+  out[5] = s.threads;
+}
+
+// a span of the calling thread, stamped by the caller on CLOCK_MONOTONIC
+// (Python's time.monotonic_ns()); recorded only while the log is on
+void ebt_cuda_span_record(int name, int code, uint64_t t0_ns, uint64_t t1_ns,
+                          uint64_t arg) {
+  if (ebt::spans::on())
+    ebt::spans::record((uint16_t)name, (uint16_t)code, t0_ns, t1_ns, arg);
+}
 
 }  // extern "C"

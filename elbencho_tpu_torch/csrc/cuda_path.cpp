@@ -15,6 +15,7 @@
 #include "ebt/rand.h"     // rank-seeded random write sources
 #include "ebt/reactor.h"  // host-function landing bridge
 #include "ebt/uring.h"    // unified fixed-buffer registration authority
+#include "span_log.h"
 
 namespace ebt {
 
@@ -751,6 +752,7 @@ int CudaPath::submitH2D(int device_idx, const char* buf, uint64_t len,
   int rc = 0;
   int chunk_i = 0;
   uint64_t off = 0;  // after the loop: the bytes that were enqueued
+  const uint64_t copy_t0 = spans::on() ? spans::nowNs() : 0;
   for (; off < len; chunk_i++) {
     const uint64_t n = std::min(chunk_bytes_, len - off);
     // the block's chunks land at their offsets in the lane's landing
@@ -803,6 +805,9 @@ int CudaPath::submitH2D(int device_idx, const char* buf, uint64_t len,
     submitted.push_back(p);
     off += n;
   }
+  if (copy_t0)
+    spans::record(spans::kH2DCopy, zc ? spans::kRegistered : spans::kPageable,
+                  copy_t0, spans::nowNs(), off);
   if (lanes_.size() > 1) makeCurrent(li, false);
   // chunks copied before a failure may still be reading the buffer: they
   // are enqueued either way so the barrier waits them out
@@ -1031,7 +1036,9 @@ int CudaPath::submitH2DVerified(int worker_rank, int device_idx,
     EBT_PAIR_BEGIN(copy_hold);  // the hold, where one was taken
     std::vector<Pending> waits;
     int rc = 0;
-    for (uint64_t off = 0; off < n8;) {
+    const uint64_t copy_t0 = spans::on() ? spans::nowNs() : 0;
+    uint64_t off = 0;  // after the loop: the bytes that were enqueued
+    while (off < n8) {
       const uint64_t n = std::min(chunk_bytes_, n8 - off);
       auto t0 = Clock::now();
       if (!check("verify cuMemcpyHtoDAsync",
@@ -1045,6 +1052,11 @@ int CudaPath::submitH2DVerified(int worker_rank, int device_idx,
       waits.push_back(p);
       off += n;
     }
+    const uint64_t wait_t0 = copy_t0 ? spans::nowNs() : 0;
+    if (copy_t0)
+      spans::record(spans::kH2DCopy,
+                    held ? spans::kRegistered : spans::kPageable, copy_t0,
+                    wait_t0, off);
     if (rc == 0) {
       int krc = verify_fn_((const void*)(uintptr_t)rb.verify, n8 / 4,
                            file_off + verify_salt_,
@@ -1065,6 +1077,9 @@ int CudaPath::submitH2DVerified(int worker_rank, int device_idx,
     for (Pending& p : waits)  // await ALL even after a failure
       if (awaitRelease(p)) rc = 1;
     if (syncStream(li, lane.h2d)) rc = 1;
+    if (wait_t0)
+      spans::record(spans::kVerifyWait, (uint16_t)rc, wait_t0,
+                    spans::nowNs(), n8);
     if (held) releaseHold(buf, n8, lane);
     EBT_PAIR_END(copy_hold);
     if (rc) return 1;
@@ -1405,6 +1420,7 @@ void CudaPath::resetKernelLaunches() {
 
 int CudaPath::copy(int worker_rank, int device_idx, int direction, void* buf,
                    uint64_t len, uint64_t file_offset) {
+  spans::Scope block(spans::kH2DBlock, len, direction == 0);
   if (!ok()) return 1;
   // the kernel entries are set without a lock, which is safe only because
   // every enable precedes the first data transfer: data directions seal
@@ -1534,8 +1550,10 @@ int CudaPath::copy(int worker_rank, int device_idx, int direction, void* buf,
     }
     case 1:
       return serveD2H(worker_rank, li, (char*)buf, len, file_offset);
-    case 2:
+    case 2: {
+      spans::Scope reuse(spans::kBarrierReuse);
       return settle(buf, li, /*d2h_barrier=*/false);
+    }
     case 3:
       return roundTripH2D(worker_rank, li, (const char*)buf, len);
     case 4:
@@ -3032,7 +3050,10 @@ int CudaPath::hostRegister(void* buf, uint64_t len, bool window,
   unsigned flags = cu::CU_MEMHOSTREGISTER_PORTABLE;
   if (window && laneFor(0).read_only_register)
     flags |= cu::CU_MEMHOSTREGISTER_READ_ONLY;
+  const uint64_t pin_t0 = spans::on() ? spans::nowNs() : 0;
   cu::CUresult rc = api_.cuMemHostRegister(buf, len, flags);
+  if (pin_t0)
+    spans::record(spans::kRegPin, rc ? 1 : 0, pin_t0, spans::nowNs(), len);
   if (rc) {
     // a clean per-range fall to the staged tier, never a worker error
     std::string msg = cu::errorText(api_, "cuMemHostRegister", rc);
@@ -3070,9 +3091,13 @@ int CudaPath::hostRegister(void* buf, uint64_t len, bool window,
   return 0;
 }
 
-void CudaPath::hostUnregister(void* buf) {
+void CudaPath::hostUnregister(void* buf, uint64_t len) {
   if (t_gen != gen_) makeCurrent(0, true);
+  const uint64_t unpin_t0 = spans::on() ? spans::nowNs() : 0;
   cu::CUresult rc = api_.cuMemHostUnregister(buf);
+  if (unpin_t0)
+    spans::record(spans::kRegUnpin, rc ? 1 : 0, unpin_t0, spans::nowNs(),
+                  len);
   if (rc) latchRegError(cu::errorText(api_, "cuMemHostUnregister", rc));
 }
 
@@ -3107,6 +3132,7 @@ int CudaPath::registerBuffer(void* buf, uint64_t len) {
 
 int CudaPath::deregisterBuffer(void* buf) {
   int uring_idx = -1;
+  uint64_t len = 0;
   {
     MutexLock lk(reg_mutex_);
     auto it = registered_.find((uintptr_t)buf);
@@ -3116,10 +3142,11 @@ int CudaPath::deregisterBuffer(void* buf) {
     in_transit_[it->first] = it->second.len;
     EBT_PAIR_BEGIN(reg_intransit);
     uring_idx = it->second.uring_idx;
+    len = it->second.len;
     registered_.erase(it);
   }
   UringReg::instance().release(uring_idx);
-  hostUnregister(buf);
+  hostUnregister(buf, len);
   MutexLock lk(reg_mutex_);
   in_transit_.erase((uintptr_t)buf);
   EBT_PAIR_END(reg_intransit);
@@ -3156,13 +3183,15 @@ bool CudaPath::rangeInTransitLocked(uintptr_t base, uint64_t len) const {
 }
 
 int CudaPath::registerWindow(void* buf, uint64_t len) {
+  spans::Scope window(spans::kRegWindow, len);
+  window.code(spans::kRegUnavailable);
   if (lanes_.empty() || !buf || !len) return 1;
   if (!dma_ok_) {
     latchRegError("registered-memory tier unavailable");
     return 1;
   }
   uintptr_t p = (uintptr_t)buf;
-  std::vector<std::pair<uintptr_t, int>> victims;  // (base, uring slot)
+  std::vector<PinVictim> victims;
   bool fits = true;
   {
     MutexLock lk(reg_mutex_);
@@ -3173,6 +3202,7 @@ int CudaPath::registerWindow(void* buf, uint64_t len) {
       if (p >= it->first && p + len <= it->first + it->second.len) {
         reg_hits_++;
         it->second.lru_seq = ++lru_clock_;
+        window.code(spans::kRegHit);
         return 0;
       }
     }
@@ -3188,15 +3218,18 @@ int CudaPath::registerWindow(void* buf, uint64_t len) {
                        std::to_string(kv.second.len) +
                        " bytes without being covered by it; "
                        "deregister first";
+        window.code(spans::kRegFallbackOverlap);
         return 1;
       }
     }
     if (rangeInTransitLocked(p, len)) {
       reg_staged_fallbacks_++;  // transient: one staged block
+      window.code(spans::kRegFallbackInTransit);
       return 1;
     }
     if (reg_window_bytes_ && len > reg_window_bytes_) {
       reg_staged_fallbacks_++;  // budget pressure is operation, not a fault
+      window.code(spans::kRegFallbackBudget);
       return 1;
     }
     // evict least-recently-registered windows with nothing in flight until
@@ -3234,7 +3267,8 @@ int CudaPath::registerWindow(void* buf, uint64_t len) {
       window_bytes_ -= best->second.len;
       pinned_bytes_ -= best->second.len;
       reg_evictions_++;
-      victims.emplace_back(best->first, best->second.uring_idx);
+      victims.push_back({best->first, best->second.len,
+                         best->second.uring_idx});
       in_transit_[best->first] = best->second.len;
       EBT_PAIR_BEGIN(reg_intransit);
       EBT_PAIR_HOLDER(reg_intransit);  // parked in `victims`: unpinVictims
@@ -3249,21 +3283,26 @@ int CudaPath::registerWindow(void* buf, uint64_t len) {
     }
   }
   unpinVictims(victims);
-  if (!fits) return 1;
+  if (!fits) {
+    window.code(spans::kRegFallbackNoVictim);
+    return 1;
+  }
   EBT_PAIR_BEGIN(reg_intransit);  // the new window's change, made above
-  return hostRegister(buf, len, /*window=*/true, /*reserved=*/true);
+  const int rc = hostRegister(buf, len, /*window=*/true, /*reserved=*/true);
+  window.code(rc ? spans::kRegFallbackRefused : spans::kRegRegistered);
+  return rc;
 }
 
 void CudaPath::deregisterRange(void* buf, uint64_t len) {
   uintptr_t base = (uintptr_t)buf;
-  std::vector<std::pair<uintptr_t, int>> victims;
+  std::vector<PinVictim> victims;
   {
     MutexLock lk(reg_mutex_);
     for (auto it = registered_.begin(); it != registered_.end();) {
       if (it->first < base + len && base < it->first + it->second.len) {
         if (it->second.window) window_bytes_ -= it->second.len;
         pinned_bytes_ -= it->second.len;
-        victims.emplace_back(it->first, it->second.uring_idx);
+        victims.push_back({it->first, it->second.len, it->second.uring_idx});
         in_transit_[it->first] = it->second.len;
         EBT_PAIR_BEGIN(reg_intransit);
         EBT_PAIR_HOLDER(reg_intransit);  // parked in `victims`, unpinned
@@ -3277,8 +3316,7 @@ void CudaPath::deregisterRange(void* buf, uint64_t len) {
   unpinVictims(victims);
 }
 
-void CudaPath::unpinVictims(
-    const std::vector<std::pair<uintptr_t, int>>& victims) {
+void CudaPath::unpinVictims(const std::vector<PinVictim>& victims) {
   if (victims.empty()) return;
   // A fence first: every copy enqueued on any lane before the victims left
   // the cache has completed before their pages are unpinned, whatever the
@@ -3288,11 +3326,11 @@ void CudaPath::unpinVictims(
     if (!makeCurrent((int)l, false)) continue;
     syncStream((int)l, lanes_[l]->h2d);
   }
-  for (const auto& [v, uidx] : victims) {
-    hostUnregister((void*)v);
-    UringReg::instance().release(uidx);
+  for (const PinVictim& v : victims) {
+    hostUnregister((void*)v.base, v.len);
+    UringReg::instance().release(v.uring_idx);
     MutexLock lk(reg_mutex_);
-    in_transit_.erase(v);
+    in_transit_.erase(v.base);
     EBT_PAIR_END(reg_intransit);
     reg_cv_.notify_all();
   }

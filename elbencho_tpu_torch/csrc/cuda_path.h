@@ -184,6 +184,7 @@ class CudaPath {
   int numDevices() const { return (int)lanes_.size(); }
 
   // DevCopyFn (engine.h): 0 ok, 1 transfer error, 2 verify mismatch.
+  // A direction-0 copy is one h2d.block span when the span log is on.
   int copy(int worker_rank, int device_idx, int direction, void* buf,
            uint64_t len, uint64_t file_offset);
   static int copyTrampoline(void* ctx, int worker_rank, int device_idx,
@@ -813,7 +814,12 @@ class CudaPath {
   void releaseHold(const char* buf, uint64_t len, Lane& lane);
   // unpin ranges that left the registration cache (in_transit_), behind a
   // fence on every lane's H2D stream
-  void unpinVictims(const std::vector<std::pair<uintptr_t, int>>& victims)
+  struct PinVictim {
+    uintptr_t base;
+    uint64_t len;
+    int uring_idx;
+  };
+  void unpinVictims(const std::vector<PinVictim>& victims)
       EBT_EXCLUDES(reg_mutex_);
   int submitH2DVerified(int worker_rank, int device_idx, const char* buf,
                         uint64_t len, uint64_t file_off);
@@ -888,7 +894,7 @@ class CudaPath {
 
   int hostRegister(void* buf, uint64_t len, bool window, bool reserved)
       EBT_EXCLUDES(reg_mutex_);
-  void hostUnregister(void* buf);
+  void hostUnregister(void* buf, uint64_t len);
   bool bufferRegisteredLocked(const void* p, uint64_t len) const
       EBT_REQUIRES(reg_mutex_);
   bool rangeInTransitLocked(uintptr_t base, uint64_t len) const

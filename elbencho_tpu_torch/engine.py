@@ -66,7 +66,7 @@ PROBE_PATH = os.path.join(_BUILD_DIR, "cuda_probe")
 _CORE_SRCS = tuple(f"core/src/{s}.cpp" for s in (
     "engine", "capi", "pjrt_path", "uring", "reactor", "numa")) + tuple(
     f"elbencho_tpu_torch/csrc/{s}.cpp" for s in (
-        "cuda_api", "cuda_path", "cuda_capi"))
+        "cuda_api", "cuda_path", "cuda_capi", "span_log"))
 _MOCK_SRC = "elbencho_tpu_torch/csrc/cuda_mock.cpp"
 _PROBE_SRCS = ("elbencho_tpu_torch/csrc/cuda_probe.cpp",
                "elbencho_tpu_torch/csrc/cuda_api.cpp")
@@ -750,7 +750,13 @@ def _declare_cuda(lib: ctypes.CDLL) -> None:
             ("ingest_epochs", [vp], i32),
             ("ingest_barrier", [vp], i32),
             ("ingest_error", [vp, s, i32], None),
-            ("ingest_rearm", [vp], None)):
+            ("ingest_rearm", [vp], None),
+            # the span log (csrc/span_log.h), process-wide
+            ("span_enable", [u64], i32),
+            ("span_disable", [], None),
+            ("span_drain", [vp, u64], u64),
+            ("span_state", [u64p], None),
+            ("span_record", [i32, i32, u64, u64, u64], None)):
         fn = getattr(lib, f"ebt_cuda_{name}")
         fn.argtypes = args
         fn.restype = res

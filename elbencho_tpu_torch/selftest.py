@@ -49,7 +49,7 @@ CARD_DRIVER = "libcuda.so.1"
 _SRCS = tuple(f"core/src/{s}.cpp" for s in (
     "engine", "uring", "reactor", "numa")) + tuple(
     f"elbencho_tpu_torch/csrc/{s}.cpp" for s in (
-        "cuda_api", "cuda_path", "cuda_selftest"))
+        "cuda_api", "cuda_path", "span_log", "cuda_selftest"))
 _CXXFLAGS = ("-O1", "-g", "-std=c++17", "-Wall", "-Wextra", "-pthread")
 
 

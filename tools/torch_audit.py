@@ -102,6 +102,8 @@ LOCK_SOURCES = (
     _j(CSRC, "cuda_capi.cpp"),
     _j(CSRC, "cuda_api.h"),
     _j(CSRC, "cuda_api.cpp"),
+    _j(CSRC, "span_log.h"),
+    _j(CSRC, "span_log.cpp"),
 )
 # the annotated translation units: the shared engine's, with the CUDA
 # engine in place of pjrt_path.cpp
