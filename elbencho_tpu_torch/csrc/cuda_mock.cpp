@@ -46,6 +46,11 @@
  *   EBT_MOCK_CUDA_HOSTREG_FAIL_AFTER  every cuMemHostRegister after the Nth
  *                             fails (the init probe passes, real ones fail)
  *   EBT_MOCK_CUDA_HOSTREG_MAX_BYTES   ranges larger than N bytes fail
+ *   EBT_MOCK_CUDA_HOSTALLOC_REFUSE_AFTER  every cuMemHostAlloc after the Nth
+ *                             (1-based, counted from ebt_mock_reset) fails:
+ *                             a worker's verify result word passes, the
+ *                             pinned chunk slots of its verified copies
+ *                             are refused
  *   EBT_MOCK_CUDA_UNREGISTER_US  cuMemHostUnregister takes N us, during
  *                             which the range still counts as registered,
  *                             as the driver's unpin does
@@ -103,8 +108,8 @@
  * (allocated minus freed device buffers, cuMemAllocAsync's included),
  * ebt_mock_xfer_mgr_count (tier block buffers allocated, the original
  * mock's count of managers created), ebt_mock_h2d_count /
- * ebt_mock_completion_count (calls so far, for the *_AT seams) and
- * ebt_mock_reset.
+ * ebt_mock_completion_count / ebt_mock_hostalloc_count (calls so far, for
+ * the *_AT and *_AFTER seams) and ebt_mock_reset.
  */
 #include <atomic>
 #include <chrono>
@@ -162,6 +167,7 @@ std::atomic<uint64_t> g_d2h_calls{0};
 std::atomic<uint64_t> g_completion_calls{0};
 std::atomic<uint64_t> g_d2d_calls{0};
 std::atomic<uint64_t> g_hostreg_calls{0};
+std::atomic<uint64_t> g_hostalloc_calls{0};
 std::atomic<uint64_t> g_exec[kMaxDevices];
 std::atomic<uint64_t> g_dev_h2d[kMaxDevices];
 std::atomic<int64_t> g_live_buffers{0};
@@ -858,6 +864,11 @@ CUresult cuMemHostUnregister(void* p) {
 }
 
 CUresult cuMemHostAlloc(void** pp, size_t bytes, unsigned) {
+  uint64_t n = ++g_hostalloc_calls;
+  int after = env_int("EBT_MOCK_CUDA_HOSTALLOC_REFUSE_AFTER");
+  if (after > 0 && n > (uint64_t)after)
+    return inject("mock pinned allocation failure "
+                  "(EBT_MOCK_CUDA_HOSTALLOC_REFUSE_AFTER)");
   void* p = nullptr;
   if (posix_memalign(&p, 4096, bytes ? bytes : 1)) return 2;
   std::memset(p, 0, bytes);
@@ -923,6 +934,7 @@ uint64_t ebt_mock_hostreg_active() {
 int64_t ebt_mock_live_buffers() { return g_live_buffers; }
 uint64_t ebt_mock_h2d_count() { return g_h2d_calls; }
 uint64_t ebt_mock_completion_count() { return g_completion_calls; }
+uint64_t ebt_mock_hostalloc_count() { return g_hostalloc_calls; }
 uint64_t ebt_mock_d2d_count() { return g_d2d_calls; }
 uint64_t ebt_mock_xfer_mgr_count() { return g_xfer_mgr_allocs; }
 
@@ -936,6 +948,7 @@ void ebt_mock_reset() {
   g_completion_calls = 0;
   g_d2d_calls = 0;
   g_hostreg_calls = 0;
+  g_hostalloc_calls = 0;
   g_xfer_mgr_allocs = 0;
   g_xfer_copy_calls = 0;
   for (auto& e : g_exec) e = 0;

@@ -324,6 +324,8 @@ CudaPath::~CudaPath() {
       if (p) api_.cuMemFree(p);
     if (rb.host) api_.cuMemFreeHost(rb.host);
     EBT_PAIR_END(dev_buf);
+    if (rb.stage) api_.cuMemFreeHost(rb.stage);
+    EBT_PAIR_END(stage_ring);
   }
   for (auto& kv : dev_src) {
     makeCurrent(kv.second.first, true);
@@ -735,6 +737,33 @@ bool CudaPath::ensureBuffer(int lane, cu::CUdeviceptr* p, uint64_t* cap,
   return true;
 }
 
+int CudaPath::stageSlots(RankBufs& rb, uint64_t len) {
+  const int want = (int)std::min<uint64_t>(
+      kStageSlots, (len + chunk_bytes_ - 1) / chunk_bytes_);
+  if (rb.stage_slots >= want || rb.stage_refused) return rb.stage_slots;
+  // first use by this rank (or a block of more chunks than before). Every
+  // verified call awaits its own copies, so no copy still reads the old
+  // slots. A refusal is no error: the rank's blocks go pageable from here
+  if (rb.stage) {
+    api_.cuMemFreeHost(rb.stage);
+    EBT_PAIR_END(stage_ring);
+    rb.stage = nullptr;
+    rb.stage_slots = 0;
+  }
+  void* p = nullptr;
+  if (api_.cuMemHostAlloc(&p, (size_t)want * chunk_bytes_, 0) !=
+      cu::CUDA_SUCCESS) {
+    rb.stage_refused = true;
+    return 0;
+  }
+  EBT_PAIR_BEGIN(stage_ring);
+  EBT_PAIR_HOLDER(stage_ring);  // the rank's: replaced here or freed at
+                                // teardown
+  rb.stage = (char*)p;
+  rb.stage_slots = want;
+  return want;
+}
+
 // ---------------------------------------------------------------- read leg
 
 int CudaPath::submitH2D(int device_idx, const char* buf, uint64_t len,
@@ -1034,15 +1063,33 @@ int CudaPath::submitH2DVerified(int worker_rank, int device_idx,
     // window eviction from unpinning the source until then
     const bool held = holdForCopy(buf, n8, lane);
     EBT_PAIR_BEGIN(copy_hold);  // the hold, where one was taken
+    // an unregistered source goes through the rank's pinned slots: each
+    // chunk is copied into a slot on this thread and the driver reads the
+    // slot by DMA, behind the call, while the next chunk is copied; from
+    // the pageable source itself the driver would stage every chunk inside
+    // the call, through buffers it shares with every other thread
+    const int slots = held ? 0 : stageSlots(rb, n8);
     std::vector<Pending> waits;
+    size_t settled = 0;  // waits awaited in the loop, to free their slot
     int rc = 0;
     const uint64_t copy_t0 = spans::on() ? spans::nowNs() : 0;
     uint64_t off = 0;  // after the loop: the bytes that were enqueued
-    while (off < n8) {
+    for (int k = 0; off < n8; k++) {
       const uint64_t n = std::min(chunk_bytes_, n8 - off);
+      const char* src = buf + off;
+      if (slots) {
+        // the slot's previous chunk, k - slots, has to have landed first
+        if (k >= slots && awaitRelease(waits[settled++])) {
+          rc = 1;
+          break;
+        }
+        char* slot = rb.stage + (uint64_t)(k % slots) * chunk_bytes_;
+        std::memcpy(slot, src, n);
+        src = slot;
+      }
       auto t0 = Clock::now();
       if (!check("verify cuMemcpyHtoDAsync",
-                 api_.cuMemcpyHtoDAsync(rb.verify + off, buf + off, n,
+                 api_.cuMemcpyHtoDAsync(rb.verify + off, src, n,
                                         lane.h2d))) {
         rc = 1;
         break;
@@ -1055,8 +1102,10 @@ int CudaPath::submitH2DVerified(int worker_rank, int device_idx,
     const uint64_t wait_t0 = copy_t0 ? spans::nowNs() : 0;
     if (copy_t0)
       spans::record(spans::kH2DCopy,
-                    held ? spans::kRegistered : spans::kPageable, copy_t0,
-                    wait_t0, off);
+                    held    ? spans::kRegistered
+                    : slots ? spans::kStaged
+                            : spans::kPageable,
+                    copy_t0, wait_t0, off);
     if (rc == 0) {
       int krc = verify_fn_((const void*)(uintptr_t)rb.verify, n8 / 4,
                            file_off + verify_salt_,
@@ -1074,8 +1123,9 @@ int CudaPath::submitH2DVerified(int worker_rank, int device_idx,
           rc = 1;
       }
     }
-    for (Pending& p : waits)  // await ALL even after a failure
-      if (awaitRelease(p)) rc = 1;
+    // await ALL even after a failure (the loop awaited the first `settled`)
+    for (size_t i = settled; i < waits.size(); i++)
+      if (awaitRelease(waits[i])) rc = 1;
     if (syncStream(li, lane.h2d)) rc = 1;
     if (wait_t0)
       spans::record(spans::kVerifyWait, (uint16_t)rc, wait_t0,

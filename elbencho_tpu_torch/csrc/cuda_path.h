@@ -619,6 +619,11 @@ class CudaPath {
     uint64_t verify_cap = 0, staged_cap = 0, gen_cap = 0;
     int64_t* host = nullptr;  // pinned: verify result int64[3] + one word
     uint64_t staged_len = 0;  // bytes of the last round trip; 0 = none
+    // pinned chunk slots a verified copy of an unregistered source goes
+    // through (stageSlots); idle between calls, which await their copies
+    char* stage = nullptr;
+    int stage_slots = 0;
+    bool stage_refused = false;  // the driver refused the ring: not asked again
   };
   struct RegEntry {
     uint64_t len = 0;
@@ -798,6 +803,11 @@ class CudaPath {
   RankBufs& rankBufs(int worker_rank, int lane) EBT_EXCLUDES(rank_mutex_);
   bool ensureBuffer(int lane, cu::CUdeviceptr* p, uint64_t* cap,
                     uint64_t len);
+  // the rank's pinned chunk slots for a verified block of len bytes from an
+  // unregistered source: one per chunk, at most kStageSlots, allocated on
+  // first use; 0 where the driver refused them (the block goes pageable)
+  int stageSlots(RankBufs& rb, uint64_t len);
+  static constexpr int kStageSlots = 4;
 
   // rot_gen != 0: a chunk of that restoring generation, landing in its
   // memory (ckpt_shard, plan_lane and file_off say where)

@@ -48,8 +48,11 @@ enum RegOutcome : uint16_t {
   kRegUnavailable = 7,      // no registered tier (or an empty request)
 };
 
-// kH2DCopy's code: the tier of the block's source
-enum CopyTier : uint16_t { kPageable = 0, kRegistered = 1 };
+// kH2DCopy's code: the tier of the block's source. kPageable: the driver
+// stages each chunk inside the copy call; kRegistered: the copies DMA from
+// the registered source itself; kStaged (verified copies only): each chunk
+// is copied into the rank's own pinned slots, which the copies DMA from
+enum CopyTier : uint16_t { kPageable = 0, kRegistered = 1, kStaged = 2 };
 
 struct Record {
   uint16_t name;

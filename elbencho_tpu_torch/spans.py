@@ -5,9 +5,13 @@ recording thread. The device path records, per calling thread:
 
   h2d.block      a direction-0 CudaPath::copy, entry to return; on the
                  verified path the block copied, verified and resident
-  h2d.copy       the cuMemcpyHtoDAsync chunk loop of one block: from
-                 pageable memory the driver stages each chunk on the host
-                 inside these calls (code: the source's tier, COPY_TIERS)
+  h2d.copy       the cuMemcpyHtoDAsync chunk loop of one block (code: the
+                 source's tier, COPY_TIERS): from pageable memory the
+                 driver stages each chunk on the host inside these calls;
+                 a registered source is read in place by the DMA; a
+                 verified block from an unregistered source is staged:
+                 each chunk is copied into the worker's own pinned slots
+                 inside the loop, and the DMA reads the slot
   verify.wait    the verify launch through the result's fetch, the copies'
                  completions and the stream sync (code: 0 or 1 on failure)
   reg.window     CudaPath::registerWindow (code: REG_OUTCOMES)
@@ -53,7 +57,7 @@ REG_OUTCOMES = ("hit", "registered", "fallback_overlap",
                 "fallback_in_transit", "fallback_budget",
                 "fallback_no_victim", "fallback_refused", "unavailable")
 # h2d.copy's code (span_log.h CopyTier)
-COPY_TIERS = ("pageable", "registered")
+COPY_TIERS = ("pageable", "registered", "staged")
 # records per recording thread (8 MiB each, in virtual memory, of which a
 # ring's pages are touched as it fills): a 51 s window of 8 MiB verified
 # blocks records about 6 per block, some 35,000 per reader at 3 GiB/s over

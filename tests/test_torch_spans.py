@@ -114,9 +114,10 @@ def test_refused_pin_is_named(mock, monkeypatch):
     tid = windows[0].tid
     for w in windows:  # each refusal is the pin inside its window request
         assert [p.code for p in _inside(w, got, "reg.pin")] == [1]
+    # the unregistered blocks go through the worker's pinned slots
     copies = [s for s in got if s.name == "h2d.copy" and s.tid == tid]
     assert [c.code for c in copies] == \
-        [spans.COPY_TIERS.index("pageable")] * BLOCKS
+        [spans.COPY_TIERS.index("staged")] * BLOCKS
 
 
 def test_small_ring_drops_and_does_not_block(mock):

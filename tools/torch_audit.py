@@ -121,8 +121,8 @@ REPORT = _j("build", "torch_audit_report.txt")
 # the resource pairs CudaPath declares (csrc/CONCURRENCY.md lists what
 # each one pairs); each must keep at least one BEGIN in cuda_path.cpp
 PORT_PAIRS = ("tracker", "reg_intransit", "copy_hold", "dev_buf", "rot_buf",
-              "bounce_scratch", "xfer_mgr", "stripe_unit", "ckpt_shard",
-              "ingest_epoch", "reshard_unit")
+              "bounce_scratch", "xfer_mgr", "stage_ring", "stripe_unit",
+              "ckpt_shard", "ingest_epoch", "reshard_unit")
 
 CORE_CAPI = _j("core", "src", "capi.cpp")
 CUDA_CAPI = _j(CSRC, "cuda_capi.cpp")
